@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the opportunistic spot-scheduling system.
+
+Mirrors the JAX package ``repro`` module by module and imports nothing of
+it (nor JAX).  This slice runs the paper's single delay-constrained queue:
+``repro_torch.core.run_sweep`` drives a (params × k × seeds) fleet through
+the hand-written CUDA batched-event kernel on an NVIDIA H100, or through
+its plain PyTorch version on the CPU (``device="cpu"``).
+"""
+from repro_torch.core import run_sim, run_sweep
+from repro_torch.core.threefry import key
+
+__all__ = ["key", "run_sim", "run_sweep"]

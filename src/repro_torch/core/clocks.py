@@ -1,0 +1,177 @@
+"""The slab stream: raw bits per window, consumed by static column.
+
+One counter-based :func:`~repro_torch.core.threefry.bits32` call generates a
+``(window_events, n_cols)`` slab of 32-bit words per float32 window
+(:func:`window_slab`); the event body reads its draws by static column
+index (:class:`SlabLayout`) and turns bits into uniforms and exponentials
+with plain arithmetic (:func:`u01`, :func:`exp_from_u`).  The lane key
+advances once per window, not per event.  Words are int64 tensors holding
+32-bit values (see :mod:`repro_torch.core.threefry`).
+
+This is the only stream of the port so far; the per-event split ladder
+(``rng="split"``) is still to be ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import threefry
+
+#: uint32 slab columns reserved when a kernel hook is *not* slab-aware: two
+#: raw key words stand in for a legacy PRNG key.
+KEY_SYNTH_COLS = 2
+
+
+def u01(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> float32 uniforms on [0, 1) (24-bit resolution)."""
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def exp_from_u(u: torch.Tensor) -> torch.Tensor:
+    """Unit-rate exponential via inverse CDF (the sampler's ``-log1p(-U)``)."""
+    return -torch.log1p(-u)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabLayout:
+    """Static column map of one event's slab row.
+
+    Spans are ``(start, n)`` column ranges; modes say how the kernel hook
+    consumes its span: ``"u"`` = slab-aware hook receiving float32
+    uniforms, ``"key"`` = two raw columns standing in for a legacy key,
+    ``"none"`` = hook absent.  The preempt span is always two columns:
+    [superposed clock draw, thinning pick].
+    """
+
+    n_cols: int
+    job: tuple[int, int]
+    spot: tuple[int, int]
+    admit: tuple[int, int]
+    admit_mode: str  # "u" | "key"
+    market_admit: bool  # admit span feeds admit_market (vs plain admit)
+    preempt: tuple[int, int] | None
+    on_preempt: tuple[int, int] | None
+    on_preempt_mode: str  # "u" | "key" | "none"
+    route: tuple[int, int] | None
+    route_mode: str  # "u" | "key" | "none"
+
+    def bits(self, x: torch.Tensor, span: tuple[int, int]) -> torch.Tensor:
+        """Raw words of one span (static slice of the last axis)."""
+        return x[..., span[0]:span[0] + span[1]]
+
+    def uniforms(self, x: torch.Tensor, span: tuple[int, int]) -> torch.Tensor:
+        """One span as float32 uniforms on [0, 1)."""
+        return u01(self.bits(x, span))
+
+
+def kernel_slab_cols(kernel, hook: str, n: int) -> int | None:
+    """Columns a kernel's slab-aware ``hook`` owns, or None for fallback.
+
+    A kernel is slab-aware for ``hook`` iff it defines BOTH ``{hook}_u``
+    and ``slab_cols(hook, n)`` returning a non-None count (``n`` is the
+    pool/region count, for choice rules whose width depends on it).
+    """
+    if getattr(kernel, hook + "_u", None) is None:
+        return None
+    slab_cols = getattr(kernel, "slab_cols", None)
+    if slab_cols is None:
+        return None
+    return slab_cols(hook, n)
+
+
+def choice_cols(choice: str, n: int) -> int:
+    """Uniform columns a pool/region choice rule consumes."""
+    if choice == "uniform":
+        return 1
+    if choice == "weighted":
+        return n
+    return 0  # deterministic argmin rules (and "home") draw nothing
+
+
+def build_slab_layout(kernel, *, job_udim: int, spot_udim: int, n: int = 1,
+                      preempt_on: bool = False, has_route: bool = False,
+                      market: bool = False) -> SlabLayout:
+    """Assign a run's slab columns: engine clocks first, hooks after.
+
+    Column order is [job refresh | spot refresh | admit hook | preempt
+    clock+pick | on_preempt hook | route hook]; spans the configuration
+    does not need are absent, so a degenerate configuration's layout is
+    exactly the simpler loop's.
+    """
+    cursor = 0
+
+    def take(width: int) -> tuple[int, int]:
+        nonlocal cursor
+        span = (cursor, width)
+        cursor += width
+        return span
+
+    job = take(job_udim)
+    spot = take(spot_udim)
+    market_admit = market and hasattr(kernel, "admit_market")
+    hook = "admit_market" if market_admit else "admit"
+    cols = kernel_slab_cols(kernel, hook, n)
+    admit_mode = "key" if cols is None else "u"
+    admit = take(KEY_SYNTH_COLS if cols is None else cols)
+    preempt = take(2) if preempt_on else None
+    on_preempt, on_preempt_mode = None, "none"
+    if preempt_on and hasattr(kernel, "on_preempt"):
+        cols = kernel_slab_cols(kernel, "on_preempt", n)
+        on_preempt_mode = "key" if cols is None else "u"
+        on_preempt = take(KEY_SYNTH_COLS if cols is None else cols)
+    route, route_mode = None, "none"
+    if has_route:
+        cols = kernel_slab_cols(kernel, "route", n)
+        route_mode = "key" if cols is None else "u"
+        route = take(KEY_SYNTH_COLS if cols is None else cols)
+    return SlabLayout(
+        n_cols=max(cursor, 1), job=job, spot=spot, admit=admit,
+        admit_mode=admit_mode, market_admit=market_admit, preempt=preempt,
+        on_preempt=on_preempt, on_preempt_mode=on_preempt_mode, route=route,
+        route_mode=route_mode)
+
+
+def process_udim(proc) -> int:
+    """Uniform columns an arrival process needs per draw."""
+    dim = getattr(proc, "u_dim", None)
+    if dim is None:
+        raise NotImplementedError(
+            f"{proc!r} has no slab sampler (u_dim/sample_u); the split "
+            "stream that would run it is not ported yet (ROADMAP.md "
+            "Queue 1 item 7)")
+    return int(dim)
+
+
+def window_slab(key: torch.Tensor, n_events: int, n_cols: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance ``(..., 2)`` lane keys one window; return
+    ``(new_key, (..., n_events, n_cols) slab)``."""
+    ks = threefry.split(key)
+    return ks[..., 0, :], threefry.bits32(ks[..., 1, :], (n_events, n_cols))
+
+
+def window_slab_keys(key: torch.Tensor, n_windows: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-window key ladder of :func:`window_slab` without the slabs:
+    ``(slab_keys (..., n_windows, 2), key after the last window)``.  Window
+    ``w``'s slab is ``bits32(slab_keys[..., w, :], (n_events_w, n_cols))``."""
+    slab_keys = []
+    for _ in range(n_windows):
+        ks = threefry.split(key)
+        key = ks[..., 0, :]
+        slab_keys.append(ks[..., 1, :])
+    return torch.stack(slab_keys, dim=-2), key
+
+
+def lane_window_slabs(key: torch.Tensor, plan: tuple[int, ...],
+                      n_cols: int) -> torch.Tensor:
+    """All of the lanes' window slabs, ``(..., n_windows, max_ev, n_cols)``,
+    each window zero-padded up to the plan maximum."""
+    max_ev = max(plan)
+    slabs = []
+    for n_ev in plan:
+        key, slab = window_slab(key, n_ev, n_cols)
+        slabs.append(torch.nn.functional.pad(slab, (0, 0, 0, max_ev - n_ev)))
+    return torch.stack(slabs, dim=-3)

@@ -1,0 +1,97 @@
+"""Threefry-2x32, the counter-based generator behind the engine's randomness.
+
+The port's counterpart of the parts of ``jax.random`` the engine uses, bitwise
+the JAX stream under ``jax_threefry_partitionable=True`` (the JAX 0.9
+default):
+
+* a key is two 32-bit words, an int64 tensor of shape ``(..., 2)``;
+  :func:`key` makes ``[seed >> 32, seed & 0xFFFFFFFF]``;
+* :func:`split` is the fold-like split: subkey ``i`` is both words of
+  ``threefry2x32(key, (0, i))``;
+* :func:`bits32` hashes the flat element index ``(hi, lo)`` and returns
+  ``x0 ^ x1`` (a scalar shape uses counter ``(0, 0)``);
+* :func:`uniform` puts the top 23 bits under the exponent of 1.0 and
+  subtracts 1; :func:`exponential` is ``-log1p(-uniform)``.  The uniforms
+  are bitwise JAX's; the exponentials are within one ulp of them, because
+  ``log1p`` itself rounds differently in XLA and in PyTorch.
+
+Every word lives in an int64 tensor masked to 32 bits, because PyTorch on
+the CPU has no uint32 add or shift.  Leading key dimensions batch: a
+``(lanes, 2)`` key gives one independent stream per lane.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & MASK
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, c0, c1
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of counters ``(c0, c1)`` under key
+    words ``(k0, k1)``; all four broadcast.  Returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (c0 + ks[0]) & MASK
+    x1 = (c1 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x0, x1
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """Raw key of an integer seed, as ``jax.random.key(seed)`` holds it."""
+    return torch.tensor([(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _counters(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & MASK
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``(..., 2)`` key -> ``(..., n, 2)`` subkeys (``jax.random.split``)."""
+    hi, lo = _counters(n, key.device)
+    x0, x1 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def bits32(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """``(..., 2)`` key -> ``(..., *shape)`` raw 32-bit words
+    (``jax.random.bits(key, shape, uint32)``)."""
+    shape = tuple(shape)
+    hi, lo = _counters(math.prod(shape), key.device)
+    x0, x1 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
+    return (x0 ^ x1).reshape(key.shape[:-1] + shape)
+
+
+def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms on ``[minval, maxval)`` (``jax.random.uniform``)."""
+    bits = bits32(key, shape)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    floats = floats - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # JAX's CPU backend fuses ``floats * (hi - lo) + lo`` into one rounding
+    # (an FMA); the float64 product of two float32 values is exact, so one
+    # float64 add and the cast back round the same way.
+    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def exponential(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """Unit-rate float32 exponentials (``jax.random.exponential``)."""
+    return -torch.log1p(-uniform(key, shape))

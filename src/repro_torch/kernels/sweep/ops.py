@@ -1,0 +1,19 @@
+"""Public entry of the batched-event sweep kernel: dispatch by device.
+
+A fleet whose state lies on a CUDA device goes to the hand-written kernel
+(:mod:`repro_torch.kernels.sweep.sweep`), which launches or raises; a fleet
+on the CPU goes to the kernel's plain PyTorch version (``ref.py``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.sweep.ref import batched_event_windows_ref
+from repro_torch.kernels.sweep.sweep import batched_event_windows
+
+
+def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan):
+    """Run stacked event windows; see ``batched_event_windows``."""
+    if state.key.device.type == "cpu":
+        return batched_event_windows_ref(job, spot, kernel, rmax, state,
+                                         params, k_cost, plan)
+    return batched_event_windows(job, spot, kernel, rmax, state, params,
+                                 k_cost, plan)

@@ -1,0 +1,226 @@
+"""ctypes wrapper of the hand-written CUDA batched-event kernel (csrc/sweep.cu).
+
+The kernel runs a fleet of single-queue lanes through a static plan of
+event windows (burn-in, chunks, tail), one warp per lane, with the lane
+state in registers across all windows and the slab's random bits drawn in
+the kernel from each window's key.  The wrapper computes those keys with
+the torch threefry (:func:`~repro_torch.core.clocks.window_slab_keys`),
+turns the arrival, policy and wait descriptors into integer codes and
+float32 constants, checks every tensor, allocates the outputs and launches
+on the current stream.  The library is built with ``nvcc`` from the
+repository's source at first use, into ``build/kernels/`` at the root of
+the checkout.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.core.arrivals import (BathtubGCP, Deterministic, Exponential,
+                                       Gamma, Uniform)
+from repro_torch.core.clocks import window_slab_keys
+from repro_torch.core.engine import (EngineState, WindowStats, _engine_layout)
+from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
+from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
+                                       InfiniteWait, TwoPointWait)
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+#: slots per thread the kernel is instantiated for (rmax <= 32 * 8)
+MAX_RMAX = 256
+#: one warp draws an event's slab row, one column per thread
+MAX_COLS = 32
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the sweep kernel is built at first "
+                       "use and needs the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/sweep.cu into a shared library named by its content
+    hash (a no-op when it exists); returns its path."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"libsweep_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose and proc.stderr:
+        print(proc.stderr.strip())
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    lib.sweep_launch.argtypes = [ctypes.c_void_p] * 4
+    lib.sweep_launch.restype = ctypes.c_int
+    lib.sweep_error_string.argtypes = [ctypes.c_int]
+    lib.sweep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _arrival(proc) -> tuple[int, list[float], int]:
+    """(code, four float32 constants, columns) of an arrival process, in
+    the form ``sample_arrival`` in csrc/sweep.cu reads it."""
+    if isinstance(proc, Exponential):
+        return 0, [1 / np.float32(proc.rate_)], 1
+    if isinstance(proc, Gamma) and proc.u_dim is not None:
+        return 1, [proc.scale], proc.u_dim
+    if isinstance(proc, Uniform):
+        return 2, [proc.low, proc.high - proc.low], 1
+    if isinstance(proc, Deterministic):
+        return 3, [proc.value], 0
+    if isinstance(proc, BathtubGCP):
+        return 4, [proc.A, proc.tau1, proc.tau2, proc.b], 3
+    raise NotImplementedError(f"the sweep kernel has no sampler for {proc!r}")
+
+
+_WAIT_CODES = {InfiniteWait: (0, ()), TwoPointWait: (1, ("p", "value")),
+               ExponentialWait: (2, ("rate",)),
+               DeterministicWait: (3, ("value",))}
+
+
+def _policy(kernel, params: dict, lanes: int, device):
+    """(policy code, wait code, pa, pb): the kernel's per-lane params as
+    the two float32 arrays the CUDA kernel reads."""
+    zero = torch.zeros(lanes, dtype=torch.float32, device=device)
+    if isinstance(kernel, ThreePhaseKernel):
+        return 0, 0, params["r"], zero
+    if isinstance(kernel, SingleSlotKernel) and type(kernel.wait) in _WAIT_CODES:
+        code, names = _WAIT_CODES[type(kernel.wait)]
+        cols = [params["wait"][n] for n in names] + [zero, zero]
+        return 1, code, cols[0], cols[1]
+    raise NotImplementedError(f"the sweep kernel has no policy {kernel!r}")
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"sweep kernel: {name} must be a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"sweep kernel: {name} must be {dtype} of shape "
+                         f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"sweep kernel: {name} must be contiguous")
+
+
+def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of 32-bit words -> the same bits as int32."""
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
+                          params: dict, k_cost: torch.Tensor,
+                          plan: tuple[int, ...]
+                          ) -> tuple[EngineState, WindowStats]:
+    """Run every lane through the windows of ``plan`` in one kernel launch.
+
+    Same contract as :func:`repro_torch.kernels.sweep.ref.batched_event_windows_ref`:
+    ``state`` holds ``(lanes, ...)`` CUDA tensors, ``params`` the kernel's
+    per-lane float32 params, ``k_cost`` the per-lane on-demand price.
+    Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)``.
+    Raises if the kernel cannot be built or launched; it never falls back.
+    """
+    layout = _engine_layout(job, spot, kernel)
+    lanes, device = state.key.shape[0], state.key.device
+    if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
+        raise ValueError(f"sweep kernel: need lanes >= 1 and 1 <= rmax <= "
+                         f"{MAX_RMAX}, got {lanes} lanes, rmax {rmax}")
+    if layout.n_cols > MAX_COLS:
+        raise ValueError(f"sweep kernel: a slab row of {layout.n_cols} "
+                         f"columns exceeds the warp's {MAX_COLS}")
+    if max(plan) * layout.n_cols >= 2**32:
+        raise ValueError("sweep kernel: a window's slab index must fit in "
+                         "32 bits")
+    policy, wait, pa, pb = _policy(kernel, params, lanes, device)
+    job_code, job_c, job_n = _arrival(job)
+    spot_code, spot_c, spot_n = _arrival(spot)
+
+    slab_keys, final_key = window_slab_keys(state.key, len(plan))
+    win_keys = _as_int32_words(slab_keys).contiguous()
+    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
+    w = len(plan)
+    f32, i32 = torch.float32, torch.int32
+    inputs = [("next_job", state.next_job, f32, (lanes,)),
+              ("next_spot", state.next_spot, f32, (lanes,)),
+              ("ages", state.ages, f32, (lanes, rmax)),
+              ("budgets", state.budgets, f32, (lanes, rmax)),
+              ("occ", state.occ, torch.bool, (lanes, rmax)),
+              ("order", state.order, i32, (lanes, rmax)),
+              ("next_seq", state.next_seq, i32, (lanes,)),
+              ("qlen", state.qlen, i32, (lanes,)),
+              ("window keys", win_keys, i32, (lanes, w, 2)),
+              ("plan", plan_t, i32, (w,)),
+              ("k_cost", k_cost, f32, (lanes,)),
+              ("policy param a", pa, f32, (lanes,)),
+              ("policy param b", pb, f32, (lanes,))]
+    for name, x, dtype, shape in inputs:
+        _check(name, x, dtype, shape)
+
+    out = EngineState(
+        key=final_key,
+        next_job=torch.empty(lanes, dtype=f32, device=device),
+        next_spot=torch.empty(lanes, dtype=f32, device=device),
+        ages=torch.empty(lanes, rmax, dtype=f32, device=device),
+        budgets=torch.empty(lanes, rmax, dtype=f32, device=device),
+        occ=torch.empty(lanes, rmax, dtype=torch.bool, device=device),
+        order=torch.empty(lanes, rmax, dtype=i32, device=device),
+        next_seq=torch.empty(lanes, dtype=i32, device=device),
+        qlen=torch.empty(lanes, dtype=i32, device=device))
+    istats = torch.empty(6, lanes, w, dtype=i32, device=device)
+    fstats = torch.empty(4, lanes, w, dtype=f32, device=device)
+
+    ptrs = np.array([x.data_ptr() for _, x, _, _ in inputs]
+                    + [x.data_ptr() for x in out[1:]]
+                    + [istats.data_ptr(), fstats.data_ptr()], np.int64)
+    icfg = np.array([lanes, rmax, w, layout.n_cols, job_code, spot_code,
+                     policy, wait, layout.job[0], layout.spot[0],
+                     layout.admit[0], job_n, spot_n], np.int32)
+    fcfg = np.zeros(8, np.float32)
+    fcfg[:len(job_c)] = job_c
+    fcfg[4:4 + len(spot_c)] = spot_c
+
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sweep_launch(ptrs.ctypes.data, icfg.ctypes.data,
+                              fcfg.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel launch failed: "
+                           f"{lib.sweep_error_string(rc).decode()}")
+    batched_event_windows.launches += 1
+    stats = WindowStats(jobs_arrived=istats[0], jobs_completed=istats[1],
+                        spot_served=istats[2], ondemand=istats[3],
+                        cost_sum=fstats[0], delay_sum=fstats[1],
+                        time_elapsed=fstats[2], empty_time=fstats[3],
+                        spot_arrivals=istats[4], spot_found_empty=istats[5])
+    return out, stats
+
+
+#: launches of the kernel since the count was last set to 0
+batched_event_windows.launches = 0

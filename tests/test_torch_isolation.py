@@ -1,0 +1,46 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROGRAM = """
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["repro"] = None
+sys.path.insert(0, {src!r})
+import numpy as np
+import repro_torch
+from repro_torch.core import Exponential, ThreePhaseKernel, run_sweep
+out = run_sweep(Exponential(1 / 12), Exponential(1 / 24), ThreePhaseKernel(),
+                {{"r": np.array([1.0, 2.5])}}, n_events=200, n_seeds=2,
+                rmax=8, key=repro_torch.key(0), device="cpu")
+assert out["avg_cost"].shape == (2, 2) and np.isfinite(out["avg_cost"]).all()
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("isolated")
+"""
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c",
+                           _PROGRAM.format(src=str(SRC))],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("isolated")
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.MULTILINE)
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    assert len(files) >= 15
+    offenders = [f"{path.relative_to(SRC)}: {m.group(0).strip()}"
+                 for path in files
+                 for m in _FORBIDDEN.finditer(path.read_text())]
+    assert offenders == []
