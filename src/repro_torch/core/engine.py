@@ -41,6 +41,7 @@ from repro_torch.core.arrivals import ArrivalProcess, Gamma
 from repro_torch.core.clocks import SlabLayout, build_slab_layout, process_udim
 from repro_torch.core.policies import SingleSlotKernel
 from repro_torch.core.waittime import INF
+from repro_torch.device import resolve_device
 _ORDER_MAX = 2**31 - 1
 
 #: float32 window sums are re-zeroed every 2**16 events and assembled in
@@ -311,13 +312,7 @@ def _resolve(device, impl: str | None, rng: str, job, spot, name: str):
                 f"{name}: a Gamma process needs jax.random.gamma's rejection "
                 "sampler for its initial clock, which is not ported yet "
                 "(ROADMAP.md Queue 1 item 7)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{name}: no CUDA device; pass device='cpu' to run the plain "
-                "PyTorch version on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = resolve_device(device, name)
     if impl is None:
         return device
     if impl not in ("cuda", "ref"):

@@ -8,17 +8,12 @@ the torch threefry (:func:`~repro_torch.core.clocks.window_slab_keys`),
 turns the arrival, policy and wait descriptors into integer codes and
 float32 constants, checks every tensor, allocates the outputs and launches
 on the current stream.  The library is built with ``nvcc`` from the
-repository's source at first use, into ``build/kernels/`` at the root of
-the checkout.
+repository's source at first use (:mod:`repro_torch.kernels._build`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -31,11 +26,11 @@ from repro_torch.core.engine import (EngineState, WindowStats, _engine_layout)
 from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
 from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
                                        InfiniteWait, TwoPointWait)
+from repro_torch.kernels._build import KernelLibrary, load
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+LIBRARY = KernelLibrary(
+    "sweep", Path(__file__).resolve().parent / "csrc" / "sweep.cu",
+    ("--fmad=false",))
 
 #: slots per thread the kernel is instantiated for (rmax <= 32 * 8)
 MAX_RMAX = 256
@@ -43,40 +38,9 @@ MAX_RMAX = 256
 MAX_COLS = 32
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the sweep kernel is built at first "
-                       "use and needs the CUDA toolkit")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/sweep.cu into a shared library named by its content
-    hash (a no-op when it exists); returns its path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libsweep_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = load(LIBRARY)
     lib.sweep_launch.argtypes = [ctypes.c_void_p] * 4
     lib.sweep_launch.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]

@@ -13,6 +13,38 @@ import torch
 
 RTOL = 1e-5
 
+# Attention and the LM stack (tests/test_torch_attention.py,
+# tests/test_torch_lm.py, tests/test_torch_cuda.py):
+#: float32 values of O(1): RTOL, plus an absolute floor for the few that
+#: cancel to near zero (an attention output, a rotated pair, a GELU), where
+#: two float32 sums of O(1) terms in another order sit ~1e-7 apart and a
+#: relative test alone would fail
+F32_ATOL = 1e-6
+#: bfloat16 outputs of two float32 computations: within one bf16 ulp
+#: (8 bits of mantissa), where the float32 values straddle a rounding
+#: boundary
+BF16_RTOL = 2.0**-7
+#: float32 model logits against the JAX package (measured JAX-vs-JAX
+#: between its "pallas" and "chunked" prefill on qwen1.5-4b SMOKE: 2.1e-6)
+LOGITS_F32 = dict(rtol=1e-4, atol=1e-5)
+#: bf16 model logits: from the 2.7e-2 measured between two correct JAX
+#: paths ("pallas" and "chunked") on qwen1.5-4b SMOKE
+LOGITS_BF16_ATOL = 5e-2
+
+
+def attn_tol(dtype) -> dict:
+    """Tolerance of an attention output of ``dtype`` against another
+    float32-inside computation of the same function."""
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else RTOL
+    return dict(rtol=rtol, atol=F32_ATOL)
+
+
+def as_np(x) -> np.ndarray:
+    """A tensor or array (bf16 included) as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(np.asarray(x).astype(np.float32))
+
 
 def ulps(a, b) -> int:
     """Largest distance in units in the last place between two float32
@@ -42,5 +74,5 @@ def assert_close(ref, port, int_fields, context=""):
 def cuda_device():
     """The GPU, or a skip where there is none (decided at run time)."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; the sweep kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
     return torch.device("cuda")

@@ -1,4 +1,4 @@
-"""The CUDA sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where there is no GPU (the kernel has no
 CPU mode). This file imports neither JAX nor the JAX package, so it runs on
@@ -8,18 +8,24 @@ a machine that has only PyTorch; there, from the repository root:
 
 (``--noconftest``: tests/conftest.py imports JAX.)
 
-Tolerance: integer statistics and the final join orders, occupancy,
-counters and keys bitwise; float32 sums and clocks to rtol 1e-5 (see
-tests/_torch_parity.py). A Gamma job's first clock is drawn exponential:
-the port has no Gamma initial sampler yet; every later draw is Gamma's.
+Tolerance of the sweep kernel: integer statistics and the final join
+orders, occupancy, counters and keys bitwise; float32 sums and clocks to
+rtol 1e-5 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
+exponential: the port has no Gamma initial sampler yet; every later draw
+is Gamma's.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
+1e-6 floor near zero), bf16 outputs within one bf16 ulp.
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, cuda_device  # noqa: F401
+from _torch_parity import assert_close, attn_tol, cuda_device  # noqa: F401
 import repro_torch.core as T
 from repro_torch.core import engine, threefry
+from repro_torch.kernels.decode_attention import (decode_attention_bh,
+                                                  decode_attention_bh_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_bh,
+                                                 flash_attention_bh_ref)
 from repro_torch.kernels.sweep import (batched_event_windows,
                                        batched_event_windows_ref)
 
@@ -79,3 +85,75 @@ def test_cuda_launch_count_and_device_checks(cuda_device):
     assert batched_event_windows.launches == before + 1
     with pytest.raises(ValueError, match="float32"):
         batched_event_windows(job, spot, kernel, 8, s0, p, k.double(), (100,))
+
+
+def _normals(device, dtype, seed, *shapes):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in shapes]
+
+
+def _attn_close(ref, got):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               **attn_tol(got.dtype))
+
+
+FLASH_CASES = [
+    # (BH, g, Sq, Sk, D, causal, bq, bk, q_offset, sk_valid)
+    (4, 4, 128, 128, 64, True, 64, 64, 0, None),
+    (2, 3, 128, 384, 128, True, 64, 128, 256, None),
+    (2, 8, 64, 256, 64, False, 32, 64, 0, None),
+    (3, 1, 64, 64, 16, True, 64, 64, 0, None),
+    (2, 2, 96, 96, 32, True, 96, 32, 0, None),   # bq not a multiple of 32
+    (1, 2, 64, 192, 32, False, 32, 64, 40, 150),  # keys masked past 150
+    (1, 2, 64, 192, 32, True, 32, 64, 40, 150),
+    (2, 2, 16, 16, 64, True, 128, 128, 0, None),  # one 16-key sub-tile
+    (1, 3, 48, 48, 32, True, 128, 128, 0, None),  # sub-tiles of 32 and 16
+    (2, 1, 40, 40, 128, False, 128, 128, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_kernel_matches_plain_version(cuda_device, case, dtype):
+    BH, g, Sq, Sk, D, causal, bq, bk, off, valid = case
+    q, k, v = _normals(cuda_device, dtype, 3, (BH, g, Sq, D), (BH, Sk, D),
+                       (BH, Sk, D))
+    before = flash_attention_bh.launches
+    got = flash_attention_bh(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                             q_offset=off, sk_valid=valid)
+    torch.cuda.synchronize()
+    assert flash_attention_bh.launches == before + 1
+    _attn_close(flash_attention_bh_ref(q, k, v, causal=causal, q_offset=off,
+                                       sk_valid=valid), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [0, 1, 77, 256, 320])
+def test_cuda_decode_kernel_matches_plain_version(cuda_device, dtype, kv_len):
+    """kv_len 0 (zeros), inside a tile, at a tile's end and full."""
+    BH, g, S, D = 6, 4, 320, 64
+    q, k, v = _normals(cuda_device, dtype, 4, (BH, g, D), (BH, S, D),
+                       (BH, S, D))
+    got = decode_attention_bh(q, k, v, kv_len, block_k=64)
+    torch.cuda.synchronize()
+    _attn_close(decode_attention_bh_ref(q, k, v, kv_len), got)
+    if kv_len == 0:
+        assert not got.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_check_their_inputs(cuda_device):
+    q = torch.zeros(2, 1, 100, 32, device=cuda_device)
+    k = torch.zeros(2, 128, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="must tile"):
+        flash_attention_bh(q, k, k, block_q=64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_bh(q.cpu(), k.cpu(), k.cpu(), block_q=100)
+    with pytest.raises(ValueError, match="g <= 8"):
+        decode_attention_bh(torch.zeros(2, 9, 32, device=cuda_device), k, k,
+                            5, block_k=64)

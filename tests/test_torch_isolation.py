@@ -18,6 +18,12 @@ out = run_sweep(Exponential(1 / 12), Exponential(1 / 24), ThreePhaseKernel(),
                 {{"r": np.array([1.0, 2.5])}}, n_events=200, n_seeds=2,
                 rmax=8, key=repro_torch.key(0), device="cpu")
 assert out["avg_cost"].shape == (2, 2) and np.isfinite(out["avg_cost"]).all()
+import importlib, pkgutil
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+from repro_torch.launch import serve
+served = serve.main(["--requests", "2", "--max-new", "1"], device="cpu")
+assert served["completed"] == 2
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("isolated")
@@ -39,7 +45,7 @@ _FORBIDDEN = re.compile(
 
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 40
     offenders = [f"{path.relative_to(SRC)}: {m.group(0).strip()}"
                  for path in files
                  for m in _FORBIDDEN.finditer(path.read_text())]
