@@ -1,12 +1,12 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure raises and exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (sweep, flash attention, decode attention), one ``nvcc`` each, all
+2. build the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+   (sweep, flash attention, decode attention, SSD), one ``nvcc`` each, all
    started together, with ptxas's registers, shared memory and spills;
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
@@ -50,9 +50,40 @@ Phases (each prints one line; any failure raises and exits nonzero):
    long one (flash: one row of the prefill_32k cell, B 1, S 32,768,
    causal; decode: B 16, S 32,768 full), beside its plain version where
    memory allows and ``F.scaled_dot_product_attention`` as the library
-   yardstick (timed here only; the port never calls it).
+   yardstick (timed here only; the port never calls it);
+9. the SSD kernel against its plain versions on the card: the JAX
+   package's SSD test shapes in float32 and bf16, property-test shapes,
+   chunk continuity (Q 16 against Q 128), against the sequential
+   recurrence; and the full-width layer shape (B 8, L 4,096, H 48, P 64,
+   N 128, Q 256, bf16) against the chunked scan.  Float32 rtol 1e-4, bf16
+   rtol one ulp, each with an absolute floor of twice the difference
+   between the two plain versions on the same inputs (``ssd_tolerance``);
+10. mamba2-780m scoring at full width (all 48 layers, the published
+   widths, random weights from a seeded generator): ``MambaLM.loss`` on a
+   ``DataPipeline(seed=0)`` batch of 8 × 4,096 tokens (train_4k's length,
+   its batch cut from 256 to 8) through the SSD kernel and through the
+   plain chunked scan, in bf16 and in float32, one bf16 call under
+   ``torch.profiler``; the SSD count is set to 0
+   just before the kernel's call and must read 48 after it.  On that
+   seed and two more, the two bf16 losses must agree within twice the
+   floor printed beside them: the spread of the loss over five plain
+   versions at full depth (the chunked scan at Q 256, 128, 64 and 32, the
+   sequential recurrence); each line also says whether they agree within
+   1x.  Float32 to rtol 1e-4;
+11. spot-aware serving on mamba2-780m at full width, the stream of phase 6;
+   the SSD count must read 0 across it (prefill takes the chunked scan, as
+   in the JAX package), with a teacher-forced check of ``decode_step``
+   against prefills: float32 (a twin with the same weights) to rtol 1e-4 /
+   atol 1e-4 (the check of ``decode_step``); bf16 within twice the bf16
+   prefill's distance from the twin's, and the twin's greedy token
+   wherever the twin's top-1/top-2 margin exceeds that limit;
+12. the SSD kernel alone (CUDA events) at the full-width layer shape and at
+   one row of prefill_32k (B 1, L 32,768), B and C read in place as the
+   model hands them over and from contiguous copies, beside the plain
+   chunked scan and its bound; no single PyTorch call computes SSD
+   (``library_ms`` null).
 
-The next-to-last line is a JSON object describing the three kernels
+The next-to-last line is a JSON object describing the four kernels
 (times, bound, launches, error against the plain version); the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -107,6 +138,14 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_bh)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, flash_attention_bh_ref)
+from repro_torch.data.pipeline import DataPipeline  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ssd import ssd_cuda  # noqa: E402
+from repro_torch.layers.norms import rms_norm  # noqa: E402
+from repro_torch.layers.ssm import mamba_block  # noqa: E402
+from repro_torch.models.base import cross_entropy_chunked  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import (BatchedServer,  # noqa: E402
                                         SpotServingFrontend)
@@ -429,23 +468,25 @@ def phase_main_path(entry: dict) -> None:
           f"(limit 5e-3·k)", flush=True)
 
 def phase_build() -> None:
-    """The three libraries, one nvcc each, all started together."""
+    """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
     results = _build.build(sweep.LIBRARY, flash_mod.LIBRARY,
-                           decode_mod.LIBRARY, verbose=True)
+                           decode_mod.LIBRARY, ssd_mod.LIBRARY,
+                           verbose=True)
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
         for line in res.ptxas.splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 print(f"  {line.strip()}", flush=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s wall for all three; "
-          f"dynamic shared memory a block: flash "
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for all "
+          f"{len(results)}; dynamic shared memory a block: flash "
           f"{flash_mod.smem_bytes(torch.bfloat16, HEAD_DIM)} B (bf16, D "
           f"{HEAD_DIM}), {flash_mod.smem_bytes(torch.float32, HEAD_DIM)} B "
           f"(f32); decode {decode_mod.smem_bytes(torch.bfloat16, 1, HEAD_DIM)}"
           f" B (bf16, g 1), {decode_mod.smem_bytes(torch.float32, 1, HEAD_DIM)}"
-          f" B (f32); the sweep none", flush=True)
+          f" B (f32); SSD {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); the "
+          f"sweep none", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -615,23 +656,16 @@ def median_max(xs) -> str:
             f"ms over {xs.size}")
 
 
-def phase_serving(flash: dict, decode: dict):
-    """The serving main path: the spot-aware frontend on the full-width
-    model.  Both attention kernels' counts are set to 0 just before the
-    stream and read just after."""
-    t0 = time.perf_counter()
-    model = full_width_model()
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: qwen1.5-4b, {model.cfg.num_layers} layers, d_model "
-          f"{model.cfg.d_model}, {n_params / 1e9:.3f}e9 parameters bf16, "
-          f"built on the card in {time.perf_counter() - t0:.1f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
-          flush=True)
+def serve_stream(model, name: str, kernels) -> tuple[dict, dict, dict]:
+    """The spot-aware frontend on ``model``: a warm-up generate at the
+    stream's shapes, then 8 requests of PROMPT tokens and MAX_NEW new ones,
+    batch 4, the launcher's controller.  The launch counts of ``kernels``
+    (wrappers) are set to 0 just before the stream and read just after.
+    Returns (the stream summary, launches by wrapper name, the timings)."""
     server = BatchedServer(model, max_batch=SERVE_B, max_len=CACHE,
                            device=DEVICE)
-    # warm-up outside the stream: cuBLAS handles and the kernel's first
-    # launch, at the stream's shapes
+    # warm-up outside the stream: cuBLAS handles and the kernels' first
+    # launches, at the stream's shapes
     warm = np.random.default_rng(1).integers(2, model.cfg.vocab_size,
                                              size=(SERVE_B, PROMPT))
     server.generate(list(warm.astype(np.int32)), 2)
@@ -643,46 +677,72 @@ def phase_serving(flash: dict, decode: dict):
                                 controller=ctl, k_cost=10.0,
                                 batch_size=SERVE_B, seed=MAIN_SEED)
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_bh.launches = decode_attention_bh.launches = 0
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     out = front.run_stream(Exponential(1 / 2.0), n_requests=8,
                            prompt_len=PROMPT, max_new=MAX_NEW,
                            vocab=model.cfg.vocab_size)
     wall = time.perf_counter() - t0
-    flash_launches = flash_attention_bh.launches
-    decode_launches = decode_attention_bh.launches
-    prefills = len(server.timings)
-    flash["launches"], decode["launches"] = flash_launches, decode_launches
-    if flash_launches != model.cfg.num_layers * prefills:
-        raise AssertionError(f"serving: {flash_launches} flash launches for "
-                             f"{prefills} prefills of "
-                             f"{model.cfg.num_layers} layers")
+    launches = {k.__name__: k.launches for k in kernels}
     if out["completed"] != 8 or not all(
             len(r.tokens_out) == MAX_NEW and
             all(0 <= t < model.cfg.vocab_size for t in r.tokens_out)
             for r in front.completed):
-        raise AssertionError(f"serving: {out['completed']} of 8 completed "
-                             "or tokens out of range")
+        raise AssertionError(f"{name} serving: {out['completed']} of 8 "
+                             "completed or tokens out of range")
     t = server.timings
     ttft = [x["prefill_s"] for x in t]
-    prefill_tps = sum(x["batch"] * x["prompt"] for x in t) / sum(ttft)
-    decode_tps = (sum(x["batch"] * x["new_tokens"] for x in t)
-                  / sum(x["decode_s"] for x in t))
-    step_s = [x["decode_s"] / x["new_tokens"] for x in t]
-    batches = [x["batch"] for x in t]
-    print(f"serving stream: {json.dumps(out)}", flush=True)
-    print(f"serving: {prefills} generate calls (batches {batches}) in "
-          f"{wall:.2f} s wall; TTFT {median_max(ttft)}; prefill "
-          f"{prefill_tps:.0f} tokens/s; decode {decode_tps:.1f} tokens/s "
-          f"(step {median_max(step_s)}); flash launches {flash_launches} "
-          f"= {model.cfg.num_layers} x {prefills} prefills; decode-kernel "
-          f"launches "
-          f"{decode_launches} (no model calls it); peak "
+    stats = dict(
+        serving_stream=out, serving_wall_s=wall, ttft_s=ttft,
+        prefill_tokens_per_s=sum(x["batch"] * x["prompt"] for x in t)
+        / sum(ttft),
+        decode_tokens_per_s=sum(x["batch"] * x["new_tokens"] for x in t)
+        / sum(x["decode_s"] for x in t),
+        decode_step_s=[x["decode_s"] / x["new_tokens"] for x in t],
+        batches=[x["batch"] for x in t])
+    print(f"{name} serving stream: {json.dumps(out)}", flush=True)
+    print(f"{name} serving: {len(t)} generate calls (batches "
+          f"{stats['batches']}) in {wall:.2f} s wall; TTFT "
+          f"{median_max(ttft)}; prefill {stats['prefill_tokens_per_s']:.0f} "
+          f"tokens/s; decode {stats['decode_tokens_per_s']:.1f} tokens/s "
+          f"(step {median_max(stats['decode_step_s'])}); launches "
+          f"{launches}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    flash.update(serving_stream=out, serving_wall_s=wall, ttft_s=ttft,
-                 prefill_tokens_per_s=prefill_tps,
-                 decode_tokens_per_s=decode_tps, decode_step_s=step_s,
-                 batches=batches)
+    return out, launches, stats
+
+
+def built(name: str, model, t0: float) -> None:
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: {name}, {model.cfg.num_layers} layers, d_model "
+          f"{model.cfg.d_model}, {n_params / 1e9:.3f}e9 parameters "
+          f"{model.cfg.dtype}, built on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+
+
+def phase_serving(flash: dict, decode: dict):
+    """The serving main path: the spot-aware frontend on the full-width
+    qwen1.5-4b.  Both attention kernels' counts are set to 0 just before
+    the stream and read just after: flash 40 a prefill, decode 0."""
+    t0 = time.perf_counter()
+    model = full_width_model()
+    built("qwen1.5-4b", model, t0)
+    _, launches, stats = serve_stream(
+        model, "qwen1.5-4b", (flash_attention_bh, decode_attention_bh))
+    prefills = len(stats["batches"])
+    flash["launches"] = launches["flash_attention_bh"]
+    decode["launches"] = launches["decode_attention_bh"]
+    if flash["launches"] != model.cfg.num_layers * prefills:
+        raise AssertionError(f"serving: {flash['launches']} flash launches "
+                             f"for {prefills} prefills of "
+                             f"{model.cfg.num_layers} layers")
+    print(f"qwen1.5-4b serving: flash launches {flash['launches']} = "
+          f"{model.cfg.num_layers} x {prefills} prefills; decode-kernel "
+          f"launches {decode['launches']} (no model calls it)", flush=True)
+    flash.update(stats)
     return model
 
 
@@ -750,34 +810,47 @@ def phase_float32_prefill(result: dict) -> None:
           f"{LOGITS_F32['rtol']}, atol {LOGITS_F32['atol']})", flush=True)
 
 
-def phase_profile(model) -> dict:
-    """One generate call (prompt 512, 4 new tokens, batch 4) under
-    torch.profiler: device time by kernel and the device's idle share."""
+def profile_call(label: str, fn) -> dict:
+    """``fn()`` once under torch.profiler: the device's busy time, its idle
+    share of the host wall time, and the ten longest device rows.  Busy
+    time sums the rows that ran on the device (kernels, copies, sets);
+    the host's operator rows carry their kernels' time again and are left
+    out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not rows:
+        raise AssertionError(f"profile {label}: no device rows")
+    busy_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    print(f"profile: {label} {wall_us / 1e3:.1f} ms wall, device busy "
+          f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / wall_us:.3f}",
+          flush=True)
+    for name, us, count in rows[:10]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}", flush=True)
+    return {"profile_wall_ms": wall_us / 1e3, "profile_busy_ms": busy_us / 1e3,
+            "profile_top": [(n[:60], us / 1e3, c) for n, us, c in rows[:10]]}
+
+
+def phase_profile(model) -> dict:
+    """One generate call (prompt 512, 4 new tokens, batch 4) under
+    torch.profiler."""
     server = BatchedServer(model, max_batch=SERVE_B, max_len=CACHE,
                            device=DEVICE)
     prompts = list(np.random.default_rng(3).integers(
         2, model.cfg.vocab_size, size=(SERVE_B, PROMPT)).astype(np.int32))
     server.generate(prompts, 4)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.generate(prompts, 4)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    print(f"profile: one generate (batch {SERVE_B}, prompt {PROMPT}, 4 new "
-          f"tokens) {wall_us / 1e3:.1f} ms wall, device busy "
-          f"{busy_us / 1e3:.1f} ms, idle share "
-          f"{1 - busy_us / wall_us:.3f}", flush=True)
-    for name, us, count in rows[:10]:
-        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}", flush=True)
-    return {"profile_wall_ms": wall_us / 1e3, "profile_busy_ms": busy_us / 1e3,
-            "profile_top": [(n[:60], us / 1e3, c) for n, us, c in rows[:10]]}
+    return profile_call(f"one generate (batch {SERVE_B}, prompt {PROMPT}, "
+                        f"4 new tokens)", lambda: server.generate(prompts, 4))
 
 
 def phase_attention_timings(flash: dict, decode: dict) -> None:
@@ -843,6 +916,413 @@ def phase_attention_timings(flash: dict, decode: dict) -> None:
         del q, k, v, q4, k4, v4, out, ref
 
 
+# ---------------------------------------------------------------------------
+# the SSD kernel and mamba2-780m
+# ---------------------------------------------------------------------------
+#: tests/test_kernels.py's SSD_CASES: (B, L, H, P, N, Q), then a chunk that
+#: is not a multiple of the kernel's 64-row tiles
+SSD_CASES = [
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 256, 4, 64, 32, 64),
+    (1, 64, 8, 16, 128, 64),
+    (1, 192, 3, 64, 128, 96),
+]
+#: test_ssd_property's shapes (Q 32, D 0): (B, chunks, H, P, N)
+SSD_PROPERTY = [(1, 1, 1, 16, 16), (2, 3, 2, 32, 64), (2, 4, 4, 32, 64)]
+#: mamba2-780m's layer: 48 heads of P 64, state 128, chunk 256; scoring at
+#: train_4k's sequence length with the batch cut from 256 to 8
+SSD_H, SSD_P, SSD_N, SSD_Q = 48, 64, 128, 256
+SCORE_B, SCORE_L = 8, 4_096
+SSD_LONG_L = 32_768  # one row of prefill_32k
+#: the full-width mamba2 losses in float32, kernel against plain scan
+LOSS_F32_RTOL = 1e-4
+#: the bf16 scoring check's seeds: weights from MAIN_SEED + s, the batch
+#: DataPipeline(seed=s); the first is the main path's run
+SCORE_SEEDS = (0, 1, 2)
+#: chunk lengths of the plain scan (besides the model's 256) whose losses,
+#: with the sequential recurrence's, make the bf16 scoring floor
+FLOOR_CHUNKS = (128, 64, 32)
+#: the kernel's bf16 loss is held to twice that floor: the floor is a
+#: spread of rounding noise from a few plain versions, and one more sample
+#: of the same noise (the kernel's) exceeds 1x its spread by chance alone
+#: in a good share of seeds, 2x rarely; the one-ulp layer parity and the
+#: float32 loss are the tight checks of the kernel
+LOSS_LIMIT_FLOORS = 2
+#: float32 logits of 48 layers, recurrent decode against chunked prefill:
+#: the two sum in other orders in every layer; 4.8e-5 was measured on an
+#: H100 at logits of |max| ~5, so the 1e-5 floor of the 2-layer CPU tests
+#: becomes 1e-4
+MAMBA_LOGITS_F32 = dict(rtol=1e-4, atol=1e-4)
+
+
+def ssd_inputs(seed, dtype, B, L, H, P, N, *, dt_shift=0.0, d_skip=1.0):
+    """x·0.5, dt = softplus(normal + dt_shift), B and C ·0.3, A_log =
+    log(1..H), D = d_skip: the JAX kernel tests' draws.  At the model's
+    widths ``dt_shift`` -4 puts dt near the model's [1e-3, 1e-1]."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    x = (normal(B, L, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(normal(B, L, H) + dt_shift)
+    b_in, c_in = ((normal(B, L, N) * 0.3).to(dtype) for _ in range(2))
+    a_log = torch.log(torch.arange(1, H + 1, device=DEVICE).float())
+    d = torch.full((H,), d_skip, device=DEVICE)
+    return x, dt, a_log, d, b_in, c_in
+
+
+def as_bc_slices(args) -> tuple:
+    """The SSD inputs with B and C laid out as ``mamba_block`` hands them
+    over: column slices of one [B, C] tensor, read in place."""
+    bc = torch.cat(args[4:], dim=-1)
+    N = args[4].shape[-1]
+    return (*args[:4], bc[..., :N], bc[..., N:])
+
+
+def ssd_tolerance(dtype, floor: float) -> dict:
+    """Float32 rtol 1e-4, bf16 one ulp, each with an absolute floor of
+    twice ``floor``, the largest difference between the two plain versions
+    (chunked scan, sequential recurrence) on the same inputs in float32,
+    and at least 1e-5 (float32) or 1e-6 (bf16)."""
+    if dtype == torch.bfloat16:
+        return dict(rtol=BF16_RTOL, atol=max(F32_ATOL, 2 * floor))
+    return dict(rtol=1e-4, atol=max(1e-5, 2 * floor))
+
+
+def hold_ssd(name, args, got, chunk, *, against: str = "ref"
+             ) -> tuple[float, float]:
+    """The kernel's output against a plain version (``ref``, the sequential
+    recurrence, or ``chunked``) on the same inputs; returns (max abs
+    difference, floor)."""
+    f32 = [a.float() for a in args]
+    seq = ssd_ref(*f32)
+    floor = float((ssd_chunked(*f32, chunk=chunk) - seq).abs().max())
+    want = ssd_ref(*args) if against == "ref" else ssd_chunked(
+        *args, chunk=chunk)
+    del seq, f32
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    a, b = want.float().cpu().numpy(), got.float().cpu().numpy()
+    if not np.all(np.isfinite(b)):
+        raise AssertionError(f"{name}: non-finite output")
+    np.testing.assert_allclose(b, a, err_msg=name,
+                               **ssd_tolerance(got.dtype, floor))
+    return float(np.abs(a - b).max()), floor
+
+
+def ssd_bound(B, L, H, P, N, Q, itemsize=2) -> tuple[float, str]:
+    """The larger of the operations at the bf16 tensor-core rate and the
+    bytes at HBM rate; ms and which.  Operations, 2 a multiply-add: C·Bᵀ
+    over the causal pairs s <= q (N a pair) once a (b, chunk), since B and
+    C are shared by the H heads; then a (b, h, chunk) its product with
+    x·dt over the same pairs (P a pair), C·h_prev and the state update
+    (Q·N·P each).  Bytes: x, B, C and y once in the input type, dt once in
+    float32."""
+    pairs = Q * (Q + 1) // 2
+    ops = 2 * B * (L // Q) * (pairs * N + H * (pairs * P + 2 * Q * N * P))
+    nbytes = itemsize * (2 * B * L * H * P + 2 * B * L * N) + 4 * B * L * H
+    t_ops, t_bytes = ops / PEAK_BF16, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_ssd_parity(ssd: dict) -> None:
+    """The kernel through ``ops.ssd`` against the plain versions: the test
+    shapes against the recurrence, the full-width layer against the
+    chunked scan.  Its launches here are reported apart from the main
+    path's."""
+    worst = worst_floor = 0.0
+    ssd_cuda.launches = 0
+    for i, (B, L, H, P, N, Q) in enumerate(SSD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(70 + i, dtype, B, L, H, P, N)
+            got = ssd_ops.ssd(*args, chunk=Q)
+            err, floor = hold_ssd(f"ssd case {i} {dtype}", args, got, Q)
+            worst, worst_floor = max(worst, err), max(worst_floor, floor)
+    for i, (B, nc, H, P, N) in enumerate(SSD_PROPERTY):
+        args = ssd_inputs(80 + i, torch.float32, B, nc * 32, H, P, N,
+                          d_skip=0.0)
+        got = ssd_ops.ssd(*args, chunk=32)
+        err, floor = hold_ssd(f"ssd property {i}", args, got, 32)
+        worst, worst_floor = max(worst, err), max(worst_floor, floor)
+    args = list(ssd_inputs(90, torch.float32, 1, 128, 2, 16, 16, d_skip=0.0))
+    args[2] = torch.zeros(2, device=DEVICE)  # A = -1
+    small, big = (ssd_ops.ssd(*args, chunk=q) for q in (16, 128))
+    np.testing.assert_allclose(small.cpu().numpy(), big.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5, err_msg="continuity")
+    cont = float((small - big).abs().max())
+    print(f"parity ssd: {len(SSD_CASES)} test shapes x f32/bf16 and "
+          f"{len(SSD_PROPERTY)} property shapes against the recurrence: max "
+          f"abs diff {worst:.3g} (the two plain versions differ by up to "
+          f"{worst_floor:.3g}); chunk 16 vs 128: {cont:.3g}", flush=True)
+
+    args = as_bc_slices(ssd_inputs(91, torch.bfloat16, SCORE_B, SCORE_L,
+                                   SSD_H, SSD_P, SSD_N, dt_shift=-4.0))
+    t0 = time.perf_counter()
+    got = ssd_ops.ssd(*args, chunk=SSD_Q)
+    err, floor = hold_ssd("ssd full-width layer", args, got, SSD_Q,
+                          against="chunked")
+    torch.cuda.synchronize()
+    print(f"parity ssd full-width layer {tuple(args[0].shape)} bf16 Q "
+          f"{SSD_Q}: kernel vs chunked scan max abs {err:.3g}; chunked vs "
+          f"recurrence (float32) {floor:.3g}; |y| max "
+          f"{float(got.float().abs().max()):.3g} ({time.perf_counter() - t0:.1f}"
+          f" s with the plain versions)", flush=True)
+    ssd.update(max_abs_err=max(worst, err), parity_floor=max(worst_floor,
+                                                             floor),
+               full_width_err=err, full_width_floor=floor,
+               parity_launches=ssd_cuda.launches)
+
+
+def mamba_model(dtype: str = "bfloat16", seed: int = MAIN_SEED, **changes):
+    """mamba2-780m at its published widths, the SSD kernel selected,
+    random weights from a seeded generator on the card."""
+    cfg = dataclasses.replace(get_config("mamba2-780m"), attn_impl="pallas",
+                              dtype=dtype, **changes)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return build_model(cfg, device=DEVICE, generator=gen)
+
+
+def scan_loss(model, batch, impl: str) -> float:
+    """``MambaLM.loss`` with every layer's scan set to ``impl``: "pallas"
+    (the kernel), "chunked" (the plain scan) or "ref" (the sequential
+    recurrence, which the model, as the JAX package's, never selects)."""
+    cfg = model.cfg
+    x = model.embed[batch["tokens"].long()]
+    for layer in model.layers:
+        h = rms_norm(layer["ln"], x, cfg.norm_eps)
+        x = x + mamba_block(layer["ssm"], model.dims, h,
+                            norm_eps=cfg.norm_eps, impl=impl)
+    x = rms_norm(model.final_norm, x, cfg.norm_eps)
+    return float(cross_entropy_chunked(x, model.lm_head, batch["targets"]))
+
+
+def timed_loss(model, batch, impl: str) -> tuple[float, float]:
+    """(loss, host seconds) of ``model.loss`` with ``attn_impl`` = impl."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, attn_impl=impl)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(model.loss(batch)[0])
+        return loss, time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+
+
+def hold_loss(model, batch, seed: int, loss_k: float, loss_p: float
+              ) -> dict:
+    """The kernel's bf16 loss against the plain chunked scan's, within
+    LOSS_LIMIT_FLOORS times a floor: the spread (largest less smallest) of
+    the loss over plain versions of the scan that differ from the model's
+    only in the order of their float32 sums, all at full depth: the
+    chunked scan at the model's chunk and at each of FLOOR_CHUNKS, and the
+    sequential recurrence."""
+    dims = model.dims
+    losses = {f"chunked Q {dims.chunk}": loss_p}
+    try:
+        for q in FLOOR_CHUNKS:
+            model.dims = dims._replace(chunk=q)
+            losses[f"chunked Q {q}"] = scan_loss(model, batch, "chunked")
+    finally:
+        model.dims = dims
+    t0 = time.perf_counter()
+    losses["recurrence"] = scan_loss(model, batch, "ref")
+    wall_r = time.perf_counter() - t0
+    floor = max(losses.values()) - min(losses.values())
+    err, limit = abs(loss_k - loss_p), LOSS_LIMIT_FLOORS * floor
+    print(f"mamba2-780m scoring seed {seed} bf16: loss kernel {loss_k:.6f}, "
+          f"plain chunked {loss_p:.6f}, difference {err:.3g}; floor "
+          f"{floor:.3g} = the spread of the plain losses ("
+          + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+          + f"; the recurrence {wall_r:.1f} s); within 1x the floor: "
+          f"{err <= floor}; limit {limit:.3g}", flush=True)
+    if not (np.isfinite(loss_k) and err <= limit):
+        raise AssertionError(f"scoring seed {seed}: kernel loss {loss_k} vs "
+                             f"plain {loss_p}: {err:.3g} > {limit:.3g}")
+    return dict(seed=seed, loss_kernel=loss_k, loss_plain=loss_p, err=err,
+                floor=floor)
+
+
+def phase_mamba_scoring(ssd: dict) -> None:
+    """The scoring main path: ``MambaLM.loss`` at full width through the
+    kernel (the SSD count set to 0 just before, 48 just after) and through
+    the plain scan, the two held within twice a floor of rounding noise,
+    on the main path's seed and on two more; then float32."""
+    t0 = time.perf_counter()
+    model = mamba_model()
+    built("mamba2-780m", model, t0)
+    batch = DataPipeline(model.cfg.vocab_size, SCORE_B, SCORE_L,
+                         seed=SCORE_SEEDS[0]).next(DEVICE)
+    timed_loss(model, batch, "pallas")  # warm-up: cuBLAS, first launches
+    torch.cuda.reset_peak_memory_stats()
+    ssd_cuda.launches = 0
+    loss_k, wall_k = timed_loss(model, batch, "pallas")
+    launches = ssd_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ssd["launches"] = launches
+    if launches != model.cfg.num_layers:
+        raise AssertionError(f"scoring: {launches} SSD launches for one loss "
+                             f"of {model.cfg.num_layers} layers")
+    loss_p, wall_p = timed_loss(model, batch, "chunked")
+    tokens = SCORE_B * SCORE_L
+    print(f"mamba2-780m scoring {SCORE_B} x {SCORE_L} bf16: SSD launches "
+          f"{launches}; {wall_k:.3f} s wall = {tokens / wall_k:.0f} scored "
+          f"tokens/s (plain chunked {wall_p:.3f} s); peak {peak:.2f} GiB",
+          flush=True)
+    ssd.update({f"score_{k}": v for k, v in profile_call(
+        f"one loss ({SCORE_B} x {SCORE_L} tokens, SSD kernel)",
+        lambda: model.loss(batch)).items()})
+    checks = [hold_loss(model, batch, SCORE_SEEDS[0], loss_k, loss_p)]
+    for seed in SCORE_SEEDS[1:]:
+        del model
+        torch.cuda.empty_cache()
+        model = mamba_model(seed=MAIN_SEED + seed)
+        other = DataPipeline(model.cfg.vocab_size, SCORE_B, SCORE_L,
+                             seed=seed).next(DEVICE)
+        checks.append(hold_loss(model, other, seed,
+                                timed_loss(model, other, "pallas")[0],
+                                timed_loss(model, other, "chunked")[0]))
+    del model
+    ssd.update(score_loss_kernel=loss_k, score_loss_plain=loss_p,
+               score_loss_err=checks[0]["err"],
+               score_loss_floor=checks[0]["floor"], score_loss_seeds=checks,
+               score_wall_s=wall_k, score_plain_wall_s=wall_p,
+               score_tokens_per_s=tokens / wall_k, score_peak_gib=peak)
+    torch.cuda.empty_cache()
+
+    model = mamba_model("float32")
+    loss_k, wall_k = timed_loss(model, batch, "pallas")
+    loss_p, _ = timed_loss(model, batch, "chunked")
+    np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_F32_RTOL,
+                               err_msg="float32 loss")
+    print(f"mamba2-780m scoring {SCORE_B} x {SCORE_L} float32: loss kernel "
+          f"{loss_k:.7f}, plain chunked {loss_p:.7f}, difference "
+          f"{abs(loss_k - loss_p):.3g} (rtol {LOSS_F32_RTOL}); {wall_k:.3f} "
+          f"s wall", flush=True)
+    ssd.update(score_f32_loss_err=abs(loss_k - loss_p))
+
+
+def phase_mamba_serving(ssd: dict) -> None:
+    """The serving main path on mamba2-780m at full width: no SSD launch
+    (prefill takes the chunked scan with its final state), and a
+    teacher-forced check of decode_step's logits against prefills."""
+    t0 = time.perf_counter()
+    model = mamba_model()
+    built("mamba2-780m", model, t0)
+    _, launches, stats = serve_stream(
+        model, "mamba2-780m", (ssd_cuda, flash_attention_bh,
+                               decode_attention_bh))
+    if any(launches.values()):
+        raise AssertionError(f"mamba2 serving launched {launches}; the "
+                             "stream runs no kernel")
+    ssd.update({k if k.startswith("serving") else f"serving_{k}": v
+                for k, v in stats.items()})
+    ssd["serving_launches"] = launches["ssd_cuda"]
+
+    toks = torch.as_tensor(np.random.default_rng(MAIN_SEED + 1).integers(
+        2, model.cfg.vocab_size, size=(SERVE_B, PROMPT)), device=DEVICE)
+    # a float32 twin with the bf16 model's weights exactly: the two plain
+    # paths (recurrent decode, chunked prefill) are held tightly there, and
+    # that is the check of decode_step.  The bf16 model's own distance from
+    # the twin is the bf16 floor; bf16 logits of 48 layers spread so far
+    # that their limit catches only gross faults, so bf16 is also held to
+    # the greedy token where the twin's top-1/top-2 margin exceeds twice
+    # that floor, as the CPU tests hold it against JAX
+    twin = mamba_model("float32")
+    twin.load_state_dict({k: v.float() for k, v in
+                          model.state_dict().items()})
+    logits, cache = model.prefill({"tokens": toks})
+    _, cache32 = twin.prefill({"tokens": toks})
+    cur = logits[:, -1].argmax(-1)
+    seq, dec, dec32 = [cur], [], []
+    for _ in range(MAX_NEW - 1):
+        lg, cache = model.decode_step({"tokens": cur[:, None]}, cache)
+        lg32, cache32 = twin.decode_step({"tokens": cur[:, None]}, cache32)
+        dec.append(lg[:, 0])
+        dec32.append(lg32[:, 0])
+        cur = lg[:, 0].argmax(-1)
+        seq.append(cur)
+    worst = worst32 = floor = 0.0
+    agree = 0
+    greedy = []  # (bf16 decode's token, the twin's, the twin's margin)
+    for t, (lg, lg32) in enumerate(zip(dec, dec32)):
+        prefix = {"tokens": torch.cat([toks, torch.stack(seq[:t + 1], 1)],
+                                      dim=1)}
+        ref, ref32 = model.prefill(prefix)[0][:, 0], twin.prefill(prefix)[0][:, 0]
+        np.testing.assert_allclose(lg32.cpu().numpy(), ref32.cpu().numpy(),
+                                   err_msg=f"float32 decode step {t}",
+                                   **MAMBA_LOGITS_F32)
+        worst32 = max(worst32, float((lg32 - ref32).abs().max()))
+        floor = max(floor, float((ref - ref32).abs().max()))
+        worst = max(worst, float((lg - ref).abs().max()))
+        agree += int((lg.argmax(-1) == ref.argmax(-1)).sum())
+        top2 = ref32.topk(2, dim=-1).values
+        greedy.append((lg.argmax(-1), ref32.argmax(-1),
+                       top2[:, 0] - top2[:, 1]))
+    share = agree / (len(dec) * SERVE_B)
+    limit = 2 * floor
+    held = missed = 0
+    for got, want, margin in greedy:
+        sure = margin > limit
+        held += int(sure.sum())
+        missed += int((got != want)[sure].sum())
+    print(f"mamba2-780m teacher-forced: decode_step logits vs prefill over "
+          f"prompt + generated ({PROMPT + 1}..{PROMPT + len(dec)} tokens) at "
+          f"{len(dec)} steps x {SERVE_B}: float32 max abs {worst32:.3g} "
+          f"(rtol {MAMBA_LOGITS_F32['rtol']}, atol "
+          f"{MAMBA_LOGITS_F32['atol']}); bf16 max "
+          f"abs {worst:.4g}, limit {limit:.4g} = twice the bf16 prefill's "
+          f"distance from its float32 twin ({floor:.4g}); greedy tokens "
+          f"agree {share:.4f}; where the twin's top-1/top-2 margin exceeds "
+          f"{limit:.4g}: {held} of {len(dec) * SERVE_B} positions, "
+          f"{missed} bf16 greedy tokens other than the twin's; logits |max| "
+          f"{float(logits.abs().max()):.3g}", flush=True)
+    if not worst <= limit or missed:
+        raise AssertionError(f"mamba2 teacher-forced decode: max abs "
+                             f"{worst:.4g} (limit {limit:.4g}); {missed} of "
+                             f"{held} greedy tokens off the twin's at a "
+                             f"clear margin")
+    ssd.update(teacher_forced_err=worst, teacher_forced_floor=floor,
+               teacher_forced_f32_err=worst32, teacher_forced_agree=share,
+               teacher_forced_margin_held=held)
+
+
+def phase_ssd_timings(ssd: dict) -> None:
+    """The kernel alone by CUDA events at the full-width layer shape and at
+    one prefill_32k row, beside the plain chunked scan and the bound; B and
+    C read in place as the model hands them over, and, to show what that
+    layout costs, from contiguous copies."""
+    for tag, B, L in (("", SCORE_B, SCORE_L), ("long_", 1, SSD_LONG_L)):
+        args = as_bc_slices(ssd_inputs(92, torch.bfloat16, B, L, SSD_H,
+                                       SSD_P, SSD_N, dt_shift=-4.0))
+        # warm-ups: the first call of each allocates its buffers
+        ssd_cuda(*args, chunk=SSD_Q)
+        ms, out = cuda_ms(lambda: ssd_cuda(*args, chunk=SSD_Q), 3)
+        packed = (*args[:4], args[4].contiguous(), args[5].contiguous())
+        ssd_cuda(*packed, chunk=SSD_Q)
+        packed_ms, _ = cuda_ms(lambda: ssd_cuda(*packed, chunk=SSD_Q), 3)
+        ssd_chunked(*args, chunk=SSD_Q)
+        plain_ms, ref = cuda_ms(lambda: ssd_chunked(*args, chunk=SSD_Q))
+        err = float((out.float() - ref.float()).abs().max())
+        b_ms, b_by = ssd_bound(B, L, SSD_H, SSD_P, SSD_N, SSD_Q)
+        ssd.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+                    f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
+                    f"{tag}library_ms": None, f"{tag}timing_err": err,
+                    f"{tag}contiguous_bc_ms": packed_ms})
+        print(f"ssd {tag or 'scoring_'}shape (B {B}, L {L}, H {SSD_H}, P "
+              f"{SSD_P}, N {SSD_N}, Q {SSD_Q}, bf16): kernel {ms:.3f} ms "
+              f"(B and C contiguous {packed_ms:.3f} ms), "
+              f"plain chunked {plain_ms:.3f} ms (max abs vs kernel "
+              f"{err:.3g}), bound {b_ms:.4f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / ms:.2f}% of it; no library call", flush=True)
+        del args, packed, out, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -887,12 +1367,22 @@ def main() -> int:
     phase_float32_prefill(flash)
     torch.cuda.empty_cache()
     phase_attention_timings(flash, decode)
+    torch.cuda.empty_cache()
+
+    ssd = {"name": "ssd_cuda", "route": "cuda",
+           "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+           "replaces": "src/repro/kernels/ssd/ssd.py:79"}
+    phase_ssd_parity(ssd)
+    phase_mamba_scoring(ssd)
+    phase_mamba_serving(ssd)
+    torch.cuda.empty_cache()
+    phase_ssd_timings(ssd)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {
         k: v for k, v in e.items() if k not in keys}
-        for e in (entry, flash, decode)]
+        for e in (entry, flash, decode, ssd)]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

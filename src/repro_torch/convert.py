@@ -2,8 +2,8 @@
 
 The analogue of loading weights: the parity tests build a state (raw
 threefry key words, ``EngineState`` leaves, params dicts, an LM's
-parameter tree and KV cache) in the JAX package, convert it with
-``np.asarray`` and hand it here.  Nothing in this module imports JAX.
+parameter tree, its KV cache or Mamba cache) in the JAX package, convert
+it with ``np.asarray`` and hand it here.  Nothing in this module imports JAX.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.engine import EngineState
 from repro_torch.models.lm import KVCache
+from repro_torch.models.mamba_lm import MambaCache
 
 
 def key_words(raw, device=None) -> torch.Tensor:
@@ -57,20 +58,45 @@ def _tensor(arr, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def tree_from_jax(tree: dict, device=None) -> dict:
+    """A (nested) JAX params dict with numpy leaves -> the same dict of
+    tensors, each of its leaf's type (bf16 included)."""
+    return {name: tree_from_jax(v, device) if isinstance(v, dict)
+            else _tensor(v, device) for name, v in tree.items()}
+
+
+def _unstack(prefix: str, tree: dict, state: dict, device) -> None:
+    """Leaves of a layer-stacked (nested) tree -> ``layers.<i>.<path>``."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _unstack(f"{prefix}{name}.", leaf, state, device)
+            continue
+        for i, layer in enumerate(_tensor(leaf, device)):
+            state[f"layers.{i}.{prefix}{name}"] = layer
+
+
 def lm_params_from_jax(tree: dict, device=None) -> dict:
-    """A JAX ``TransformerLM`` parameter tree with numpy leaves -> the state
-    dict of :class:`repro_torch.models.lm.TransformerLM`: the leading layer
-    axis of ``tree["layers"]`` is unstacked into ``layers.<i>.``."""
+    """A JAX LM parameter tree with numpy leaves (``TransformerLM`` or
+    ``MambaLM``) -> the state dict of the port's model of the same name:
+    the leading layer axis of ``tree["layers"]`` is unstacked into
+    ``layers.<i>.``, nested blocks included (a Mamba layer's
+    ``ssm.norm.scale``)."""
     state = {}
-    for block, leaves in tree["layers"].items():
-        for name, stacked in leaves.items():
-            stacked = _tensor(stacked, device)
-            for i, leaf in enumerate(stacked):
-                state[f"layers.{i}.{block}.{name}"] = leaf
+    _unstack("", tree["layers"], state, device)
     state["final_norm.scale"] = _tensor(tree["final_norm"]["scale"], device)
     state["lm_head"] = _tensor(tree["lm_head"], device)
     state["embed"] = _tensor(tree["embed"], device)
     return state
+
+
+def mamba_cache_from_jax(cache, device=None) -> MambaCache:
+    """A JAX ``MambaCache`` with numpy leaves -> the port's
+    :class:`repro_torch.models.mamba_lm.MambaCache`: ``conv`` in the
+    model's type, ``state`` float32."""
+    return MambaCache(conv=_tensor(cache.conv, device),
+                      state=_tensor(np.asarray(cache.state, np.float32),
+                                    device),
+                      index=int(cache.index))
 
 
 def kv_cache_from_jax(cache, device=None):

@@ -1,9 +1,9 @@
 """Model configuration: one dataclass covers all 10 assigned architectures.
 
 A copy of the JAX package's ``models/config.py``; ``torch_dtype`` maps the
-``dtype`` field to the tensor type.  The port runs the ``dense`` family
-(``repro_torch.models.registry``); the other fields are carried so that a
-configuration reads the same in both packages.
+``dtype`` field to the tensor type.  The port runs the ``dense`` and
+``ssm`` families (``repro_torch.models.registry``); the other fields are
+carried so that a configuration reads the same in both packages.
 """
 from __future__ import annotations
 

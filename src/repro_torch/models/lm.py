@@ -30,8 +30,9 @@ from repro_torch.layers.mlp import mlp, mlp_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rotary import apply_rope
 from repro_torch.device import resolve_device
-from repro_torch.models.base import (ParallelContext, embed_init,
-                                     lm_head_init, logits_for_tokens)
+from repro_torch.models.base import (ParallelContext, ParamTree,
+                                     embed_init, lm_head_init,
+                                     logits_for_tokens)
 from repro_torch.models.config import ModelConfig
 
 CACHE_DTYPE = torch.bfloat16
@@ -43,15 +44,6 @@ class KVCache(NamedTuple):
     k: torch.Tensor  # (L, B, S, KH, hd) bfloat16
     v: torch.Tensor
     index: int  # next write slot == number of valid tokens
-
-
-def _frozen(tree: dict) -> nn.ModuleDict:
-    """{"ln1": {"scale": t}, ...} -> modules of parameters that take no
-    gradient (the serving path)."""
-    return nn.ModuleDict({
-        name: nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                                for k, t in sub.items()})
-        for name, sub in tree.items()})
 
 
 class TransformerLM(nn.Module):
@@ -80,7 +72,7 @@ class TransformerLM(nn.Module):
         def ones():
             return {"scale": torch.ones(d, device=device)}
 
-        self.layers = nn.ModuleList(_frozen({
+        self.layers = nn.ModuleList(ParamTree({
             "ln1": ones(), "ln2": ones(),
             "attn": attention_init(d, cfg.num_heads, cfg.num_kv_heads,
                                    cfg.resolved_head_dim,
@@ -88,8 +80,7 @@ class TransformerLM(nn.Module):
                                    **init),
             "mlp": mlp_init(d, cfg.d_ff, variant=cfg.mlp_variant, **init),
         }) for _ in range(cfg.num_layers))
-        self.final_norm = nn.ParameterDict({"scale": nn.Parameter(
-            torch.ones(d, device=device), requires_grad=False)})
+        self.final_norm = ParamTree({"scale": torch.ones(d, device=device)})
         self.lm_head = nn.Parameter(
             lm_head_init(d, cfg.vocab_size, **init), requires_grad=False)
         self.embed = nn.Parameter(

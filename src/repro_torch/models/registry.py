@@ -1,4 +1,4 @@
-"""Model factory.  The port builds the ``dense`` family so far."""
+"""Model factory.  The port builds the ``dense`` and ``ssm`` families."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,8 +8,9 @@ import torch
 from repro_torch.models.base import ParallelContext
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import TransformerLM
+from repro_torch.models.mamba_lm import MambaLM
 
-_FAMILY_CLS = {"dense": TransformerLM}
+_FAMILY_CLS = {"dense": TransformerLM, "ssm": MambaLM}
 
 
 def build_model(cfg: ModelConfig, ctx: Optional[ParallelContext] = None, *,
@@ -19,6 +20,7 @@ def build_model(cfg: ModelConfig, ctx: Optional[ParallelContext] = None, *,
     if cfg.family not in _FAMILY_CLS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md Queue 1 item 14); the port builds 'dense'")
+            "(ROADMAP.md Queue 1 item 14); the port builds "
+            f"{sorted(_FAMILY_CLS)}")
     return _FAMILY_CLS[cfg.family](cfg, ctx, device=device,
                                    generator=generator)

@@ -13,7 +13,10 @@ orders, occupancy, counters and keys bitwise; float32 sums and clocks to
 rtol 1e-5 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
 exponential: the port has no Gamma initial sampler yet; every later draw
 is Gamma's.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
-1e-6 floor near zero), bf16 outputs within one bf16 ulp.
+1e-6 floor near zero), bf16 outputs within one bf16 ulp.  Of the SSD
+kernel: float32 rtol 1e-4 / atol 5e-5 against the sequential and the
+chunked plain versions (sums of N products in another order), bf16 one
+ulp.
 """
 import numpy as np
 import pytest
@@ -26,6 +29,9 @@ from repro_torch.kernels.decode_attention import (decode_attention_bh,
                                                   decode_attention_bh_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                  flash_attention_bh_ref)
+from repro_torch.kernels.ssd import (ForwardOnlyError, ssd_chunked, ssd_cuda,
+                                     ssd_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.sweep import (batched_event_windows,
                                        batched_event_windows_ref)
 
@@ -157,3 +163,96 @@ def test_cuda_attention_kernels_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="g <= 8"):
         decode_attention_bh(torch.zeros(2, 9, 32, device=cuda_device), k, k,
                             5, block_k=64)
+
+
+# ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # (B, L, H, P, N, Q): tests/test_kernels.py's SSD_CASES, then a chunk
+    # that is not a multiple of the kernel's 64-row tiles and a single
+    # short chunk
+    (2, 64, 4, 16, 16, 16),
+    (1, 128, 2, 32, 64, 32),
+    (2, 256, 4, 64, 32, 64),
+    (1, 64, 8, 16, 128, 64),
+    (1, 192, 3, 64, 128, 96),
+    (2, 16, 2, 8, 8, 16),
+]
+#: float32 rtol 1e-4 / atol 5e-5, bf16 one ulp (see tests/test_torch_ssd.py)
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=5e-5),
+           torch.bfloat16: dict(rtol=2.0**-7, atol=1e-6)}
+
+
+def _ssd_inputs(device, dtype, seed, B, L, H, P, N, a_log=None, d_skip=None):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = (normal(B, L, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(normal(B, L, H))
+    b_in, c_in = ((normal(B, L, N) * 0.3).to(dtype) for _ in range(2))
+    a_log = (torch.log(torch.arange(1, H + 1, device=device).float())
+             if a_log is None else a_log)
+    d_skip = torch.ones(H, device=device) if d_skip is None else d_skip
+    return x, dt, a_log, d_skip, b_in, c_in
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_kernel_matches_plain_version(cuda_device, case, dtype):
+    B, L, H, P, N, Q = case
+    args = _ssd_inputs(cuda_device, dtype, 3, B, L, H, P, N)
+    before = ssd_cuda.launches
+    got = ssd_ops.ssd(*args, chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, L, H, P)
+    for ref in (ssd_ref(*args), ssd_chunked(*args, chunk=Q)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_state_continuity_across_chunks(cuda_device):
+    H = 2
+    args = _ssd_inputs(cuda_device, torch.float32, 9, 1, 128, H, 16, 16,
+                       a_log=torch.zeros(H, device=cuda_device),
+                       d_skip=torch.zeros(H, device=cuda_device))
+    small = ssd_cuda(*args, chunk=16)
+    big = ssd_cuda(*args, chunk=128)
+    np.testing.assert_allclose(small.cpu().numpy(), big.cpu().numpy(),
+                               **SSD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_reads_bc_column_slices(cuda_device):
+    """B and C as mamba_block hands them over, column slices of one [B, C]
+    tensor, give the output of contiguous copies bitwise; a layout the
+    kernel cannot read raises."""
+    args = _ssd_inputs(cuda_device, torch.bfloat16, 4, 2, 128, 4, 32, 64)
+    bc = torch.cat(args[4:], dim=-1)
+    sliced = ssd_ops.ssd(*args[:4], bc[..., :64], bc[..., 64:], chunk=64)
+    torch.testing.assert_close(sliced, ssd_ops.ssd(*args, chunk=64),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="strides"):
+        ssd_cuda(*args[:4], args[4].transpose(0, 1).contiguous()
+                 .transpose(0, 1), args[5], chunk=64)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_checks_its_inputs(cuda_device):
+    args = _ssd_inputs(cuda_device, torch.float32, 1, 1, 48, 2, 8, 8)
+    with pytest.raises(ValueError, match="must tile by chunk=32"):
+        ssd_cuda(*args, chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_cuda(args[0], args[1].double(), *args[2:], chunk=16)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_cuda(*_ssd_inputs(cuda_device, torch.float32, 1, 1, 16, 1, 128,
+                              8), chunk=16)
+    x = args[0].clone().requires_grad_(True)
+    with pytest.raises(ForwardOnlyError):
+        ssd_ops.ssd(x, *args[1:], chunk=16)

@@ -24,6 +24,19 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 from repro_torch.launch import serve
 served = serve.main(["--requests", "2", "--max-new", "1"], device="cpu")
 assert served["completed"] == 2
+served = serve.main(["--arch", "mamba2-780m", "--requests", "2",
+                     "--max-new", "1"], device="cpu")
+assert served["completed"] == 2
+import dataclasses, torch
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.models.registry import build_model
+cfg = dataclasses.replace(get_config("mamba2-780m", smoke=True),
+                          attn_impl="pallas")
+model = build_model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+loss, _ = model.loss(DataPipeline(cfg.vocab_size, 2, 32).next(device="cpu"))
+assert torch.isfinite(loss) and 5.0 < float(loss) < 8.0
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules if sys.modules[m] is not None)
 print("isolated")
