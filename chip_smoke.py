@@ -5,9 +5,12 @@
 Phases (each prints one line; any failure raises and exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (sweep, flash attention, decode attention, SSD), one ``nvcc`` each, all
-   started together, with ptxas's registers, shared memory and spills;
+2. build the five CUDA kernel libraries from
+   ``src/repro_torch/kernels/*/csrc`` (sweep, flash attention on the tensor
+   cores and on the CUDA cores, decode attention, SSD), one ``nvcc`` each,
+   all started together, with ptxas's registers, shared memory and spills
+   (the tensor-core flash kernel must spill nothing, and ptxas must not
+   serialise its wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
@@ -26,17 +29,23 @@ Phases (each prints one line; any failure raises and exits nonzero):
    Both fleets are also held, kernel against plain version, on the exact
    inputs ``run_sweep`` gives the kernel, at a cut depth (4,608 events).
 5. the flash and decode attention kernels against their plain versions on
-   the JAX package's kernel-test shapes (float32 rtol 1e-5, bf16 within one
-   ulp), at 16- and 48-token prompts (partial key sub-tiles) and at the
-   serving shapes: flash at the prefill (B 4, S 512, H 20, D 128, bf16,
-   causal), decode at (B 4, S 544, KH 20, D 128) over several fill levels;
+   the JAX package's kernel-test shapes, at 16- and 48-token prompts
+   (partial key tiles), GQA g 4 at D 128 with 40 and 96 query rows (rows
+   that fill no 64-row warpgroup), q_offset / sk_valid, and at the serving
+   shapes: flash at the prefill (B 4, S 512, H 20, D 128, bf16, causal),
+   decode at (B 4, S 544, KH 20, D 128) over several fill levels.  Flash
+   runs both routes: every bf16 case of D 64 or 128 on the tensor cores,
+   held by the floor rule (``tc_tolerance``: rtol one bf16 ulp, atol twice
+   the distance between the plain version and its bf16-P twin, printed
+   beside each error), and every case on the CUDA cores (float32 rtol
+   1e-5, bf16 within one ulp, as before);
 6. spot-aware serving on qwen1.5-4b at full width (all 40 layers, the
    published widths, bf16, random weights from a seeded generator, flash
    attention): ``SpotServingFrontend`` with the launcher's controller, 8
    requests of 512 prompt tokens and 32 new tokens, batch 4.  The flash
-   kernel's launch count is set to 0 just before the stream and read just
-   after: it must be 40 a prefill.  Prints TTFT and prefill and decode
-   tokens/s;
+   kernels' launch counts are set to 0 just before the stream and read just
+   after: 40 tensor-core launches a prefill, none on the CUDA cores.
+   Prints TTFT and prefill and decode tokens/s;
 7. serving correctness: full-width bf16 prefill logits through the flash
    kernel against the plain version (atol 0.2, see ``LOGITS_ATOL``), beside
    two plain paths against each other; a teacher-forced check of
@@ -44,13 +53,16 @@ Phases (each prints one line; any failure raises and exits nonzero):
    generated tokens (plain attention: 513..544 tokens do not tile by 128),
    with the greedy tokens' agreement; one generate call under
    ``torch.profiler`` (device time by kernel, idle share); and the same
-   widths in float32, prefill logits kernel against plain version to rtol
-   1e-4, atol 1e-5;
+   widths in float32, prefill logits kernel (the CUDA-core route, 40
+   launches, none on the tensor cores) against plain version to rtol 1e-4,
+   atol 1e-5;
 8. each attention kernel alone (CUDA events) at the serving shapes and at a
    long one (flash: one row of the prefill_32k cell, B 1, S 32,768,
    causal; decode: B 16, S 32,768 full), beside its plain version where
    memory allows and ``F.scaled_dot_product_attention`` as the library
-   yardstick (timed here only; the port never calls it);
+   yardstick (timed here only; the port never calls it).  Flash on both
+   routes in the same run; at S 32,768 each route's last 256 query rows of
+   four heads are held to the plain version on those rows;
 9. the SSD kernel against its plain versions on the card: the JAX
    package's SSD test shapes in float32 and bf16, property-test shapes,
    chunk continuity (Q 16 against Q 128), against the sequential
@@ -83,9 +95,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    chunked scan and its bound; no single PyTorch call computes SSD
    (``library_ms`` null).
 
-The next-to-last line is a JSON object describing the four kernels
-(times, bound, launches, error against the plain version); the last is
-``{"ok": true, "device": {...}}``.
+The next-to-last line is a JSON object describing the four ported kernels
+(times, bound, launches, error against the plain version; flash with each
+route's time and launches); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -134,10 +146,11 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_mod)
-from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_bh)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402,E501
+    flash_attention_bh, flash_attention_simt, flash_attention_tc, route)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_ref, flash_attention_bh_ref)
+    attention_ref, flash_attention_bh_ref, from_groups, tc_tolerance,
+    to_groups)
 from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
@@ -470,21 +483,34 @@ def phase_main_path(entry: dict) -> None:
 def phase_build() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    results = _build.build(sweep.LIBRARY, flash_mod.LIBRARY,
-                           decode_mod.LIBRARY, ssd_mod.LIBRARY,
-                           verbose=True)
+    results = _build.build(sweep.LIBRARY, flash_mod.TC_LIBRARY,
+                           flash_mod.LIBRARY, decode_mod.LIBRARY,
+                           ssd_mod.LIBRARY, verbose=True)
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
         for line in res.ptxas.splitlines():
-            if "Used" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("Used", "spill", "Compiling",
+                                       "(C75")):
                 print(f"  {line.strip()}", flush=True)
+            if res.library != flash_mod.TC_LIBRARY:
+                continue
+            # the tensor-core kernel must neither spill nor have ptxas
+            # serialise its wgmma (C7508-C7518: setmaxnreg ignored, a wait
+            # injected, products serialised)
+            if ("spill" in line and " 0 bytes spill stores, 0 bytes spill "
+                    "loads" not in line) or any(
+                        f"(C75{n:02d})" in line for n in range(8, 19)):
+                raise AssertionError(f"the tensor-core flash kernel: "
+                                     f"{line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s wall for all "
-          f"{len(results)}; dynamic shared memory a block: flash "
-          f"{flash_mod.smem_bytes(torch.bfloat16, HEAD_DIM)} B (bf16, D "
-          f"{HEAD_DIM}), {flash_mod.smem_bytes(torch.float32, HEAD_DIM)} B "
-          f"(f32); decode {decode_mod.smem_bytes(torch.bfloat16, 1, HEAD_DIM)}"
-          f" B (bf16, g 1), {decode_mod.smem_bytes(torch.float32, 1, HEAD_DIM)}"
+          f"{len(results)}; dynamic shared memory a block: flash on the "
+          f"tensor cores {flash_mod.tc_smem_bytes(HEAD_DIM)} B (bf16, D "
+          f"{HEAD_DIM}), on the CUDA cores "
+          f"{flash_mod.smem_bytes(torch.bfloat16, HEAD_DIM)} B (bf16), "
+          f"{flash_mod.smem_bytes(torch.float32, HEAD_DIM)} B (f32); decode "
+          f"{decode_mod.smem_bytes(torch.bfloat16, 1, HEAD_DIM)} B (bf16, g "
+          f"1), {decode_mod.smem_bytes(torch.float32, 1, HEAD_DIM)}"
           f" B (f32); SSD {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); the "
           f"sweep none", flush=True)
 
@@ -534,6 +560,24 @@ def hold(name, ref, got) -> float:
     return float(np.abs(a - b).max())
 
 
+def hold_tc(name, plain, twin, got) -> tuple[float, float]:
+    """A tensor-core flash output against the float32 plain version, by the
+    floor rule (``tc_tolerance``: rtol one bf16 ulp, atol the larger of
+    F32_ATOL and twice the distance between ``twin``, the plain version
+    rounding P to bf16 where the kernel does, and ``plain``); returns (max
+    abs difference, floor)."""
+    if got.dtype != plain.dtype or got.shape != plain.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{plain.dtype} {tuple(plain.shape)}")
+    tol, floor = tc_tolerance(plain, twin)
+    a, b = plain.float().cpu().numpy(), got.float().cpu().numpy()
+    if not np.all(np.isfinite(b)):
+        raise AssertionError(f"{name}: non-finite output")
+    np.testing.assert_allclose(b, a, err_msg=f"{name} (floor {floor:.3g})",
+                               **tol)
+    return float(np.abs(a - b).max()), floor
+
+
 def causal_pairs(sq: int, sk: int, q_offset: int, sk_valid: int,
                  causal: bool) -> int:
     """Unmasked query-key pairs of one (bh, g) row block."""
@@ -564,44 +608,84 @@ def decode_bound(bh, g, d, kv_len, itemsize=2) -> tuple[float, str]:
                                        else "bytes")
 
 
+#: tensor-core cases beyond the test shapes (B, Sq, Sk, H, KH, D, causal,
+#: bq, bk, q_offset, sk_valid): GQA g 4 at D 128 with 40 and 96 query rows
+#: (no 64-row warpgroup filled), and offset / valid keys at D 128 and 64
+FA_TC_CASES = [
+    (2, 40, 40, 16, 4, 128, True, 128, 128, 0, None),
+    (2, 96, 96, 16, 4, 128, True, 128, 128, 0, None),
+    (1, 64, 192, 4, 2, 128, True, 32, 64, 40, 150),
+    (1, 64, 192, 4, 2, 64, False, 32, 64, 40, 150),
+]
+
+
 def phase_attention_parity(flash: dict, decode: dict) -> None:
     """Each kernel through its entry point against its plain version on
-    the card.  Its launch count over these calls is reported apart from
-    the main path's."""
-    worst_f = worst_d = 0.0
+    the card; flash on both routes.  Its launch counts over these calls are
+    reported apart from the main path's."""
+    worst_d = 0.0
+    worst = {"tc": 0.0, "simt": 0.0}
+    worst_floor = 0.0
     flash_attention_bh.launches = decode_attention_bh.launches = 0
+    flash_attention_tc.launches = flash_attention_simt.launches = 0
+
+    def check(name, q, k, v, **kw):
+        """``q, k, v`` through the entry point ops.flash_attention, and for
+        bf16 of D 64 or 128 (the tensor cores there) on the CUDA cores too:
+        the tensor cores by the floor rule, the CUDA cores by ``hold``."""
+        nonlocal worst_floor
+        blocks = {n: kw.pop(n) for n in ("block_q", "block_k") if n in kw}
+        plain = attention_ref(q, k, v, **kw)
+        routes = (("tc", "simt") if route(q.dtype, q.shape[-1]) == "tc"
+                  else ("simt",))
+        for r in routes:
+            if r == routes[0]:
+                got = fa_ops.flash_attention(q, k, v, **blocks, **kw)
+            else:
+                got = from_groups(flash_attention_bh(
+                    *to_groups(q, k, v), route=r, **blocks, **kw), q.shape[0])
+            if r == "tc":
+                twin = attention_ref(q, k, v, p_dtype=torch.bfloat16, **kw)
+                err, floor = hold_tc(f"{name} tc", plain, twin, got)
+                worst_floor = max(worst_floor, floor)
+            else:
+                err = hold(f"{name} simt", plain, got)
+            worst[r] = max(worst[r], err)
+
     for i, (B, Sq, Sk, H, KH, D, causal, bq, bk) in enumerate(FA_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = randn(10 + i, dtype, (B, Sq, H, D), (B, Sk, KH, D),
                             (B, Sk, KH, D))
-            off = Sk - Sq if causal else 0
-            got = fa_ops.flash_attention(q, k, v, causal=causal, block_q=bq,
-                                         block_k=bk, q_offset=off)
-            ref = attention_ref(q, k, v, causal=causal, q_offset=off)
-            worst_f = max(worst_f, hold(f"flash case {i} {dtype}", ref, got))
+            check(f"flash case {i} {dtype}", q, k, v, causal=causal,
+                  block_q=bq, block_k=bk, q_offset=Sk - Sq if causal else 0)
     q, k, v = randn(20, torch.float32, (1, 64, 4, 32), (1, 192, 2, 32),
                     (1, 192, 2, 32))
     for causal in (True, False):
-        kw = dict(causal=causal, q_offset=40, sk_valid=150)
-        got = fa_ops.flash_attention(q, k, v, block_q=32, block_k=64, **kw)
-        worst_f = max(worst_f, hold(f"flash offset/valid causal={causal}",
-                                    attention_ref(q, k, v, **kw), got))
-    # the launcher's 16-token prompts: one tile of 16 keys, a partial
-    # 32-key sub-tile in the kernel
+        check(f"flash offset/valid causal={causal}", q, k, v, block_q=32,
+              block_k=64, causal=causal, q_offset=40, sk_valid=150)
+    for i, (B, Sq, Sk, H, KH, D, causal, bq, bk, off, valid) in enumerate(
+            FA_TC_CASES):
+        q, k, v = randn(24 + i, torch.bfloat16, (B, Sq, H, D),
+                        (B, Sk, KH, D), (B, Sk, KH, D))
+        check(f"flash tensor-core case {i}", q, k, v, causal=causal,
+              block_q=bq, block_k=bk, q_offset=off, sk_valid=valid)
+    # the launcher's 16-token prompts: one tile of 16 keys (a partial
+    # 32-key sub-tile on the CUDA cores, a partial 128-key tile on the
+    # tensor cores)
     for S in (16, 48):
         q, k, v = randn(22, torch.bfloat16, *[(4, S, HEADS, HEAD_DIM)] * 3)
-        got = fa_ops.flash_attention(q, k, v, causal=True)
-        worst_f = max(worst_f, hold(f"flash S={S}", attention_ref(
-            q, k, v, causal=True), got))
+        check(f"flash S={S}", q, k, v, causal=True)
     q, k, v = randn(21, torch.bfloat16, *[(SERVE_B, PROMPT, HEADS,
                                            HEAD_DIM)] * 3)
-    got = fa_ops.flash_attention(q, k, v, causal=True)
-    worst_f = max(worst_f, hold("flash prefill shape", attention_ref(
-        q, k, v, causal=True), got))
+    check("flash prefill shape", q, k, v, causal=True)
     print(f"parity flash: {len(FA_CASES)} test shapes x f32/bf16, offset + "
-          f"valid keys, S 16 and 48 (partial key sub-tiles), prefill "
-          f"{tuple(q.shape)} bf16 causal: max abs diff {worst_f:.3g}",
-          flush=True)
+          f"valid keys, {len(FA_TC_CASES)} tensor-core shapes (GQA g 4, D "
+          f"128, 40 and 96 rows; offset + valid at D 128 and 64), S 16 and "
+          f"48, prefill {tuple(q.shape)} bf16 causal: tensor cores max abs "
+          f"diff {worst['tc']:.3g} (largest floor {worst_floor:.3g}, limit "
+          f"twice it), CUDA cores {worst['simt']:.3g}; launches "
+          f"{flash_attention_tc.launches} tensor-core, "
+          f"{flash_attention_simt.launches} CUDA-core", flush=True)
 
     for i, (B, S, H, KH, D, kvl, bk) in enumerate(DEC_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -621,8 +705,11 @@ def phase_attention_parity(flash: dict, decode: dict) -> None:
         if kvl == 0 and float(got.float().abs().max()) != 0.0:
             raise AssertionError("decode kv_len 0: output not zero")
     torch.cuda.synchronize()
-    flash.update(max_abs_err=worst_f,
-                 parity_launches=flash_attention_bh.launches)
+    flash.update(max_abs_err=max(worst.values()), tc_max_abs_err=worst["tc"],
+                 tc_floor=worst_floor, simt_max_abs_err=worst["simt"],
+                 parity_launches=flash_attention_bh.launches,
+                 tc_parity_launches=flash_attention_tc.launches,
+                 simt_parity_launches=flash_attention_simt.launches)
     decode.update(max_abs_err=worst_d,
                   entry_point_launches=decode_attention_bh.launches)
     print(f"parity decode: {len(DEC_CASES)} test shapes x f32/bf16, serving "
@@ -725,23 +812,32 @@ def built(name: str, model, t0: float) -> None:
 
 def phase_serving(flash: dict, decode: dict):
     """The serving main path: the spot-aware frontend on the full-width
-    qwen1.5-4b.  Both attention kernels' counts are set to 0 just before
-    the stream and read just after: flash 40 a prefill, decode 0."""
+    qwen1.5-4b.  The attention kernels' counts are set to 0 just before
+    the stream and read just after: flash 40 a prefill, all of them on the
+    tensor cores (bf16, D 128), none on the CUDA cores; decode 0."""
     t0 = time.perf_counter()
     model = full_width_model()
     built("qwen1.5-4b", model, t0)
     _, launches, stats = serve_stream(
-        model, "qwen1.5-4b", (flash_attention_bh, decode_attention_bh))
+        model, "qwen1.5-4b", (flash_attention_bh, flash_attention_tc,
+                              flash_attention_simt, decode_attention_bh))
     prefills = len(stats["batches"])
     flash["launches"] = launches["flash_attention_bh"]
+    flash["tc_launches"] = launches["flash_attention_tc"]
+    flash["simt_launches"] = launches["flash_attention_simt"]
     decode["launches"] = launches["decode_attention_bh"]
-    if flash["launches"] != model.cfg.num_layers * prefills:
-        raise AssertionError(f"serving: {flash['launches']} flash launches "
-                             f"for {prefills} prefills of "
-                             f"{model.cfg.num_layers} layers")
+    want = model.cfg.num_layers * prefills
+    if (flash["launches"], flash["tc_launches"],
+            flash["simt_launches"]) != (want, want, 0):
+        raise AssertionError(f"serving: flash launches {launches} for "
+                             f"{prefills} prefills of "
+                             f"{model.cfg.num_layers} layers: want {want} "
+                             f"on the tensor cores, 0 on the CUDA cores")
     print(f"qwen1.5-4b serving: flash launches {flash['launches']} = "
-          f"{model.cfg.num_layers} x {prefills} prefills; decode-kernel "
-          f"launches {decode['launches']} (no model calls it)", flush=True)
+          f"{model.cfg.num_layers} x {prefills} prefills, tensor cores "
+          f"{flash['tc_launches']}, CUDA cores {flash['simt_launches']}; "
+          f"decode-kernel launches {decode['launches']} (no model calls it)",
+          flush=True)
     flash.update(stats)
     return model
 
@@ -761,7 +857,8 @@ def phase_serving_correctness(model) -> dict:
         raise AssertionError(f"prefill logits kernel vs plain: max abs "
                              f"{err:.4g} > {LOGITS_ATOL}")
     print(f"prefill logits {tuple(toks.shape)} full width bf16, flash kernel "
-          f"vs plain version: max abs {err:.4g} (limit {LOGITS_ATOL}); two "
+          f"(tensor cores) vs plain version: max abs {err:.4g} (limit "
+          f"{LOGITS_ATOL}); two "
           f"plain paths (chunked vs naive): {floor:.4g}; logits |max| "
           f"{float(logits_p.abs().max()):.3g}", flush=True)
 
@@ -793,12 +890,18 @@ def phase_serving_correctness(model) -> dict:
 
 def phase_float32_prefill(result: dict) -> None:
     """The same widths in float32: prefill logits through the flash
-    kernel (float32 inputs) against the plain version, to the CPU tests'
-    float32 tolerance."""
+    kernel (float32 inputs: the CUDA-core route, 40 launches, none on the
+    tensor cores) against the plain version, to the CPU tests' float32
+    tolerance."""
     model = full_width_model("float32")
     toks = torch.as_tensor(np.random.default_rng(MAIN_SEED + 2).integers(
         2, model.cfg.vocab_size, size=(SERVE_B, PROMPT)), device=DEVICE)
+    flash_attention_tc.launches = flash_attention_simt.launches = 0
     logits_k, _ = prefill_with(model, "pallas", toks)
+    routes = (flash_attention_simt.launches, flash_attention_tc.launches)
+    if routes != (model.cfg.num_layers, 0):
+        raise AssertionError(f"float32 prefill: {routes[0]} CUDA-core and "
+                             f"{routes[1]} tensor-core flash launches")
     logits_p, _ = prefill_with(model, "naive", toks)
     a, b = logits_p.cpu().numpy(), logits_k.cpu().numpy()
     err = float(np.abs(a - b).max())
@@ -806,7 +909,8 @@ def phase_float32_prefill(result: dict) -> None:
                                **LOGITS_F32)
     result["float32_prefill_logits_err"] = err
     print(f"prefill logits {tuple(toks.shape)} full width float32, flash "
-          f"kernel vs plain version: max abs {err:.3g} (rtol "
+          f"kernel (CUDA cores, {routes[0]} launches, {routes[1]} on the "
+          f"tensor cores) vs plain version: max abs {err:.3g} (rtol "
           f"{LOGITS_F32['rtol']}, atol {LOGITS_F32['atol']})", flush=True)
 
 
@@ -860,35 +964,67 @@ def phase_attention_timings(flash: dict, decode: dict) -> None:
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
-    # flash, prefill: (B·KH, g, S, D) with g = 1 (MHA)
+    # flash, prefill: (B·KH, g, S, D) with g = 1 (MHA), on both routes
     for tag, B, S in (("", SERVE_B, PROMPT), ("long_", 1, LONG_S)):
         q, k, v = randn(50, bf16, (B * HEADS, 1, S, HEAD_DIM),
                         (B * HEADS, S, HEAD_DIM), (B * HEADS, S, HEAD_DIM))
-        flash_attention_bh(q, k, v, causal=True)  # warm-up
-        ms, out = cuda_ms(lambda: flash_attention_bh(q, k, v, causal=True), 3)
+        times, outs = {}, {}
+        # calls in a row: at the short shape, enough that the first call's
+        # launch latency does not set the mean (the same count for SDPA)
+        repeat = 3 if S > PROMPT else 50
+        for r in ("tc", "simt"):
+            flash_attention_bh(q, k, v, causal=True, route=r)  # warm-up
+            times[r], outs[r] = cuda_ms(lambda: flash_attention_bh(
+                q, k, v, causal=True, route=r),
+                1 if r == "simt" and S > PROMPT else repeat)
         q4, k4, v4 = (x.view(B, HEADS, S, HEAD_DIM) for x in (q, k, v))
         F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
         lib_ms, lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 3)
+            q4, k4, v4, is_causal=True), repeat)
+        sdpa_err = float((lib.float() - outs["tc"].view_as(lib).float())
+                         .abs().max())
         if S * S * B * HEADS * 4 <= 8 * 2**30:
-            plain_ms, ref = cuda_ms(lambda: flash_attention_bh_ref(
+            plain_ms, plain = cuda_ms(lambda: flash_attention_bh_ref(
                 q, k, v, causal=True))
-            hold(f"flash timing shape S={S}", ref, out)
+            twin = flash_attention_bh_ref(q, k, v, causal=True,
+                                          p_dtype=bf16)
+            rows = slice(None)
+            checked = "all rows"
         else:
-            plain_ms = None  # the S x S float32 scores do not fit
+            # the S x S float32 scores do not fit: the last 256 query rows
+            # of four heads, against the plain version on those rows
+            plain_ms = None
+            rows, heads = slice(S - 256, S), slice(0, 4)
+            kw = dict(causal=True, q_offset=S - 256)
+            qs = q[heads, :, rows].contiguous()
+            plain = flash_attention_bh_ref(qs, k[heads], v[heads], **kw)
+            twin = flash_attention_bh_ref(qs, k[heads], v[heads],
+                                          p_dtype=bf16, **kw)
+            outs = {r: o[heads] for r, o in outs.items()}
+            checked = "the last 256 rows of 4 heads"
+        err, floor = hold_tc(f"flash timing shape S={S} tc", plain, twin,
+                             outs["tc"][:, :, rows])
+        simt_err = hold(f"flash timing shape S={S} simt", plain,
+                        outs["simt"][:, :, rows])
         b_ms, b_by = flash_bound(B * HEADS, 1, S, S, HEAD_DIM, True)
-        sdpa_err = float((lib.float() - out.view_as(lib).float()).abs().max())
-        flash.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
-                      f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
-                      f"{tag}library_ms": lib_ms})
-        plain = ("n/a (S x S scores do not fit)" if plain_ms is None
-                 else f"{plain_ms:.3f} ms")
+        flash.update({f"{tag}ms": times["tc"], f"{tag}tc_ms": times["tc"],
+                      f"{tag}simt_ms": times["simt"],
+                      f"{tag}plain_ms": plain_ms, f"{tag}bound_ms": b_ms,
+                      f"{tag}bound_by": b_by, f"{tag}library_ms": lib_ms,
+                      f"{tag}tc_err": err, f"{tag}tc_floor": floor,
+                      f"{tag}simt_err": simt_err})
+        plain_t = ("n/a (S x S scores do not fit)" if plain_ms is None
+                   else f"{plain_ms:.3f} ms")
         print(f"flash {tag or 'prefill_'}shape (B {B}, S {S}, H {HEADS}, D "
-              f"{HEAD_DIM}, bf16, causal): kernel {ms:.3f} ms, plain {plain}"
-              f", SDPA {lib_ms:.3f} ms (max abs vs kernel {sdpa_err:.3g}), "
-              f"bound {b_ms:.4f} ms ({b_by}), kernel at "
-              f"{100 * b_ms / ms:.2f}% of it", flush=True)
-        del q, k, v, q4, k4, v4, out, lib
+              f"{HEAD_DIM}, bf16, causal): tensor cores {times['tc']:.4f} ms "
+              f"({100 * b_ms / times['tc']:.2f}% of the bound), CUDA cores "
+              f"{times['simt']:.3f} ms ({100 * b_ms / times['simt']:.2f}%), "
+              f"plain {plain_t}, SDPA {lib_ms:.4f} ms (max abs vs the "
+              f"tensor cores {sdpa_err:.3g}), bound {b_ms:.4f} ms ({b_by}); "
+              f"against the plain version on {checked}: tensor cores "
+              f"{err:.3g} (floor {floor:.3g}), CUDA cores {simt_err:.3g}",
+              flush=True)
+        del q, k, v, q4, k4, v4, outs, lib, plain, twin
 
     # decode: (B·KH, 1, D) against (B·KH, S, D), the cache full
     for tag, B, S, bk in (("", SERVE_B, CACHE, DECODE_BLOCK),
@@ -1215,6 +1351,7 @@ def phase_mamba_serving(ssd: dict) -> None:
     built("mamba2-780m", model, t0)
     _, launches, stats = serve_stream(
         model, "mamba2-780m", (ssd_cuda, flash_attention_bh,
+                               flash_attention_tc, flash_attention_simt,
                                decode_attention_bh))
     if any(launches.values()):
         raise AssertionError(f"mamba2 serving launched {launches}; the "
@@ -1350,7 +1487,9 @@ def main() -> int:
 
     flash = {"name": "flash_attention_bh", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                       "flash_attention.cu",
+                       "flash_attention_tc.cu",
+             "simt_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/"
                          "flash_attention.py:88"}
     decode = {"name": "decode_attention_bh", "route": "cuda",

@@ -2,8 +2,9 @@
 
 ``flash_attention`` takes the model's (B, S, H, D) layout, groups the
 query heads of each KV head as the kernel's (B·KH, g, S, D), and sends
-CUDA tensors to the hand-written kernel (:mod:`.flash_attention`, which
-launches or raises) and CPU tensors to its plain version (``ref.py``).
+CUDA tensors to the hand-written kernels (:mod:`.flash_attention`, which
+picks the tensor-core or CUDA-core route and launches or raises) and CPU
+tensors to the plain version (``ref.py``).
 The tiling contract is the JAX wrapper's on both: Sq and Sk must be at
 most a block or a multiple of it, else ``ValueError``.
 """

@@ -7,6 +7,12 @@ the JAX package's Pallas kernel, and ``chip_smoke.py`` holds the CUDA
 kernel to it on the card.  A row whose keys are all masked (``sk_valid``
 <= 0) gets the mean of every value row here, and of the visited tiles'
 rows in the tiled kernels.
+
+``p_dtype=torch.bfloat16`` gives the rounding twin of the tensor-core
+kernel: ``p = exp(s - m)`` rounded to bf16 before ``p·v``, ``l`` summed
+from the float32 ``p``, where the kernel rounds.  :func:`tc_tolerance`
+holds a tensor-core output to the float32 plain version with a floor of
+twice the twin's distance from it.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+#: a bf16 output against a float32-inside plain version: one bf16 ulp, and
+#: at least this absolute floor near zero
+BF16_RTOL, F32_ATOL = 2.0**-7, 1e-6
 
 
 def to_groups(q, k, v):
@@ -41,8 +50,11 @@ def from_groups(o: torch.Tensor, batch: int) -> torch.Tensor:
 
 def flash_attention_bh_ref(q, k, v, *, causal: bool = True,
                            q_offset: int = 0,
-                           sk_valid: Optional[int] = None) -> torch.Tensor:
-    """q (BH, g, Sq, D); k/v (BH, Sk, D) -> (BH, g, Sq, D)."""
+                           sk_valid: Optional[int] = None,
+                           p_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """q (BH, g, Sq, D); k/v (BH, Sk, D) -> (BH, g, Sq, D); ``p_dtype``
+    rounds the probabilities before ``p·v`` (None: float32 throughout)."""
     Sq, D = q.shape[2], q.shape[3]
     Sk = k.shape[1]
     s = torch.einsum("bgqd,bkd->bgqk", q.float(), k.float()) / math.sqrt(D)
@@ -54,13 +66,31 @@ def flash_attention_bh_ref(q, k, v, *, causal: bool = True,
     if sk_valid is not None:
         mask &= kpos[None, :] < sk_valid
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bgqk,bkd->bgqd", p, v.float()).to(q.dtype)
+    if p_dtype is None:
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bgqk,bkd->bgqd", p, v.float()).to(q.dtype)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bgqk,bkd->bgqd", p.to(p_dtype).float(), v.float())
+    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def tc_tolerance(plain: torch.Tensor, twin: torch.Tensor
+                 ) -> tuple[dict, float]:
+    """The tolerance of a tensor-core output against ``plain`` (the float32
+    plain version): ``rtol`` one bf16 ulp, ``atol`` the larger of F32_ATOL
+    and twice the floor, the largest distance between ``twin`` (the plain
+    version rounding P to bf16 where the kernel does) and ``plain`` on the
+    same inputs.  Returns (``assert_allclose`` keywords, the floor)."""
+    floor = float((twin.float() - plain.float()).abs().max())
+    return dict(rtol=BF16_RTOL, atol=max(F32_ATOL, 2 * floor)), floor
 
 
 def attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                  sk_valid: Optional[int] = None) -> torch.Tensor:
-    """q (B, Sq, H, D); k/v (B, Sk, KH, D) -> (B, Sq, H, D), float32 math."""
+                  sk_valid: Optional[int] = None,
+                  p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """q (B, Sq, H, D); k/v (B, Sk, KH, D) -> (B, Sq, H, D), float32 math
+    (``p_dtype`` as in :func:`flash_attention_bh_ref`)."""
     o = flash_attention_bh_ref(*to_groups(q, k, v), causal=causal,
-                               q_offset=q_offset, sk_valid=sk_valid)
+                               q_offset=q_offset, sk_valid=sk_valid,
+                               p_dtype=p_dtype)
     return from_groups(o, q.shape[0])

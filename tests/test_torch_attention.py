@@ -10,8 +10,12 @@ Tolerance (tests/_torch_parity.py): float32 attention outputs rtol 1e-5
 with a 1e-6 floor for outputs near zero; bf16 outputs within one bf16 ulp
 (rtol 2^-7), since both sides compute in float32 and round once; the
 float32 layers rtol 1e-5 (RoPE and the GELU MLP with the same 1e-6 floor
-near zero).
+near zero).  The plain version's bf16-P rounding twin (the tensor-core
+kernel's rounding) stays within 2^-9·max|v| of it, the bound rounding each
+probability to bf16 gives.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +31,9 @@ from repro.layers import mlp as jmlp
 from repro.layers import norms as jnorms
 from repro.layers import rotary as jrotary
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.layers import attention as tattn
 from repro_torch.layers import mlp as tmlp
 from repro_torch.layers import norms as tnorms
@@ -104,6 +110,83 @@ def test_flash_rejects_bad_tiling():
     with pytest.raises(ValueError, match="must tile"):
         fa_ops.flash_attention(k, torch.zeros(1, 200, 4, 32),
                                torch.zeros(1, 200, 4, 32))
+
+
+def _plain_before_the_twin(q, k, v, *, causal, q_offset, sk_valid=None):
+    """The plain version as it stood before it grew ``p_dtype``: masked
+    scores, ``torch.softmax``, ``p·v`` in float32."""
+    Sq, D, Sk = q.shape[2], q.shape[3], k.shape[1]
+    s = torch.einsum("bgqd,bkd->bgqk", q.float(), k.float()) / math.sqrt(D)
+    kpos = torch.arange(Sk)
+    mask = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        mask &= (q_offset + torch.arange(Sq))[:, None] >= kpos[None, :]
+    if sk_valid is not None:
+        mask &= kpos[None, :] < sk_valid
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bgqk,bkd->bgqd", p, v.float()).to(q.dtype)
+
+
+def _grouped(case, dtype, seed=0):
+    B, Sq, Sk, H, KH, D, causal, _, _ = case
+    q, k, v = _normals(seed, (B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D))
+    return fa_ref.to_groups(*(torch.from_numpy(x).to(DTYPES[dtype][1])
+                              for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_plain_version_without_p_dtype_is_unchanged(case, dtype):
+    """p_dtype=None is bit for bit the plain version the kernels and the
+    JAX package were held to before the tensor-core route."""
+    causal, Sk, Sq = case[6], case[2], case[1]
+    q, k, v = _grouped(case, dtype)
+    kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
+    got = fa_ref.flash_attention_bh_ref(q, k, v, p_dtype=None, **kw)
+    torch.testing.assert_close(got, _plain_before_the_twin(q, k, v, **kw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_bf16_p_twin_within_its_bound(case):
+    """Rounding P to bf16 moves each probability by at most 2^-9 of
+    itself, so the output by at most 2^-9·max|v| (and float32 sums in
+    another order, 1e-5); the twin does move it."""
+    causal, Sk, Sq = case[6], case[2], case[1]
+    q, k, v = _grouped(case, "float32", seed=4)
+    kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
+    plain = fa_ref.flash_attention_bh_ref(q, k, v, **kw)
+    twin = fa_ref.flash_attention_bh_ref(q, k, v, p_dtype=torch.bfloat16,
+                                         **kw)
+    dist = float((twin - plain).abs().max())
+    assert 0 < dist <= 2.0**-9 * float(v.abs().max()) + 1e-5
+    tol, floor = fa_ref.tc_tolerance(plain, twin)
+    assert floor == dist and tol == dict(rtol=2.0**-7, atol=2 * dist)
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 96, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt")])
+def test_flash_route_by_type_and_head_dim(dtype, head_dim, want):
+    assert fa_mod.route(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.float32, 128), (torch.bfloat16, 32), (torch.float32, 64)])
+def test_flash_explicit_tensor_core_route_raises_before_the_card(dtype,
+                                                               head_dim):
+    """An explicit "tc" the tensor-core kernel cannot take raises on CPU
+    tensors, before any device check or launch."""
+    q = torch.zeros(1, 2, 16, head_dim, dtype=dtype)
+    k = torch.zeros(1, 16, head_dim, dtype=dtype)
+    before = fa_mod.flash_attention_bh.launches
+    with pytest.raises(ValueError, match="tensor-core route"):
+        fa_mod.flash_attention_bh(q, k, k, route="tc")
+    with pytest.raises(ValueError, match="route must be"):
+        fa_mod.flash_attention_bh(q, k, k, route="wgmma")
+    assert fa_mod.flash_attention_bh.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ orders, occupancy, counters and keys bitwise; float32 sums and clocks to
 rtol 1e-5 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
 exponential: the port has no Gamma initial sampler yet; every later draw
 is Gamma's.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
-1e-6 floor near zero), bf16 outputs within one bf16 ulp.  Of the SSD
+1e-6 floor near zero), bf16 outputs within one bf16 ulp; the tensor-core
+flash route (bf16, P rounded to bf16 before P·V) rtol one bf16 ulp with an
+absolute floor of twice the distance between the plain version and its
+bf16-P twin on the same inputs (``tc_tolerance``).  Of the SSD
 kernel: float32 rtol 1e-4 / atol 5e-5 against the sequential and the
 chunked plain versions (sums of N products in another order), bf16 one
 ulp.
@@ -28,7 +31,10 @@ from repro_torch.core import engine, threefry
 from repro_torch.kernels.decode_attention import (decode_attention_bh,
                                                   decode_attention_bh_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
-                                                 flash_attention_bh_ref)
+                                                 flash_attention_bh_ref,
+                                                 flash_attention_simt,
+                                                 flash_attention_tc,
+                                                 tc_tolerance)
 from repro_torch.kernels.ssd import (ForwardOnlyError, ssd_chunked, ssd_cuda,
                                      ssd_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -119,22 +125,64 @@ FLASH_CASES = [
     (1, 3, 48, 48, 32, True, 128, 128, 0, None),  # sub-tiles of 32 and 16
     (2, 1, 40, 40, 128, False, 128, 128, 0, None),
 ]
+#: tensor-core cases beyond FLASH_CASES: GQA g 4 at D 128 with 40 and 96
+#: query rows (no 64-row warpgroup filled), offset and valid keys at D 128,
+#: and the serving prefill (B 4 x H 20, S 512)
+TC_CASES = [
+    (2, 4, 40, 40, 128, True, 128, 128, 0, None),
+    (2, 4, 96, 96, 128, True, 128, 128, 0, None),
+    (1, 2, 64, 192, 128, True, 32, 64, 40, 150),
+    (1, 2, 64, 192, 128, False, 32, 64, 40, 150),
+    (80, 1, 512, 512, 128, True, 128, 128, 0, None),
+]
+#: every FLASH_CASES case on the CUDA cores in both types, as before the
+#: tensor-core route; the bf16 cases of D 64 or 128 and TC_CASES on the
+#: tensor cores
+FLASH_ROUTES = (
+    [(c, dt, "simt") for c in FLASH_CASES
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(c, torch.bfloat16, "tc") for c in FLASH_CASES + TC_CASES
+       if c[4] in (64, 128)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES)
-def test_cuda_flash_kernel_matches_plain_version(cuda_device, case, dtype):
+@pytest.mark.parametrize("case,dtype,route", FLASH_ROUTES)
+def test_cuda_flash_kernel_matches_plain_version(cuda_device, case, dtype,
+                                                 route):
     BH, g, Sq, Sk, D, causal, bq, bk, off, valid = case
     q, k, v = _normals(cuda_device, dtype, 3, (BH, g, Sq, D), (BH, Sk, D),
                        (BH, Sk, D))
-    before = flash_attention_bh.launches
-    got = flash_attention_bh(q, k, v, causal=causal, block_q=bq, block_k=bk,
-                             q_offset=off, sk_valid=valid)
+    counts = (flash_attention_bh, flash_attention_tc, flash_attention_simt)
+    before = [f.launches for f in counts]
+    kw = dict(causal=causal, q_offset=off, sk_valid=valid)
+    got = flash_attention_bh(q, k, v, block_q=bq, block_k=bk, route=route,
+                             **kw)
     torch.cuda.synchronize()
-    assert flash_attention_bh.launches == before + 1
-    _attn_close(flash_attention_bh_ref(q, k, v, causal=causal, q_offset=off,
-                                       sk_valid=valid), got)
+    assert [f.launches - b for f, b in zip(counts, before)] == [
+        1, int(route == "tc"), int(route == "simt")]
+    plain = flash_attention_bh_ref(q, k, v, **kw)
+    if route == "simt":
+        _attn_close(plain, got)
+        return
+    tol, _ = tc_tolerance(plain, flash_attention_bh_ref(
+        q, k, v, p_dtype=torch.bfloat16, **kw))
+    assert got.dtype == plain.dtype and got.shape == plain.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 128, "simt")])
+def test_cuda_flash_default_route(cuda_device, dtype, head_dim, route):
+    q, k, v = _normals(cuda_device, dtype, 5, (2, 2, 64, head_dim),
+                       (2, 64, head_dim), (2, 64, head_dim))
+    launch = flash_attention_tc if route == "tc" else flash_attention_simt
+    before = launch.launches
+    flash_attention_bh(q, k, v)
+    torch.cuda.synchronize()
+    assert launch.launches == before + 1
 
 
 @pytest.mark.cuda
