@@ -18,7 +18,13 @@ Phases (each prints one line; any failure raises and exits nonzero):
    2,048-event windows and a 512-event burn-in, and from a join order a
    hair below INT32_MAX: integer statistics bitwise, float sums to rtol
    1e-5 (the port's tolerance against the JAX package; see
-   tests/test_torch_sweep.py);
+   tests/test_torch_sweep.py); then the lane-group layouts: rmax 2, 16,
+   32, 33, 64, 65 and 256 and a Gamma(12) job (14 slab columns) at rmax 8,
+   so that with the main paths every (G, slots a thread) pair the wrapper
+   can pick (``sweep.group_size``) and the library holds is driven,
+   windows of 999 events (no multiple of a draw pass) and 45 lanes (no
+   multiple of 32/G), and every final budget +0 or more (the int32 order
+   of their bits that the slot reductions rely on);
 4. the full-width fleet through ``run_sweep``: Theorem-4 three-phase over
    r = 0.125..8 (64 points) × k ∈ {2, 5, 10, 20} × 16 seeds = 4,096 lanes,
    rmax 64, 2^20 events after a 65,536-event burn-in, held to Theorem 5
@@ -28,12 +34,17 @@ Phases (each prints one line; any failure raises and exits nonzero):
    each of these two calls and read just after; each must launch it once.
    Both fleets are also held, kernel against plain version, on the exact
    inputs ``run_sweep`` gives the kernel, at a cut depth (4,608 events).
+   Each fleet's line names G (threads a lane, ``sweep.group_size``), the
+   slots a thread and ptxas's registers for that build.
 5. the flash and decode attention kernels against their plain versions on
    the JAX package's kernel-test shapes, at 16- and 48-token prompts
    (partial key tiles), GQA g 4 at D 128 with 40 and 96 query rows (rows
    that fill no 64-row warpgroup), q_offset / sk_valid, and at the serving
    shapes: flash at the prefill (B 4, S 512, H 20, D 128, bf16, causal),
-   decode at (B 4, S 544, KH 20, D 128) over several fill levels.  Flash
+   decode at (B 4, S 544, KH 20, D 128) over several fill levels; the
+   split decode kernel at S 8,192 on three B·KH whose split counts differ
+   (64, 13 and 2) and at the serving cache (4 splits), with kv_len at
+   every split's first and last key, 0, 1 and S.  Flash
    runs both routes: every bf16 case of D 64 or 128 on the tensor cores,
    held by the floor rule (``tc_tolerance``: rtol one bf16 ulp, atol twice
    the distance between the plain version and its bf16-P twin, printed
@@ -58,7 +69,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    atol 1e-5;
 8. each attention kernel alone (CUDA events) at the serving shapes and at a
    long one (flash: one row of the prefill_32k cell, B 1, S 32,768,
-   causal; decode: B 16, S 32,768 full), beside its plain version where
+   causal; decode: B 16, S 32,768 full, each line with its split count,
+   its device time alone and its host time a call), beside its plain
+   version where
    memory allows and ``F.scaled_dot_product_attention`` as the library
    yardstick (timed here only; the port never calls it).  Flash on both
    routes in the same run; at S 32,768 each route's last 256 query rows of
@@ -142,7 +155,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention.decode_attention import (  # noqa: E402,E501
     decode_attention_bh)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_bh_ref, decode_attention_ref)
+    decode_attention_bh_ref, decode_attention_ref, split_keys)
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as flash_mod)
@@ -239,6 +252,37 @@ def cuda_ms(fn, repeat: int = 1) -> tuple[float, object]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeat, out
+
+
+def queued_ms(fn, repeat: int) -> float:
+    """Device time of ``fn()`` (mean over ``repeat``) with every launch
+    queued behind a sleep kernel before the first event runs, so that the
+    host's time to launch does not show: the device's time alone."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms of cycles: the host gets ahead
+    start.record()
+    for _ in range(repeat):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeat
+
+
+def host_us(fn, repeat: int) -> float:
+    """Host time a call of ``fn()`` in µs (mean over ``repeat`` calls
+    launched back to back, no synchronisation inside the loop): what a
+    caller waits before it can launch the next operation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeat):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / repeat * 1e6
 
 
 def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None):
@@ -346,6 +390,70 @@ def phase_parity() -> float:
     return max(worst, rel)
 
 
+#: the lane-group layouts: (name, job, spot, kernel, rmax, params); each
+#: runs on every G the wrapper can pick at its rmax
+LAYOUT_CASES = [
+    ("rmax2_exp_wait", Exponential(LAM), Exponential(MU),
+     SingleSlotKernel(wait=ExponentialWait(0.5)), 2, {}),
+    ("rmax16", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 16,
+     {"r": np.linspace(1.0, 14.0, 9)}),
+    ("rmax32", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 32,
+     {"r": np.linspace(1.0, 30.0, 9)}),
+    ("rmax33", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 33,
+     {"r": np.linspace(1.0, 30.0, 9)}),
+    ("rmax64", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 64,
+     {"r": np.linspace(1.0, 60.0, 9)}),
+    ("rmax65", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 65,
+     {"r": np.linspace(1.0, 60.0, 9)}),
+    ("rmax256_bathtub", Exponential(LAM), BathtubGCP(), ThreePhaseKernel(),
+     256, {"r": np.linspace(1.0, 250.0, 9)}),
+    ("gamma12_14_cols", Gamma(12.0, 1.0), Exponential(MU),
+     ThreePhaseKernel(), 8, {"r": np.linspace(0.0, 3.0, 9)}),
+]
+#: windows of 999 events: no multiple of a draw pass (21, 32 or 4 events
+#: at 3, 2 or 14 columns), after a 250-event burn-in
+LAYOUT_PLAN = _window_plan(2_997, 999, 250)
+LAYOUT_LANES = 45  # no multiple of 32/G for G < 32
+
+
+def picked_layout(rmax: int) -> tuple[int, int]:
+    """(G, slots a thread) of the wrapper's pick at rmax."""
+    g = sweep.group_size(rmax)
+    return g, sweep.slots_per_thread(rmax, g)
+
+
+def phase_layouts() -> None:
+    """Every lane-group layout the wrapper can pick against the plain
+    version: ints bitwise, floats to RTOL, every final budget +0 or more;
+    with the main paths, every (G, slots a thread) pair it can pick (and,
+    where this run compiled the library, every instantiation ptxas saw)."""
+    picks = {picked_layout(rmax) for rmax in range(1, sweep.MAX_RMAX + 1)}
+    driven = {picked_layout(rmax) for *_, rmax in MAIN_PATHS}
+    for name, job, spot, kernel, rmax, params in LAYOUT_CASES:
+        init_job = Exponential(LAM) if isinstance(job, Gamma) else job
+        state0, p, k = fleet(init_job, spot, kernel, rmax, params,
+                             LAYOUT_LANES, 11)
+        args = (job, spot, kernel, rmax, state0, p, k, LAYOUT_PLAN)
+        _, ref = batched_event_windows_ref(*args)
+        fin, ker = sweep.batched_event_windows(*args)
+        torch.cuda.synchronize()
+        g, spt = picked_layout(rmax)
+        driven.add((g, spt))
+        worst = compare(f"layout {name}", ref, ker)
+        if bool(torch.signbit(fin.budgets).any()):
+            raise AssertionError(f"layout {name}: a budget with its sign "
+                                 f"bit set")
+        n_cols = _engine_layout(job, spot, kernel).n_cols
+        print(f"layout {name}: rmax {rmax}, {n_cols} columns, "
+              f"{LAYOUT_LANES} lanes, plan {LAYOUT_PLAN}, G {g} ({spt} "
+              f"slots a thread): ints bitwise, max rel float diff "
+              f"{worst:.3g}, budgets >= +0", flush=True)
+    if driven != picks or (SWEEP_PTXAS and set(SWEEP_PTXAS) != picks):
+        raise AssertionError(f"sweep layouts driven {sorted(driven)}, "
+                             f"picked {sorted(picks)}, built "
+                             f"{sorted(SWEEP_PTXAS)}")
+
+
 # the full-width fleets: (r or wait) × k × seeds = 64 × 4 × 16 = 4,096 lanes
 R_GRID = np.arange(1, 65) * 0.125
 WAITS = np.linspace(0.0, 48.0, 64)
@@ -386,6 +494,9 @@ def phase_width(entry: dict) -> None:
         n_cols = _engine_layout(JOB, SPOT, kernel).n_cols
         b_ms, b_by = bound_ms(lanes, rmax, n_cols, WIDTH_PLAN)
         err = max_abs(ref, ker)
+        g, spt = picked_layout(rmax)
+        entry.update({f"group_{name}": g, f"slots_a_thread_{name}": spt,
+                      f"ptxas_{name}": SWEEP_PTXAS.get((g, spt))})
         if name == "three_phase":
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=err)
@@ -394,7 +505,9 @@ def phase_width(entry: dict) -> None:
                           f"{name}_bound_ms": b_ms,
                           f"{name}_max_abs_err": err})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        print(f"width {name}: {lanes} lanes rmax {rmax} plan {WIDTH_PLAN}: "
+        print(f"width {name}: {lanes} lanes rmax {rmax} plan {WIDTH_PLAN}, G "
+              f"{g} ({spt} slots a thread; ptxas: "
+              f"{SWEEP_PTXAS.get((g, spt))}): "
               f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), ints bitwise, max rel float diff "
               f"{rel:.3g}", flush=True)
@@ -417,7 +530,8 @@ def phase_main_kernel(entry: dict) -> None:
                       f"main_{name}_lane_events_per_s": rate,
                       f"main_{name}_key_ladder_ms": ladder_ms})
         print(f"main-size kernel {name}: {lanes} lanes × {sum(plan)} events "
-              f"rmax {rmax} in {ms:.1f} ms = {rate:.4g} lane-events/s "
+              f"rmax {rmax}, G {sweep.group_size(rmax)}, in {ms:.1f} ms = "
+              f"{rate:.4g} lane-events/s "
               f"(bound {b_ms:.1f} ms); window-key ladder {ladder_ms:.3f} ms",
               flush=True)
 
@@ -480,6 +594,25 @@ def phase_main_path(entry: dict) -> None:
           f"{worst5:.2e}·k, single-slot vs Theorem 1 within {worst1:.2e}·k "
           f"(limit 5e-3·k)", flush=True)
 
+#: ptxas's report of each sweep instantiation, (G, slots a thread) -> line
+SWEEP_PTXAS: dict[tuple[int, int], str] = {}
+
+
+def sweep_ptxas(report: str) -> dict[tuple[int, int], str]:
+    """(G, SPT) -> ptxas's registers and spills line of that instantiation
+    of the sweep kernel (``sweep_kernel<G, SPT>``, mangled ``ILiGELiSPTE``)."""
+    out, key = {}, None
+    for line in report.splitlines():
+        if "Compiling entry" in line and "sweep_kernel" in line:
+            g, spt = line.split("sweep_kernelILi", 1)[1].split("EE", 1)[0] \
+                .split("ELi")
+            key = (int(g), int(spt))
+        elif key and ("Used" in line or "spill" in line):
+            out[key] = (out.get(key, "") + " "
+                        + line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
 def phase_build() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
@@ -489,6 +622,13 @@ def phase_build() -> None:
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
+        if res.library == sweep.LIBRARY:
+            # one instantiation a (G, slots a thread) the wrapper can pick
+            SWEEP_PTXAS.update(sweep_ptxas(res.ptxas))
+            for key, line in sorted(SWEEP_PTXAS.items()):
+                print(f"  sweep_kernel<G {key[0]}, SPT {key[1]}>: {line}",
+                      flush=True)
+            continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
                                        "(C75")):
@@ -704,18 +844,68 @@ def phase_attention_parity(flash: dict, decode: dict) -> None:
                                     decode_attention_ref(q, k, v, kvl), got))
         if kvl == 0 and float(got.float().abs().max()) != 0.0:
             raise AssertionError("decode kv_len 0: output not zero")
+    split_calls = phase_decode_splits()
     torch.cuda.synchronize()
     flash.update(max_abs_err=max(worst.values()), tc_max_abs_err=worst["tc"],
                  tc_floor=worst_floor, simt_max_abs_err=worst["simt"],
                  parity_launches=flash_attention_bh.launches,
                  tc_parity_launches=flash_attention_tc.launches,
                  simt_parity_launches=flash_attention_simt.launches)
+    worst_d = max(worst_d, split_calls.pop("worst"))
     decode.update(max_abs_err=worst_d,
-                  entry_point_launches=decode_attention_bh.launches)
+                  entry_point_launches=decode_attention_bh.launches
+                  - split_calls["calls"])
     print(f"parity decode: {len(DEC_CASES)} test shapes x f32/bf16, serving "
-          f"cache {tuple(k.shape)} bf16 at kv_len {fills}: max abs diff "
+          f"cache {tuple(k.shape)} bf16 at kv_len {fills}, "
+          f"{split_calls['calls']} calls at split edges: max abs diff "
           f"{worst_d:.3g}; launches through ops.decode_attention "
-          f"{decode_attention_bh.launches}", flush=True)
+          f"{decode['entry_point_launches']}", flush=True)
+
+
+#: the split decode kernel's edge cases: (BH, g, S, D, block_k); the
+#: wrapper's split counts are 64, 13, 2 and 4
+DEC_SPLIT_CASES = [
+    (6, 4, 8_192, 128, 512),
+    (320, 4, 8_192, 64, 512),
+    (2_048, 1, 8_192, 32, 512),
+    (SERVE_B * HEADS, 1, CACHE, HEAD_DIM, DECODE_BLOCK),
+]
+
+
+def split_fills(s: int, n_split: int) -> list[int]:
+    """kv_len 0, 1, S and every split's first and last key."""
+    kps = split_keys(s, n_split)
+    fills = {0, 1, s}
+    for j in range(n_split):
+        if j * kps < s:
+            fills |= {j * kps, min(s, (j + 1) * kps) - 1}
+    return sorted(fills)
+
+
+def phase_decode_splits() -> dict:
+    """The split decode kernel at every split edge of the wrapper's split
+    count for several shapes, in both types, against the unsplit plain
+    version; zeros at kv_len 0."""
+    worst, calls = 0.0, 0
+    for i, (bh, g, S, D, bk) in enumerate(DEC_SPLIT_CASES):
+        ns = decode_mod.split_count(S, bh)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = randn(70 + i, dtype, (bh, g, D), (bh, S, D), (bh, S, D))
+            for kvl in split_fills(S, ns):
+                got = decode_attention_bh(q, k, v, kvl, block_k=bk)
+                worst = max(worst, hold(
+                    f"decode split S {S} n_split {ns} kv_len {kvl} {dtype}",
+                    decode_attention_bh_ref(q, k, v, kvl), got))
+                if kvl == 0 and float(got.float().abs().max()) != 0.0:
+                    raise AssertionError(f"decode split n_split {ns} kv_len "
+                                         f"0: output not zero")
+                calls += 1
+            del q, k, v
+        print(f"parity decode splits: BH {bh}, g {g}, S {S}, D {D}, tile "
+              f"{bk}, f32/bf16, n_split {ns} ({split_keys(S, ns)} keys a "
+              f"split), kv_len at every split's first and last key, 0, 1 "
+              f"and S", flush=True)
+    return {"worst": worst, "calls": calls}
 
 
 def full_width_model(dtype: str = "bfloat16"):
@@ -1042,13 +1232,31 @@ def phase_attention_timings(flash: dict, decode: dict) -> None:
         lib_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4), 10)
         b_ms, b_by = decode_bound(B * HEADS, 1, HEAD_DIM, S)
+        n_split = decode_mod.split_count(S, B * HEADS)
+        dev_ms = queued_ms(lambda: decode_attention_bh(q, k, v, kv_len,
+                                                       block_k=bk), 10)
+        lib_dev_ms = queued_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4), 10)
+        host = host_us(lambda: decode_attention_bh(q, k, v, kv_len,
+                                                   block_k=bk), 100)
+        lib_host = host_us(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4), 100)
         decode.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
                        f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
-                       f"{tag}library_ms": lib_ms})
+                       f"{tag}library_ms": lib_ms, f"{tag}n_split": n_split,
+                       f"{tag}device_ms": dev_ms,
+                       f"{tag}library_device_ms": lib_dev_ms,
+                       f"{tag}host_us": host,
+                       f"{tag}library_host_us": lib_host})
         print(f"decode {tag or 'serving_'}shape (B {B}, S {S}, KH {HEADS}, D "
-              f"{HEAD_DIM}, bf16, kv_len {S}): kernel {ms:.4f} ms, plain "
+              f"{HEAD_DIM}, bf16, kv_len {S}, n_split {n_split}, "
+              f"{B * HEADS * n_split} split blocks): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"kernel at {100 * b_ms / ms:.2f}% of it", flush=True)
+              f"kernel at {100 * b_ms / ms:.2f}% of it; calls queued behind "
+              f"a sleep (the device alone): kernel {dev_ms:.4f} ms, SDPA "
+              f"{lib_dev_ms:.4f} ms; host a call (100 launched back to "
+              f"back): kernel {host:.1f} us, SDPA {lib_host:.1f} us",
+              flush=True)
         del q, k, v, q4, k4, v4, out, ref
 
 
@@ -1481,6 +1689,7 @@ def main() -> int:
              "replaces": "src/repro/kernels/sweep/sweep.py:124",
              "library_ms": None}
     phase_parity()
+    phase_layouts()
     phase_width(entry)
     phase_main_kernel(entry)
     phase_main_path(entry)

@@ -7,36 +7,68 @@
 // stream.  Its plain PyTorch version is ../ref.py; the ctypes wrapper is
 // ../sweep.py.
 //
-// What bounds it: integer and FP32 instruction throughput, not bytes.  A
-// lane-event costs about three threefry-2x32 columns (20 rounds of
-// add/rotate/xor each) plus rmax-wide selects and three slot reductions; a
-// lane reads a few words of state once and writes ten numbers per window.
-// The TPU kernel read a pre-built (lanes, windows, events, columns) slab;
-// at 4,096 lanes and 2^20 events that slab would be ~55 GB, so this kernel
+// What bounds it: integer and FP32 instruction issue, not bytes.  A
+// lane-event costs n_cols threefry-2x32 columns (20 rounds of
+// add/rotate/xor each), rmax-wide selects and three slot reductions; a lane
+// reads a few words of state once and writes ten numbers per window.  The
+// TPU kernel read a pre-built (lanes, windows, events, columns) slab; at
+// 4,096 lanes and 2^20 events that slab would be ~55 GB, so this kernel
 // draws the slab's bits itself, from the same per-window keys, bitwise the
 // slab the plain version builds.
 //
-// Design: one warp per lane, so that 4,096 lanes fill the card with 4,096
-// warps.  Slot s lives on thread s % 32, in register s / 32 (SPT slots per
-// thread).  Thread c draws slab column c of each event and shuffles it to
-// the warp.  Slot reductions are __shfl_xor_sync butterflies over (value,
-// index) pairs compared lexicographically, which reproduces argmin's
-// first-index tie rule.  The window loop runs inside the kernel (the TPU
-// grid's window axis): state stays in registers across windows, each window
-// writes its ten sums and rebases the join order.  Built with --fmad=false
-// so products and sums round as PyTorch's separate operations do; the two
-// multiply-adds the JAX package's compiled samplers fuse (Uniform's
-// low + u * width, the bathtub tail b - e * tau2) are explicit fmaf.
+// Design: every issued instruction should be one the lane-event needs.
+// - Lane groups.  A lane runs on G threads (a template parameter; 32/G
+//   lanes a warp), which the wrapper picks from rmax (sweep.py::group_size:
+//   G 4 up to rmax 32, then 8 slots a thread on G 8, 16 or 32; only those
+//   seven (G, SPT) pairs are built).  Slot s lives on thread s / SPT of
+//   the group, in register s % SPT (SPT = slots a thread, a power of
+//   two).  Slots at or past rmax are held as free slots with budget kInf:
+//   they lie past every real slot, so argmin's first-index rule never
+//   picks them while a real slot ties (and a join needs a free real
+//   slot).
+// - Draw ahead.  The group's threads draw the slab words of the lane's next
+//   E = kDraws / n_cols events in one pass, thread t taking words t, t + G,
+//   ..., four threefry chains at a time for ILP, and stage them in shared
+//   memory as float32, where every thread of the group reads its event's
+//   columns by broadcast.  The counters stay e * n_cols + c, so the bits
+//   are those of the plain version's slab.  A second pass turns the rows
+//   into each event's job clock, spot clock and wait budget, which depend
+//   on the slab alone, events spread over the threads and interleaved,
+//   so that the event loop's serial chain holds no sampler.  Every lane
+//   runs the same window plan, so the passes are warp-uniform; a pass never
+//   crosses a window and masks the window's ragged end.
+// - Slot reductions on Hopper's warp primitives: the smallest budget
+//   (non-negative floats and kInf, whose bit patterns order as int32) and
+//   the FIFO-oldest join order as int32 minima, by __reduce_min_sync
+//   (redux) where the group is the warp and by an xor butterfly of
+//   shuffles within the group otherwise (redux leaves one value a warp, so
+//   a mask a group runs it once for each group); the first slot holding
+//   that minimum by a ballot of equality (the lowest thread that holds one,
+//   then its lowest register); the first free slot by a ballot of each
+//   thread's free bits and __ffs.  Occupancy is a bit mask a thread.
+// - The per-event logic runs on every thread of the group (it is scalar);
+//   the window loop runs inside the kernel (the TPU grid's window axis):
+//   state stays in registers across windows, each window writes its ten
+//   sums and rebases the join order.
+// Built with --fmad=false so products and sums round as PyTorch's separate
+// operations do; the two multiply-adds the JAX package's compiled samplers
+// fuse (Uniform's low + u * width, the bathtub tail b - e * tau2) are
+// explicit fmaf.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // lanes per block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kInf = 3e38f;  // the engine's INF ("never")
 constexpr int kOrderMax = 2147483647;
-constexpr int kNoSlot = 1 << 30;  // index of a slot past rmax
+// slab words a lane stages a pass; >= MAX_COLS, so a pass holds an event
+constexpr int kDraws = 64;
+// a lane's strides in shared memory, for its slab words and for its
+// events' three samples (job clock, spot clock, wait budget): odd, so the
+// lanes of a warp reading their rows fall in distinct banks
+constexpr int kLaneStride = kDraws + 1;
+constexpr int kSampleStride = 3 * kDraws + 1;
 
 enum Arrival { kExponential = 0, kGamma = 1, kUniform = 2, kDeterministic = 3,
                kBathtub = 4 };
@@ -104,103 +136,226 @@ __device__ __forceinline__ float u01(uint32_t bits) {
   return static_cast<float>(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
 }
 
-// column c of this event's slab row, drawn by thread c
-__device__ __forceinline__ float col(float u, int c) {
-  return __shfl_sync(kFull, u, c);
-}
-
 __device__ __forceinline__ float exp_from_u(float u) { return -log1pf(-u); }
 
-__device__ float sample_arrival(int code, const float* c, int n, float u,
-                                int col0) {
+// U events' draws of an arrival process: event i's columns start at
+// u[off[i] + col]; the switch is outside the unrolled loops, so the U
+// events' chains interleave
+template <int U>
+__device__ __forceinline__ void sample_arrivals(int code, const float* c,
+                                                int n, const float* u,
+                                                const int (&off)[U], int col,
+                                                float (&out)[U]) {
   switch (code) {
     case kExponential:  // c[0] = float32 1 / rate
-      return exp_from_u(col(u, col0)) * c[0];
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = exp_from_u(u[off[i] + col]) * c[0];
+      break;
     case kGamma: {  // sum of n unit exponentials, left to right
-      float s = log1pf(-col(u, col0));
-      for (int i = 1; i < n; ++i) s = s + log1pf(-col(u, col0 + i));
-      return -s * c[0];
+      float acc[U];
+#pragma unroll
+      for (int i = 0; i < U; ++i) acc[i] = log1pf(-u[off[i] + col]);
+      for (int k = 1; k < n; ++k) {
+#pragma unroll
+        for (int i = 0; i < U; ++i)
+          acc[i] = acc[i] + log1pf(-u[off[i] + col + k]);
+      }
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = -acc[i] * c[0];
+      break;
     }
     case kUniform:
-      return fmaf(col(u, col0), c[1], c[0]);
-    case kBathtub: {
-      const float u0 = col(u, col0), u1 = col(u, col0 + 1);
-      const float u2 = col(u, col0 + 2);
-      const float head = fminf(exp_from_u(u1) * c[1], c[3]);
-      const float tail = fmaxf(fmaf(-exp_from_u(u2), c[2], c[3]), 0.f);
-      return u0 < c[0] ? head : tail;
-    }
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = fmaf(u[off[i] + col], c[1], c[0]);
+      break;
+    case kBathtub:
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const float* x = u + off[i] + col;
+        const float head = fminf(exp_from_u(x[1]) * c[1], c[3]);
+        const float tail = fmaxf(fmaf(-exp_from_u(x[2]), c[2], c[3]), 0.f);
+        out[i] = x[0] < c[0] ? head : tail;
+      }
+      break;
     default:  // kDeterministic
-      return c[0];
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = c[0];
   }
 }
 
-__device__ float sample_wait(int code, float pa, float pb, float u, int col0) {
+// U events' wait budgets of the single-slot policy, as sample_arrivals
+template <int U>
+__device__ __forceinline__ void sample_waits(int code, float pa, float pb,
+                                             const float* u,
+                                             const int (&off)[U], int col,
+                                             float (&out)[U]) {
   switch (code) {
     case kTwoPointWait:
-      return col(u, col0) < pa ? pb : 0.f;
-    case kExponentialWait:
-      return exp_from_u(col(u, col0)) / pa;
-    case kDeterministicWait:
-      return pa;
-    default:  // kInfiniteWait
-      return kInf;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void lexmin(T& v, int& i, T ov, int oi) {
-  if (ov < v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void warp_argmin(T& v, int& i) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    lexmin(v, i, ov, oi);
+      for (int i = 0; i < U; ++i) out[i] = u[off[i] + col] < pa ? pb : 0.f;
+      break;
+    case kExponentialWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = exp_from_u(u[off[i] + col]) / pa;
+      break;
+    case kDeterministicWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = pa;
+      break;
+    default:  // kInfiniteWait
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = kInf;
   }
 }
 
-// value of slot s (s < rmax), from the thread that holds it
-template <int SPT>
-__device__ __forceinline__ float slot_value(const float (&x)[SPT], int s) {
+// The G threads of a lane within their warp: the first thread's position
+// in the warp and this thread's index t.  Every lane of a warp runs the
+// same instructions, so the votes and shuffles take the whole warp's mask
+// (a mask a group would make the warp run them once for each group), and
+// the group's min takes redux only where the group is the warp: redux
+// leaves one value a warp.
+template <int G> struct LaneGroup {
+  int shift, t;
+  __device__ __forceinline__ explicit LaneGroup(int warp_thread)
+      : shift(warp_thread & ~(G - 1)), t(warp_thread & (G - 1)) {}
+  // smallest v over the group
+  __device__ __forceinline__ int reduce_min(int v) const {
+    if constexpr (G == 32) {
+      return __reduce_min_sync(kFull, v);
+    } else {
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1)
+        v = min(v, __shfl_xor_sync(kFull, v, o, G));
+      return v;
+    }
+  }
+  // the lowest thread whose pred holds (G where none does)
+  __device__ __forceinline__ int first(bool pred) const {
+    const unsigned b =
+        (__ballot_sync(kFull, pred) >> shift) & (kFull >> (32 - G));
+    return b ? __ffs(b) - 1 : G;
+  }
+  // v of thread src
+  template <typename T>
+  __device__ __forceinline__ T from(T v, int src) const {
+    return __shfl_sync(kFull, v, src, G);
+  }
+};
+
+// slot index (thread * SPT + register) of the first slot whose key equals
+// the group minimum `m`; `keys` are this thread's keys
+template <int G, int SPT>
+__device__ __forceinline__ int first_equal(const LaneGroup<G>& grp,
+                                           const int (&keys)[SPT], int m) {
+  int j = SPT;
+#pragma unroll
+  for (int i = SPT - 1; i >= 0; --i)
+    if (keys[i] == m) j = i;
+  const int owner = grp.first(j < SPT);
+  return owner * SPT + grp.from(j, owner & (G - 1));
+}
+
+// this thread's value of register (s % SPT) of slot s, from its owner
+template <int G, int SPT>
+__device__ __forceinline__ float slot_value(const LaneGroup<G>& grp,
+                                            const float (&x)[SPT], int s) {
+  const int j = s & (SPT - 1);
   float v = x[0];
 #pragma unroll
-  for (int j = 1; j < SPT; ++j)
-    if ((s >> 5) == j) v = x[j];
-  return __shfl_sync(kFull, v, s & 31);
+  for (int i = 1; i < SPT; ++i)
+    if (j == i) v = x[i];
+  return grp.from(v, s / SPT);
 }
 
-template <int SPT>
-__global__ void __launch_bounds__(kWarps * 32) sweep_kernel(const Args a) {
-  const int t = threadIdx.x & 31;
-  const int lane = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (lane >= a.lanes) return;  // the whole warp leaves together
-  const int R = a.rmax, W = a.n_windows, L = a.lanes;
+// the samples of the pass's n events, from their slab rows in u_s (nc
+// words each): job clock, spot clock and the single-slot policy's wait
+// budget, three floats an event in x_s.  Thread t takes events t, t + G,
+// ..., U at a time; an event past n repeats the last one and is not stored.
+template <int G>
+__device__ __forceinline__ void sample_pass(float* x_s, const float* u_s,
+                                            int n, int nc, const Args& a,
+                                            float pa, float pb, int t) {
+  constexpr int U = G >= 16 ? 1 : (G >= 8 ? 2 : 4);
+  for (int e0 = t; e0 < n; e0 += U * G) {
+    int off[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) off[i] = min(e0 + i * G, n - 1) * nc;
+    float job[U], spot[U], wait[U];
+    sample_arrivals<U>(a.job_code, a.job_c, a.job_n, u_s, off, a.job_col,
+                       job);
+    sample_arrivals<U>(a.spot_code, a.spot_c, a.spot_n, u_s, off,
+                       a.spot_col, spot);
+    if (a.policy_code == kSingleSlot) {
+      sample_waits<U>(a.wait_code, pa, pb, u_s, off, a.admit_col, wait);
+    } else {
+#pragma unroll
+      for (int i = 0; i < U; ++i) wait[i] = kInf;
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int e = e0 + i * G;
+      if (e < n) {
+        x_s[3 * e] = job[i];
+        x_s[3 * e + 1] = spot[i];
+        x_s[3 * e + 2] = wait[i];
+      }
+    }
+  }
+}
+
+// the slab words [c0, c0 + nd) of this lane's window, as float32 in u_s
+template <int G>
+__device__ __forceinline__ void draw_pass(float* u_s, int nd, uint32_t c0,
+                                          uint32_t k0, uint32_t k1,
+                                          uint32_t k2, int t) {
+  constexpr int U = G >= 32 ? 2 : 4;  // independent chains in flight
+  for (int i0 = t; i0 < nd; i0 += U * G) {
+    uint32_t w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      w[u] = threefry_bits(k0, k1, k2, c0 + static_cast<uint32_t>(i0 + u * G));
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * G < nd) u_s[i0 + u * G] = u01(w[u]);
+  }
+}
+
+template <int G, int SPT>
+__global__ void sweep_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const LaneGroup<G> grp(threadIdx.x & 31);
+  const int t = grp.t;
+  const int lane_in_block = threadIdx.x / G;
+  const int lane0 = blockIdx.x * (blockDim.x / G) + lane_in_block;
+  // lanes past the fleet (a ragged last warp) run a copy of the last lane,
+  // so every draw pass and reduction stays warp-uniform, and store nothing
+  const bool live = lane0 < a.lanes;
+  const int lane = live ? lane0 : a.lanes - 1;
+  const int R = a.rmax, W = a.n_windows, L = a.lanes, nc = a.n_cols;
+  // events a draw pass covers (a slab of no columns draws nothing)
+  const int per_pass = nc ? kDraws / nc : kDraws;
+  const int lanes_per_block = blockDim.x / G;
+  float* u_s = smem + lane_in_block * kLaneStride;
+  float* x_s = smem + lanes_per_block * kLaneStride +
+               lane_in_block * kSampleStride;
   const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
+  const int s0 = t * SPT;  // this thread's first slot
 
   float nj = a.next_job0[lane], ns = a.next_spot0[lane];
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
   float ages[SPT], budgets[SPT];
-  bool occ[SPT];
   int order[SPT];
+  unsigned occ = 0;  // bit j: slot s0 + j is occupied
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
-    const int s = t + 32 * j;
     ages[j] = 0.f;
     budgets[j] = kInf;
-    occ[j] = false;
     order[j] = 0;
-    if (s < R) {
-      const size_t o = static_cast<size_t>(lane) * R + s;
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
       ages[j] = a.ages0[o];
       budgets[j] = a.budgets0[o];
-      occ[j] = a.occ0[o] != 0;
+      occ |= static_cast<unsigned>(a.occ0[o] != 0) << j;
       order[j] = a.order0[o];
     }
   }
@@ -215,98 +370,112 @@ __global__ void __launch_bounds__(kWarps * 32) sweep_kernel(const Args a) {
     float cost_sum = 0.f, delay_sum = 0.f, time_elapsed = 0.f;
     float empty_time = 0.f;
 
-    for (int e = 0; e < n_ev; ++e) {
-      // thread t draws column t of this event's slab row
-      const float u = u01(threefry_bits(
-          k0, k1, k2, static_cast<uint32_t>(e) * a.n_cols + t));
+    for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
+      const int n_pass = min(per_pass, n_ev - e0);
+      __syncwarp();  // the previous pass's rows are read
+      draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
+                   k2, t);
+      __syncwarp();
+      sample_pass<G>(x_s, u_s, n_pass, nc, a, pa, pb, t);
+      __syncwarp();
 
-      // pre-event slot reductions: deadline, first free, FIFO-oldest
-      float dv = __int_as_float(0x7f800000);  // +inf: past every slot
-      int di = kNoSlot, fv = 2, fi = kNoSlot, sv = kOrderMax, si = kNoSlot;
+      for (int e = 0; e < n_pass; ++e) {
+        const float* u = u_s + e * nc;  // this event's slab row
+        const float* x = x_s + 3 * e;   // ... and its samples
+
+        // pre-event slot reductions: deadline, first free, FIFO-oldest
+        int bkey[SPT], okey[SPT];
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int s = t + 32 * j;
-        if (s < R) {
-          lexmin(dv, di, occ[j] ? budgets[j] : kInf, s);
-          lexmin(fv, fi, occ[j] ? 1 : 0, s);
-          lexmin(sv, si, occ[j] ? order[j] : kOrderMax, s);
+        for (int j = 0; j < SPT; ++j) {
+          const bool o = (occ >> j) & 1u;
+          bkey[j] = __float_as_int(o ? budgets[j] : kInf);
+          okey[j] = o ? order[j] : kOrderMax;
         }
-      }
-      warp_argmin(dv, di);
-      warp_argmin(fv, fi);
-      warp_argmin(sv, si);
-      const float deadline = dv;
-
-      // ties resolve spot > deadline > job
-      const float dt = fminf(fminf(nj, ns), deadline);
-      const bool is_spot = ns <= fminf(nj, deadline);
-      const bool is_deadline = !is_spot && deadline <= nj;
-      const bool is_job = !is_spot && !is_deadline;
-
-      bool admit_raw;
-      float budget;
-      if (a.policy_code == kThreePhase) {
-        const float n_hat = floorf(pa), frac = pa - n_hat;
-        const float qf = static_cast<float>(qlen);
-        const float p = qf < n_hat ? 1.f : (qf == n_hat ? frac : 0.f);
-        admit_raw = col(u, a.admit_col) < p;
-        budget = kInf;
-      } else {
-        budget = sample_wait(a.wait_code, pa, pb, u, a.admit_col);
-        admit_raw = qlen == 0 && budget > 0.f;
-      }
-      const bool admit = is_job && admit_raw && qlen < R;
-      const bool od_now = is_job && !admit;
-      const bool has_job = qlen > 0;
-      const bool served = is_spot && has_job;
-      const bool defected = is_deadline;
-      const bool leave = served || defected;
-      const int leave_slot = served ? si : di;
-
+        int bmin = bkey[0], omin = okey[0];
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        ages[j] = ages[j] + dt;
-        budgets[j] = occ[j] ? budgets[j] - dt : kInf;
-      }
-      const float wait_served = slot_value<SPT>(ages, si);
-      const float age_defect = slot_value<SPT>(ages, di);
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        const int s = t + 32 * j;
-        const bool join = admit && s == fi;
-        if (join) {
-          ages[j] = 0.f;
-          budgets[j] = budget;
-          order[j] = next_seq;
+        for (int j = 1; j < SPT; ++j) {
+          bmin = min(bmin, bkey[j]);
+          omin = min(omin, okey[j]);
         }
-        occ[j] = (occ[j] || join) && !(leave && s == leave_slot);
+        bmin = grp.reduce_min(bmin);
+        omin = grp.reduce_min(omin);
+        const int di = first_equal<G, SPT>(grp, bkey, bmin);
+        const int si = first_equal<G, SPT>(grp, okey, omin);
+        const unsigned free_bits = ~occ & ((1u << SPT) - 1u);
+        const int owner = grp.first(free_bits != 0);
+        const int fj = free_bits ? __ffs(free_bits) - 1 : 0;
+        const int fi = owner * SPT + grp.from(fj, owner & (G - 1));
+        const float deadline = __int_as_float(bmin);
+
+        // ties resolve spot > deadline > job
+        const float dt = fminf(fminf(nj, ns), deadline);
+        const bool is_spot = ns <= fminf(nj, deadline);
+        const bool is_deadline = !is_spot && deadline <= nj;
+        const bool is_job = !is_spot && !is_deadline;
+
+        bool admit_raw;
+        float budget;
+        if (a.policy_code == kThreePhase) {
+          const float n_hat = floorf(pa), frac = pa - n_hat;
+          const float qf = static_cast<float>(qlen);
+          const float p = qf < n_hat ? 1.f : (qf == n_hat ? frac : 0.f);
+          admit_raw = u[a.admit_col] < p;
+          budget = kInf;
+        } else {
+          budget = x[2];
+          admit_raw = qlen == 0 && budget > 0.f;
+        }
+        const bool admit = is_job && admit_raw && qlen < R;
+        const bool od_now = is_job && !admit;
+        const bool has_job = qlen > 0;
+        const bool served = is_spot && has_job;
+        const bool defected = is_deadline;
+        const bool leave = served || defected;
+        const int leave_slot = served ? si : di;
+
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          ages[j] = ages[j] + dt;
+          budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+        }
+        const float wait_served = slot_value<G, SPT>(grp, ages, si);
+        const float age_defect = slot_value<G, SPT>(grp, ages, di);
+        const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          if (j == join_j) {
+            ages[j] = 0.f;
+            budgets[j] = budget;
+            order[j] = next_seq;
+          }
+        }
+        if (join_j >= 0) occ |= 1u << join_j;
+        if (leave && leave_slot / SPT == t)
+          occ &= ~(1u << (leave_slot & (SPT - 1)));
+
+        const float job_draw = x[0], spot_draw = x[1];
+
+        jobs_arrived += is_job;
+        jobs_completed += od_now || served || defected;
+        spot_served += served;
+        ondemand += od_now || defected;
+        cost_sum = cost_sum + (served ? 1.f : 0.f);
+        cost_sum = cost_sum + ((od_now || defected) ? kc : 0.f);
+        delay_sum = delay_sum + (served ? wait_served : 0.f);
+        delay_sum = delay_sum + (defected ? age_defect : 0.f);
+        time_elapsed = time_elapsed + dt;
+        empty_time = empty_time + (qlen == 0 ? dt : 0.f);  // pre-event qlen
+        spot_arrivals += is_spot;
+        spot_found_empty += is_spot && !has_job;
+
+        nj = is_job ? job_draw : nj - dt;
+        ns = is_spot ? spot_draw : ns - dt;
+        next_seq += admit;
+        qlen += static_cast<int>(admit) - static_cast<int>(leave);
       }
-
-      const float job_draw =
-          sample_arrival(a.job_code, a.job_c, a.job_n, u, a.job_col);
-      const float spot_draw =
-          sample_arrival(a.spot_code, a.spot_c, a.spot_n, u, a.spot_col);
-
-      jobs_arrived += is_job;
-      jobs_completed += od_now || served || defected;
-      spot_served += served;
-      ondemand += od_now || defected;
-      cost_sum = cost_sum + (served ? 1.f : 0.f);
-      cost_sum = cost_sum + ((od_now || defected) ? kc : 0.f);
-      delay_sum = delay_sum + (served ? wait_served : 0.f);
-      delay_sum = delay_sum + (defected ? age_defect : 0.f);
-      time_elapsed = time_elapsed + dt;
-      empty_time = empty_time + (qlen == 0 ? dt : 0.f);  // pre-event qlen
-      spot_arrivals += is_spot;
-      spot_found_empty += is_spot && !has_job;
-
-      nj = is_job ? job_draw : nj - dt;
-      ns = is_spot ? spot_draw : ns - dt;
-      next_seq += admit;
-      qlen += static_cast<int>(admit) - static_cast<int>(leave);
     }
 
-    if (t == 0) {
+    if (t == 0 && live) {
       const size_t o = static_cast<size_t>(lane) * W + w, n = size_t(L) * W;
       a.istats[0 * n + o] = jobs_arrived;
       a.istats[1 * n + o] = jobs_completed;
@@ -324,21 +493,21 @@ __global__ void __launch_bounds__(kWarps * 32) sweep_kernel(const Args a) {
     int base = kOrderMax;
 #pragma unroll
     for (int j = 0; j < SPT; ++j)
-      if (t + 32 * j < R) base = min(base, occ[j] ? order[j] : next_seq);
-    base = __reduce_min_sync(kFull, base);
+      if (s0 + j < R) base = min(base, (occ >> j) & 1u ? order[j] : next_seq);
+    base = grp.reduce_min(base);
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) order[j] = occ[j] ? order[j] - base : 0;
+    for (int j = 0; j < SPT; ++j) order[j] = (occ >> j) & 1u ? order[j] - base : 0;
     next_seq -= base;
   }
 
+  if (!live) return;
 #pragma unroll
   for (int j = 0; j < SPT; ++j) {
-    const int s = t + 32 * j;
-    if (s < R) {
-      const size_t o = static_cast<size_t>(lane) * R + s;
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
       a.ages[o] = ages[j];
       a.budgets[o] = budgets[j];
-      a.occ[o] = occ[j];
+      a.occ[o] = (occ >> j) & 1u;
       a.order[o] = order[j];
     }
   }
@@ -350,12 +519,49 @@ __global__ void __launch_bounds__(kWarps * 32) sweep_kernel(const Args a) {
   }
 }
 
+template <int G, int SPT>
+cudaError_t launch_gs(const Args& a, int warps_per_block, cudaStream_t s) {
+  const int lanes_per_block = warps_per_block * 32 / G;
+  const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
+  const dim3 block(warps_per_block * 32);
+  const size_t smem =
+      sizeof(float) * lanes_per_block * (kLaneStride + kSampleStride);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sweep_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the (G, SPT) pairs sweep.py::group_size picks, and no other
+cudaError_t launch_g(const Args& a, int group, int spt, int warps_per_block,
+                     cudaStream_t s) {
+  if (group == 4) {
+    switch (spt) {
+      case 1: return launch_gs<4, 1>(a, warps_per_block, s);
+      case 2: return launch_gs<4, 2>(a, warps_per_block, s);
+      case 4: return launch_gs<4, 4>(a, warps_per_block, s);
+      case 8: return launch_gs<4, 8>(a, warps_per_block, s);
+    }
+  } else if (spt == 8) {
+    switch (group) {
+      case 8: return launch_gs<8, 8>(a, warps_per_block, s);
+      case 16: return launch_gs<16, 8>(a, warps_per_block, s);
+      case 32: return launch_gs<32, 8>(a, warps_per_block, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
 // n_cols, job_code, spot_code, policy_code, wait_code, job_col, spot_col,
-// admit_col, job_n, spot_n; fcfg: job_c[4], spot_c[4].  Launches on
-// `stream` and returns cudaGetLastError().
+// admit_col, job_n, spot_n, G (threads a lane), SPT (slots a thread),
+// warps a block; fcfg: job_c[4], spot_c[4].  Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is
+// not built).
 extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
                             const float* fcfg, void* stream) {
   Args a;
@@ -395,22 +601,16 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   a.admit_col = icfg[10];
   a.job_n = icfg[11];
   a.spot_n = icfg[12];
+  const int group = icfg[13], spt = icfg[14], warps_per_block = icfg[15];
   for (int i = 0; i < 4; ++i) {
     a.job_c[i] = fcfg[i];
     a.spot_c[i] = fcfg[4 + i];
   }
-  const dim3 grid((a.lanes + kWarps - 1) / kWarps), block(kWarps * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int spt = (a.rmax + 31) / 32;
-  if (spt <= 1)
-    sweep_kernel<1><<<grid, block, 0, s>>>(a);
-  else if (spt <= 2)
-    sweep_kernel<2><<<grid, block, 0, s>>>(a);
-  else if (spt <= 8)
-    sweep_kernel<8><<<grid, block, 0, s>>>(a);
-  else
+  if (a.n_cols < 0 || a.n_cols > kDraws || warps_per_block < 1 ||
+      warps_per_block > 32 || group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_g(a, group, spt, warps_per_block,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* sweep_error_string(int code) {

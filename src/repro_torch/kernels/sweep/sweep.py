@@ -1,10 +1,11 @@
 """ctypes wrapper of the hand-written CUDA batched-event kernel (csrc/sweep.cu).
 
 The kernel runs a fleet of single-queue lanes through a static plan of
-event windows (burn-in, chunks, tail), one warp per lane, with the lane
-state in registers across all windows and the slab's random bits drawn in
-the kernel from each window's key.  The wrapper computes those keys with
-the torch threefry (:func:`~repro_torch.core.clocks.window_slab_keys`),
+event windows (burn-in, chunks, tail), each lane on a group of G threads
+(:func:`group_size` picks G from rmax), with the lane state in registers
+across all windows and the slab's random bits drawn in the kernel from
+each window's key, a few events ahead.  The wrapper computes those keys
+with the torch threefry (:func:`~repro_torch.core.clocks.window_slab_keys`),
 turns the arrival, policy and wait descriptors into integer codes and
 float32 constants, checks every tensor, allocates the outputs and launches
 on the current stream.  The library is built with ``nvcc`` from the
@@ -32,10 +33,16 @@ LIBRARY = KernelLibrary(
     "sweep", Path(__file__).resolve().parent / "csrc" / "sweep.cu",
     ("--fmad=false",))
 
-#: slots per thread the kernel is instantiated for (rmax <= 32 * 8)
+#: slots a lane can hold: 32 threads of 8 slots, or 16 of 16
 MAX_RMAX = 256
-#: one warp draws an event's slab row, one column per thread
+#: slab columns an event can take (a draw pass stages 64 words a lane)
 MAX_COLS = 32
+#: the choice of G, from a probe of G against time on an H100 (PERF.md) at
+#: the two rmax the main paths run: G at rmax 1 (4 beat 1, 2 and 8), and
+#: the slots a thread G grows to keep at larger rmax (G 8 at rmax 64 beat
+#: 4, 16 and 32); the picks at other rmax follow the rule, not a
+#: measurement.  The kernel is built for these picks only.
+SMALL_GROUP, SLOTS_A_THREAD = 4, 8
 
 
 @functools.cache
@@ -93,6 +100,39 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"sweep kernel: {name} must be contiguous")
 
 
+def slots_per_thread(rmax: int, group: int) -> int:
+    """Slots each of a lane's ``group`` threads holds: the power of two
+    that covers rmax."""
+    spt = 1
+    while spt * group < rmax:
+        spt *= 2
+    return spt
+
+
+def group_size(rmax: int) -> int:
+    """Threads a lane runs on: ``SMALL_GROUP`` where that holds rmax in
+    ``SLOTS_A_THREAD`` slots a thread, else the power of two that does (at
+    most 32)."""
+    if not 1 <= rmax <= MAX_RMAX:
+        raise ValueError(f"sweep kernel: rmax must be in [1, {MAX_RMAX}], "
+                         f"got {rmax}")
+    g = SMALL_GROUP
+    while g < 32 and g * SLOTS_A_THREAD < rmax:
+        g *= 2
+    return g
+
+
+def warps_per_block(lanes: int, group: int, sms: int) -> int:
+    """Warps a block: the largest power of two, at most 4, that still
+    leaves a block for every one of the card's ``sms`` SMs, so the warps
+    spread evenly."""
+    warps = -(-lanes * group // 32)
+    wpb = 1
+    while wpb < 4 and 2 * wpb * sms <= warps:
+        wpb *= 2
+    return wpb
+
+
 def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
     """int64 tensor of 32-bit words -> the same bits as int32."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
@@ -107,6 +147,7 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     Same contract as :func:`repro_torch.kernels.sweep.ref.batched_event_windows_ref`:
     ``state`` holds ``(lanes, ...)`` CUDA tensors, ``params`` the kernel's
     per-lane float32 params, ``k_cost`` the per-lane on-demand price.
+    A lane runs on :func:`group_size` threads.
     Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)``.
     Raises if the kernel cannot be built or launched; it never falls back.
     """
@@ -117,7 +158,8 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
                          f"{MAX_RMAX}, got {lanes} lanes, rmax {rmax}")
     if layout.n_cols > MAX_COLS:
         raise ValueError(f"sweep kernel: a slab row of {layout.n_cols} "
-                         f"columns exceeds the warp's {MAX_COLS}")
+                         f"columns exceeds {MAX_COLS}")
+    group = group_size(rmax)
     if max(plan) * layout.n_cols >= 2**32:
         raise ValueError("sweep kernel: a window's slab index must fit in "
                          "32 bits")
@@ -159,12 +201,15 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     istats = torch.empty(6, lanes, w, dtype=i32, device=device)
     fstats = torch.empty(4, lanes, w, dtype=f32, device=device)
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     ptrs = np.array([x.data_ptr() for _, x, _, _ in inputs]
                     + [x.data_ptr() for x in out[1:]]
                     + [istats.data_ptr(), fstats.data_ptr()], np.int64)
     icfg = np.array([lanes, rmax, w, layout.n_cols, job_code, spot_code,
                      policy, wait, layout.job[0], layout.spot[0],
-                     layout.admit[0], job_n, spot_n], np.int32)
+                     layout.admit[0], job_n, spot_n, group,
+                     slots_per_thread(rmax, group),
+                     warps_per_block(lanes, group, sms)], np.int32)
     fcfg = np.zeros(8, np.float32)
     fcfg[:len(job_c)] = job_c
     fcfg[4:4 + len(spot_c)] = spot_c

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked ``cuda``: each test skips where there is no GPU (the kernel has no
-CPU mode). This file imports neither JAX nor the JAX package, so it runs on
+Marked ``cuda``: each test of a kernel skips where there is no GPU (the
+kernel has no CPU mode); one test, that the layout cases reach every
+build of the sweep kernel, runs anywhere. This file imports neither JAX nor the JAX package, so it runs on
 a machine that has only PyTorch; there, from the repository root:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
@@ -12,7 +13,8 @@ Tolerance of the sweep kernel: integer statistics and the final join
 orders, occupancy, counters and keys bitwise; float32 sums and clocks to
 rtol 1e-5 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
 exponential: the port has no Gamma initial sampler yet; every later draw
-is Gamma's.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
+is Gamma's.  Each lane-group layout case runs on the G threads a lane
+that the wrapper picks at its rmax.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
 1e-6 floor near zero), bf16 outputs within one bf16 ulp; the tensor-core
 flash route (bf16, P rounded to bf16 before P·V) rtol one bf16 ulp with an
 absolute floor of twice the distance between the plain version and its
@@ -30,6 +32,9 @@ import repro_torch.core as T
 from repro_torch.core import engine, threefry
 from repro_torch.kernels.decode_attention import (decode_attention_bh,
                                                   decode_attention_bh_ref)
+from repro_torch.kernels.decode_attention import \
+    decode_attention as decode_mod
+from repro_torch.kernels.decode_attention.ref import split_keys
 from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                  flash_attention_bh_ref,
                                                  flash_attention_simt,
@@ -40,6 +45,7 @@ from repro_torch.kernels.ssd import (ForwardOnlyError, ssd_chunked, ssd_cuda,
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.sweep import (batched_event_windows,
                                        batched_event_windows_ref)
+from repro_torch.kernels.sweep import sweep as sweep_mod
 
 LAM, MU = 1 / 12, 1 / 24
 
@@ -97,6 +103,93 @@ def test_cuda_launch_count_and_device_checks(cuda_device):
     assert batched_event_windows.launches == before + 1
     with pytest.raises(ValueError, match="float32"):
         batched_event_windows(job, spot, kernel, 8, s0, p, k.double(), (100,))
+
+
+#: the lane-group layouts: (name, job, spot, kernel, rmax, params), on the
+#: G the wrapper picks at their rmax; together they reach every (G, slots
+#: a thread) pair the library holds
+LAYOUTS = [
+    ("rmax2", T.Exponential(LAM), T.Exponential(MU),
+     T.SingleSlotKernel(wait=T.ExponentialWait(0.5)), 2, {}),
+    ("rmax16", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     16, {"r": np.linspace(1.0, 14.0, 9)}),
+    ("rmax32", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     32, {"r": np.linspace(1.0, 30.0, 9)}),
+    ("rmax33", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     33, {"r": np.linspace(1.0, 30.0, 9)}),
+    ("rmax64", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     64, {"r": np.linspace(1.0, 60.0, 9)}),
+    ("rmax65", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     65, {"r": np.linspace(1.0, 60.0, 9)}),
+    ("rmax256", T.Exponential(LAM), T.BathtubGCP(), T.ThreePhaseKernel(),
+     256, {"r": np.linspace(1.0, 250.0, 9)}),
+    ("gamma12", T.Gamma(12.0, 1.0), T.Exponential(MU), T.ThreePhaseKernel(),
+     8, {"r": np.linspace(0.0, 3.0, 9)}),
+    ("two_point_wait", T.Deterministic(12.0), T.Uniform(0.3, 48.7),
+     T.SingleSlotKernel(wait=T.TwoPointWait(0.3, 20.0)), 1, {}),
+]
+
+
+def _picked(rmax: int) -> tuple[int, int]:
+    g = sweep_mod.group_size(rmax)
+    return g, sweep_mod.slots_per_thread(rmax, g)
+
+
+def test_sweep_layouts_reach_every_built_pair():
+    """The layout cases and the main paths (rmax 64 and 1) drive every
+    (G, slots a thread) pair the wrapper can pick over rmax 1..256."""
+    picks = {_picked(r) for r in range(1, sweep_mod.MAX_RMAX + 1)}
+    driven = {_picked(c[4]) for c in LAYOUTS} | {_picked(64), _picked(1)}
+    assert driven == picks
+
+
+def _layout_run(device, case):
+    """45 lanes (no multiple of 32/G for G < 32) through 999-event windows
+    (no multiple of a draw pass: 21, 32 or 4 events at 3, 2 or 14 slab
+    columns) after a 250-event burn-in."""
+    name, job, spot, kernel, rmax, params = case
+    lanes, plan = 45, engine._window_plan(2_997, 999, 250)
+    init_job = T.Exponential(LAM) if isinstance(job, T.Gamma) else job
+    s0 = engine.init_engine_state(
+        threefry.split(threefry.key(11, device), lanes), init_job, spot, rmax)
+    k = torch.full((lanes,), 10.0, device=device)
+    p = engine.lane_params(kernel, {
+        n: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
+        for n, v in params.items()}, k)
+    args = (job, spot, kernel, rmax, s0, p, k, plan)
+    return args, batched_event_windows(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LAYOUTS, ids=[
+    f"{c[0]}-G{sweep_mod.group_size(c[4])}" for c in LAYOUTS])
+def test_cuda_sweep_layouts_match_plain_version(cuda_device, case):
+    """The wrapper's G at rmax 2, 16, 32, 33, 64, 65 and 256, a Gamma(12)
+    job (14 slab columns) and a two-point wait: the kernel against the
+    plain version."""
+    args, (fin_k, ker) = _layout_run(cuda_device, case)
+    fin_r, ref = batched_event_windows_ref(*args)
+    torch.cuda.synchronize()
+    name = f"{case[0]} G {sweep_mod.group_size(case[4])}"
+    assert_close({f: v.cpu().numpy() for f, v in ref._asdict().items()}, ker,
+                 engine.INT_STATS, name)
+    assert_close({f: v.cpu().numpy() for f, v in fin_r._asdict().items()},
+                 fin_k, (), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in LAYOUTS
+                                  if c[0] in ("rmax2", "two_point_wait")],
+                         ids=lambda c: c[0])
+def test_cuda_sweep_budgets_order_as_int32(cuda_device, case):
+    """The slot reductions take the budgets' bits as int32: every budget
+    the kernel leaves is +0 or more (a wait of exactly 0, a budget spent to
+    its deadline) or kInf, and none has its sign bit set."""
+    _, (fin, _) = _layout_run(cuda_device, case)
+    b = fin.budgets
+    assert not bool(torch.signbit(b).any())
+    assert bool((b.view(torch.int32) >= 0).all())
+    assert bool(((b >= 0) & (b <= 3e38)).all())
 
 
 def _normals(device, dtype, seed, *shapes):
@@ -200,6 +293,39 @@ def test_cuda_decode_kernel_matches_plain_version(cuda_device, dtype, kv_len):
         assert not got.float().abs().max()
 
 
+def _split_edges(s: int, n_split: int) -> list[int]:
+    kps = split_keys(s, n_split)
+    fills = {0, 1, s}
+    for j in range(n_split):
+        if j * kps < s:
+            fills |= {j * kps, min(s, (j + 1) * kps) - 1}
+    return sorted(fills)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,g,D,n_split", [(6, 4, 128, 64), (320, 4, 64, 13),
+                                            (2_048, 1, 32, 2)])
+def test_cuda_decode_split_edges(cuda_device, dtype, BH, g, D, n_split):
+    """S 8,192 split over the cache, at three B·KH whose split counts
+    differ: kv_len 0 (zeros), 1, S and every split's first and last key,
+    against the unsplit plain version."""
+    S = 8_192
+    q, k, v = _normals(cuda_device, dtype, 8, (BH, g, D), (BH, S, D),
+                       (BH, S, D))
+    ns = decode_mod.split_count(S, BH)
+    assert ns == n_split
+    before = decode_attention_bh.launches
+    fills = _split_edges(S, ns)
+    for kv_len in fills:
+        got = decode_attention_bh(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        _attn_close(decode_attention_bh_ref(q, k, v, kv_len), got)
+        if kv_len == 0:
+            assert not got.float().abs().max()
+    assert decode_attention_bh.launches == before + len(fills)
+
+
 @pytest.mark.cuda
 def test_cuda_attention_kernels_check_their_inputs(cuda_device):
     q = torch.zeros(2, 1, 100, 32, device=cuda_device)
@@ -211,6 +337,11 @@ def test_cuda_attention_kernels_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="g <= 8"):
         decode_attention_bh(torch.zeros(2, 9, 32, device=cuda_device), k, k,
                             5, block_k=64)
+    with pytest.raises(ValueError, match="16-byte"):
+        kk = torch.zeros(2 * 128 * 32 + 1, device=cuda_device)[1:]
+        kk = kk.view(2, 128, 32)
+        decode_attention_bh(torch.zeros(2, 4, 32, device=cuda_device), kk,
+                            kk, 5, block_k=64)
 
 
 # ---------------------------------------------------------------------------
