@@ -5,12 +5,13 @@
 Phases (each prints one line; any failure raises and exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the five CUDA kernel libraries from
+2. build the six CUDA kernel libraries from
    ``src/repro_torch/kernels/*/csrc`` (sweep, flash attention on the tensor
-   cores and on the CUDA cores, decode attention, SSD), one ``nvcc`` each,
-   all started together, with ptxas's registers, shared memory and spills
-   (the tensor-core flash kernel must spill nothing, and ptxas must not
-   serialise its wgmma);
+   cores and on the CUDA cores, decode attention, SSD on the tensor cores
+   and on the CUDA cores), one ``nvcc`` each, all started together, with
+   ptxas's registers, shared memory and spills (the two tensor-core
+   kernels must spill nothing, and ptxas must not serialise flash's
+   wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
@@ -76,41 +77,50 @@ Phases (each prints one line; any failure raises and exits nonzero):
    yardstick (timed here only; the port never calls it).  Flash on both
    routes in the same run; at S 32,768 each route's last 256 query rows of
    four heads are held to the plain version on those rows;
-9. the SSD kernel against its plain versions on the card: the JAX
-   package's SSD test shapes in float32 and bf16, property-test shapes,
-   chunk continuity (Q 16 against Q 128), against the sequential
-   recurrence; and the full-width layer shape (B 8, L 4,096, H 48, P 64,
-   N 128, Q 256, bf16) against the chunked scan.  Float32 rtol 1e-4, bf16
-   rtol one ulp, each with an absolute floor of twice the difference
-   between the two plain versions on the same inputs (``ssd_tolerance``);
+9. the SSD kernels against their plain versions on the card: the JAX
+   package's SSD test shapes and the property-test shapes in float32 and
+   bf16, chunk continuity (Q 16 against Q 128, float32, and bf16 on the
+   tensor cores), against the sequential recurrence; and the full-width
+   layer shape (B 8, L 4,096, H 48, P 64, N 128, Q 256, bf16) against the
+   chunked scan.  Every bf16 shape the tensor cores take runs on both
+   routes.  The CUDA cores: float32 rtol 1e-4, bf16 rtol one ulp, each
+   with an absolute floor of twice the difference between the two plain
+   versions on the same inputs (``ssd_tolerance``).  The tensor cores (W,
+   h_prev and the update's operand rounded to bf16): the floor rule of
+   ``ssd/ref.py::tc_tolerance``, rtol one bf16 ulp and atol twice the
+   larger of that float32 floor and the distance between the plain
+   version and its rounding twin ``ssd_tc_twin``, printed beside each
+   error;
 10. mamba2-780m scoring at full width (all 48 layers, the published
    widths, random weights from a seeded generator): ``MambaLM.loss`` on a
    ``DataPipeline(seed=0)`` batch of 8 × 4,096 tokens (train_4k's length,
    its batch cut from 256 to 8) through the SSD kernel and through the
    plain chunked scan, in bf16 and in float32, one bf16 call under
-   ``torch.profiler``; the SSD count is set to 0
-   just before the kernel's call and must read 48 after it.  On that
-   seed and two more, the two bf16 losses must agree within twice the
-   floor printed beside them: the spread of the loss over five plain
-   versions at full depth (the chunked scan at Q 256, 128, 64 and 32, the
-   sequential recurrence); each line also says whether they agree within
-   1x.  Float32 to rtol 1e-4;
+   ``torch.profiler``; the SSD counts are set to 0 just before the
+   kernel's call and must read 48 after it, all on the tensor cores in
+   bf16 and all on the CUDA cores in float32.  On that seed and two more,
+   the two bf16 losses must agree within twice the floor printed beside
+   them: the spread of the loss over six plain versions at full depth (the
+   chunked scan at Q 256, 128, 64 and 32, the sequential recurrence, the
+   rounding twin); each line also says whether they agree within 1x.
+   Float32 to rtol 1e-4;
 11. spot-aware serving on mamba2-780m at full width, the stream of phase 6;
-   the SSD count must read 0 across it (prefill takes the chunked scan, as
+   the SSD counts (both routes) must read 0 across it (prefill takes the chunked scan, as
    in the JAX package), with a teacher-forced check of ``decode_step``
    against prefills: float32 (a twin with the same weights) to rtol 1e-4 /
    atol 1e-4 (the check of ``decode_step``); bf16 within twice the bf16
    prefill's distance from the twin's, and the twin's greedy token
    wherever the twin's top-1/top-2 margin exceeds that limit;
 12. the SSD kernel alone (CUDA events) at the full-width layer shape and at
-   one row of prefill_32k (B 1, L 32,768), B and C read in place as the
-   model hands them over and from contiguous copies, beside the plain
-   chunked scan and its bound; no single PyTorch call computes SSD
-   (``library_ms`` null).
+   one row of prefill_32k (B 1, L 32,768), on both routes in one run, B
+   and C read in place as the model hands them over (and, on the tensor
+   cores, from contiguous copies), beside the plain chunked scan and its
+   bound; no single PyTorch call computes SSD (``library_ms`` null).
 
 The next-to-last line is a JSON object describing the four ported kernels
-(times, bound, launches, error against the plain version; flash with each
-route's time and launches); the last is ``{"ok": true, "device": {...}}``.
+(times, bound, launches, error against the plain version; flash and SSD
+with each route's time and launches); the last is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -167,8 +177,12 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd as ssd_mod  # noqa: E402
-from repro_torch.kernels.ssd.ref import ssd_chunked, ssd_ref  # noqa: E402
-from repro_torch.kernels.ssd.ssd import ssd_cuda  # noqa: E402
+from repro_torch.kernels.ssd.ref import (ssd_chunked, ssd_ref,  # noqa: E402
+                                         ssd_tc_twin)
+from repro_torch.kernels.ssd.ref import (  # noqa: E402
+    tc_tolerance as ssd_tc_tolerance)
+from repro_torch.kernels.ssd.ssd import (ssd_cuda, ssd_simt,  # noqa: E402
+                                         ssd_tc)
 from repro_torch.layers.norms import rms_norm  # noqa: E402
 from repro_torch.layers.ssm import mamba_block  # noqa: E402
 from repro_torch.models.base import cross_entropy_chunked  # noqa: E402
@@ -618,7 +632,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     results = _build.build(sweep.LIBRARY, flash_mod.TC_LIBRARY,
                            flash_mod.LIBRARY, decode_mod.LIBRARY,
-                           ssd_mod.LIBRARY, verbose=True)
+                           ssd_mod.TC_LIBRARY, ssd_mod.LIBRARY, verbose=True)
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
@@ -633,16 +647,16 @@ def phase_build() -> None:
             if any(w in line for w in ("Used", "spill", "Compiling",
                                        "(C75")):
                 print(f"  {line.strip()}", flush=True)
-            if res.library != flash_mod.TC_LIBRARY:
+            if res.library not in (flash_mod.TC_LIBRARY, ssd_mod.TC_LIBRARY):
                 continue
-            # the tensor-core kernel must neither spill nor have ptxas
-            # serialise its wgmma (C7508-C7518: setmaxnreg ignored, a wait
-            # injected, products serialised)
+            # the tensor-core kernels must neither spill nor have ptxas
+            # serialise flash's wgmma (C7508-C7518: setmaxnreg ignored, a
+            # wait injected, products serialised)
             if ("spill" in line and " 0 bytes spill stores, 0 bytes spill "
                     "loads" not in line) or any(
                         f"(C75{n:02d})" in line for n in range(8, 19)):
-                raise AssertionError(f"the tensor-core flash kernel: "
-                                     f"{line.strip()}")
+                raise AssertionError(f"the tensor-core kernel "
+                                     f"{res.library.name}: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s wall for all "
           f"{len(results)}; dynamic shared memory a block: flash on the "
           f"tensor cores {flash_mod.tc_smem_bytes(HEAD_DIM)} B (bf16, D "
@@ -651,8 +665,9 @@ def phase_build() -> None:
           f"{flash_mod.smem_bytes(torch.float32, HEAD_DIM)} B (f32); decode "
           f"{decode_mod.smem_bytes(torch.bfloat16, 1, HEAD_DIM)} B (bf16, g "
           f"1), {decode_mod.smem_bytes(torch.float32, 1, HEAD_DIM)}"
-          f" B (f32); SSD {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); the "
-          f"sweep none", flush=True)
+          f" B (f32); SSD on the tensor cores {ssd_mod.tc_smem_bytes(SSD_Q)} "
+          f"B, on the CUDA cores {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); "
+          f"the sweep none", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1326,34 +1341,49 @@ def as_bc_slices(args) -> tuple:
 
 
 def ssd_tolerance(dtype, floor: float) -> dict:
-    """Float32 rtol 1e-4, bf16 one ulp, each with an absolute floor of
-    twice ``floor``, the largest difference between the two plain versions
-    (chunked scan, sequential recurrence) on the same inputs in float32,
-    and at least 1e-5 (float32) or 1e-6 (bf16)."""
+    """The CUDA-core route: float32 rtol 1e-4, bf16 one ulp, each with an
+    absolute floor of twice ``floor``, the largest difference between the
+    two plain versions (chunked scan, sequential recurrence) on the same
+    inputs in float32, and at least 1e-5 (float32) or 1e-6 (bf16)."""
     if dtype == torch.bfloat16:
         return dict(rtol=BF16_RTOL, atol=max(F32_ATOL, 2 * floor))
     return dict(rtol=1e-4, atol=max(1e-5, 2 * floor))
 
 
-def hold_ssd(name, args, got, chunk, *, against: str = "ref"
-             ) -> tuple[float, float]:
-    """The kernel's output against a plain version (``ref``, the sequential
-    recurrence, or ``chunked``) on the same inputs; returns (max abs
-    difference, floor)."""
+def ssd_plain(args, chunk, against: str = "ref") -> tuple[torch.Tensor,
+                                                           float]:
+    """A plain version's output on ``args`` (``ref``, the sequential
+    recurrence, or ``chunked``) and the float32 floor: the largest
+    difference between the chunked scan and the recurrence in float32."""
     f32 = [a.float() for a in args]
-    seq = ssd_ref(*f32)
-    floor = float((ssd_chunked(*f32, chunk=chunk) - seq).abs().max())
+    floor = float((ssd_chunked(*f32, chunk=chunk) - ssd_ref(*f32)).abs().max())
+    del f32
     want = ssd_ref(*args) if against == "ref" else ssd_chunked(
         *args, chunk=chunk)
-    del seq, f32
-    if got.dtype != want.dtype or got.shape != want.shape:
+    return want, floor
+
+
+def hold_ssd(name, got, plain, floor: float, twin=None
+             ) -> tuple[float, float]:
+    """A kernel's output against ``plain``: the CUDA cores by
+    ``ssd_tolerance``; the tensor cores (``twin`` given: the rounding twin
+    on the same inputs and chunk) by the floor rule,
+    ``ssd/ref.py::tc_tolerance``: rtol one bf16 ulp, atol twice the larger
+    of ``floor`` and the twin's distance from ``plain``.  Returns (max abs
+    difference, the floor used)."""
+    if got.dtype != plain.dtype or got.shape != plain.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
-                             f"{want.dtype} {tuple(want.shape)}")
-    a, b = want.float().cpu().numpy(), got.float().cpu().numpy()
+                             f"{plain.dtype} {tuple(plain.shape)}")
+    if twin is None:
+        tol = ssd_tolerance(got.dtype, floor)
+    else:
+        tol, dist = ssd_tc_tolerance(plain, twin, floor)
+        floor = max(floor, dist)
+    a, b = plain.float().cpu().numpy(), got.float().cpu().numpy()
     if not np.all(np.isfinite(b)):
         raise AssertionError(f"{name}: non-finite output")
-    np.testing.assert_allclose(b, a, err_msg=name,
-                               **ssd_tolerance(got.dtype, floor))
+    np.testing.assert_allclose(b, a, err_msg=f"{name} (floor {floor:.3g})",
+                               **tol)
     return float(np.abs(a - b).max()), floor
 
 
@@ -1374,51 +1404,88 @@ def ssd_bound(B, L, H, P, N, Q, itemsize=2) -> tuple[float, str]:
 
 
 def phase_ssd_parity(ssd: dict) -> None:
-    """The kernel through ``ops.ssd`` against the plain versions: the test
-    shapes against the recurrence, the full-width layer against the
-    chunked scan.  Its launches here are reported apart from the main
-    path's."""
-    worst = worst_floor = 0.0
-    ssd_cuda.launches = 0
+    """The kernels through ``ops.ssd`` against the plain versions, every
+    bf16 shape the tensor cores take on both routes: the test shapes and
+    the property shapes (float32 and bf16) against the recurrence, chunk
+    continuity, the full-width layer against the chunked scan.  Their
+    launches here are reported apart from the main path's."""
+    worst = {"tc": 0.0, "simt": 0.0}
+    worst_floor = {"tc": 0.0, "simt": 0.0}
+    ssd_cuda.launches = ssd_tc.launches = ssd_simt.launches = 0
+
+    def check(name, args, chunk, against="ref") -> dict:
+        """``args`` through ops.ssd and, where that takes the tensor cores,
+        on the CUDA cores too; returns {route: (error, floor)}."""
+        plain, floor = ssd_plain(args, chunk, against)
+        x, b_in = args[0], args[4]
+        routes = (("tc", "simt") if ssd_mod.route(
+            x.dtype, x.shape[-1], b_in.shape[-1], min(chunk, x.shape[1]))
+                  == "tc" else ("simt",))
+        out = {}
+        for r in routes:
+            got = (ssd_ops.ssd(*args, chunk=chunk) if r == routes[0]
+                   else ssd_cuda(*args, chunk=chunk, route=r))
+            twin = ssd_tc_twin(*args, chunk=chunk) if r == "tc" else None
+            out[r] = hold_ssd(f"{name} {r}", got, plain, floor, twin)
+            worst[r] = max(worst[r], out[r][0])
+            worst_floor[r] = max(worst_floor[r], out[r][1])
+            if r == "tc":
+                print(f"  ssd {name} tensor cores: max abs {out[r][0]:.3g}, "
+                      f"floor {out[r][1]:.3g} (limit twice it)", flush=True)
+        return out
+
     for i, (B, L, H, P, N, Q) in enumerate(SSD_CASES):
         for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(70 + i, dtype, B, L, H, P, N)
-            got = ssd_ops.ssd(*args, chunk=Q)
-            err, floor = hold_ssd(f"ssd case {i} {dtype}", args, got, Q)
-            worst, worst_floor = max(worst, err), max(worst_floor, floor)
+            check(f"case {i} {dtype}", ssd_inputs(70 + i, dtype, B, L, H, P,
+                                                  N), Q)
     for i, (B, nc, H, P, N) in enumerate(SSD_PROPERTY):
-        args = ssd_inputs(80 + i, torch.float32, B, nc * 32, H, P, N,
-                          d_skip=0.0)
-        got = ssd_ops.ssd(*args, chunk=32)
-        err, floor = hold_ssd(f"ssd property {i}", args, got, 32)
-        worst, worst_floor = max(worst, err), max(worst_floor, floor)
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"property {i} {dtype}",
+                  ssd_inputs(80 + i, dtype, B, nc * 32, H, P, N, d_skip=0.0),
+                  32)
     args = list(ssd_inputs(90, torch.float32, 1, 128, 2, 16, 16, d_skip=0.0))
     args[2] = torch.zeros(2, device=DEVICE)  # A = -1
     small, big = (ssd_ops.ssd(*args, chunk=q) for q in (16, 128))
     np.testing.assert_allclose(small.cpu().numpy(), big.cpu().numpy(),
                                rtol=1e-4, atol=1e-5, err_msg="continuity")
     cont = float((small - big).abs().max())
-    print(f"parity ssd: {len(SSD_CASES)} test shapes x f32/bf16 and "
-          f"{len(SSD_PROPERTY)} property shapes against the recurrence: max "
-          f"abs diff {worst:.3g} (the two plain versions differ by up to "
-          f"{worst_floor:.3g}); chunk 16 vs 128: {cont:.3g}", flush=True)
+    # bf16 on the tensor cores: each chunk held by the floor rule to the
+    # recurrence, which has no chunks
+    args = [a.bfloat16() if a.dim() > 1 and i != 1 else a
+            for i, a in enumerate(args)]
+    cont_tc = {q: check(f"continuity Q {q} bf16", args, q)["tc"]
+               for q in (16, 128)}
+    print(f"parity ssd: {len(SSD_CASES)} test shapes and "
+          f"{len(SSD_PROPERTY)} property shapes x f32/bf16 against the "
+          f"recurrence: tensor cores max abs diff {worst['tc']:.3g} (largest "
+          f"floor {worst_floor['tc']:.3g}), CUDA cores {worst['simt']:.3g} "
+          f"(the two plain versions differ by up to "
+          f"{worst_floor['simt']:.3g}); chunk 16 vs 128 float32: {cont:.3g}; "
+          f"bf16 on the tensor cores Q 16 / 128 vs the recurrence "
+          f"{cont_tc[16][0]:.3g} / {cont_tc[128][0]:.3g}", flush=True)
 
     args = as_bc_slices(ssd_inputs(91, torch.bfloat16, SCORE_B, SCORE_L,
                                    SSD_H, SSD_P, SSD_N, dt_shift=-4.0))
     t0 = time.perf_counter()
-    got = ssd_ops.ssd(*args, chunk=SSD_Q)
-    err, floor = hold_ssd("ssd full-width layer", args, got, SSD_Q,
-                          against="chunked")
+    full = check("full-width layer", args, SSD_Q, against="chunked")
     torch.cuda.synchronize()
     print(f"parity ssd full-width layer {tuple(args[0].shape)} bf16 Q "
-          f"{SSD_Q}: kernel vs chunked scan max abs {err:.3g}; chunked vs "
-          f"recurrence (float32) {floor:.3g}; |y| max "
-          f"{float(got.float().abs().max()):.3g} ({time.perf_counter() - t0:.1f}"
-          f" s with the plain versions)", flush=True)
-    ssd.update(max_abs_err=max(worst, err), parity_floor=max(worst_floor,
-                                                             floor),
-               full_width_err=err, full_width_floor=floor,
-               parity_launches=ssd_cuda.launches)
+          f"{SSD_Q} vs the chunked scan: tensor cores max abs "
+          f"{full['tc'][0]:.3g} (floor {full['tc'][1]:.3g}: the twin's "
+          f"distance), CUDA cores {full['simt'][0]:.3g} (floor "
+          f"{full['simt'][1]:.3g}: chunked vs recurrence in float32) "
+          f"({time.perf_counter() - t0:.1f} s with the plain versions); "
+          f"launches {ssd_tc.launches} tensor-core, {ssd_simt.launches} "
+          f"CUDA-core", flush=True)
+    ssd.update(max_abs_err=max(worst.values()), tc_max_abs_err=worst["tc"],
+               tc_floor=worst_floor["tc"], simt_max_abs_err=worst["simt"],
+               parity_floor=worst_floor["simt"],
+               full_width_err=full["tc"][0], full_width_floor=full["tc"][1],
+               full_width_simt_err=full["simt"][0],
+               full_width_simt_floor=full["simt"][1],
+               parity_launches=ssd_cuda.launches,
+               tc_parity_launches=ssd_tc.launches,
+               simt_parity_launches=ssd_simt.launches)
 
 
 def mamba_model(dtype: str = "bfloat16", seed: int = MAIN_SEED, **changes):
@@ -1430,18 +1497,28 @@ def mamba_model(dtype: str = "bfloat16", seed: int = MAIN_SEED, **changes):
     return build_model(cfg, device=DEVICE, generator=gen)
 
 
-def scan_loss(model, batch, impl: str) -> float:
+def scan_loss(model, batch, impl: str, scan=None) -> float:
     """``MambaLM.loss`` with every layer's scan set to ``impl``: "pallas"
     (the kernel), "chunked" (the plain scan) or "ref" (the sequential
-    recurrence, which the model, as the JAX package's, never selects)."""
+    recurrence, which the model, as the JAX package's, never selects).
+    ``scan``, with "pallas", stands in for the kernel's entry ``ops.ssd``
+    in every layer for the call: how the tensor-core route's rounding twin
+    runs the whole model."""
     cfg = model.cfg
-    x = model.embed[batch["tokens"].long()]
-    for layer in model.layers:
-        h = rms_norm(layer["ln"], x, cfg.norm_eps)
-        x = x + mamba_block(layer["ssm"], model.dims, h,
-                            norm_eps=cfg.norm_eps, impl=impl)
-    x = rms_norm(model.final_norm, x, cfg.norm_eps)
-    return float(cross_entropy_chunked(x, model.lm_head, batch["targets"]))
+    real = ssd_ops.ssd
+    if scan is not None:
+        ssd_ops.ssd = scan
+    try:
+        x = model.embed[batch["tokens"].long()]
+        for layer in model.layers:
+            h = rms_norm(layer["ln"], x, cfg.norm_eps)
+            x = x + mamba_block(layer["ssm"], model.dims, h,
+                                norm_eps=cfg.norm_eps, impl=impl)
+        x = rms_norm(model.final_norm, x, cfg.norm_eps)
+        return float(cross_entropy_chunked(x, model.lm_head,
+                                           batch["targets"]))
+    finally:
+        ssd_ops.ssd = real
 
 
 def timed_loss(model, batch, impl: str) -> tuple[float, float]:
@@ -1461,10 +1538,12 @@ def hold_loss(model, batch, seed: int, loss_k: float, loss_p: float
               ) -> dict:
     """The kernel's bf16 loss against the plain chunked scan's, within
     LOSS_LIMIT_FLOORS times a floor: the spread (largest less smallest) of
-    the loss over plain versions of the scan that differ from the model's
-    only in the order of their float32 sums, all at full depth: the
-    chunked scan at the model's chunk and at each of FLOOR_CHUNKS, and the
-    sequential recurrence."""
+    the loss over plain versions of the scan, all at full depth: the
+    chunked scan at the model's chunk and at each of FLOOR_CHUNKS and the
+    sequential recurrence, which differ from the model's only in the order
+    of their float32 sums, and the tensor-core route's rounding twin
+    (``ssd_tc_twin``: the chunked scan rounding to bf16 where the kernel
+    does)."""
     dims = model.dims
     losses = {f"chunked Q {dims.chunk}": loss_p}
     try:
@@ -1476,6 +1555,7 @@ def hold_loss(model, batch, seed: int, loss_k: float, loss_p: float
     t0 = time.perf_counter()
     losses["recurrence"] = scan_loss(model, batch, "ref")
     wall_r = time.perf_counter() - t0
+    losses["twin"] = scan_loss(model, batch, "pallas", scan=ssd_tc_twin)
     floor = max(losses.values()) - min(losses.values())
     err, limit = abs(loss_k - loss_p), LOSS_LIMIT_FLOORS * floor
     print(f"mamba2-780m scoring seed {seed} bf16: loss kernel {loss_k:.6f}, "
@@ -1503,18 +1583,23 @@ def phase_mamba_scoring(ssd: dict) -> None:
                          seed=SCORE_SEEDS[0]).next(DEVICE)
     timed_loss(model, batch, "pallas")  # warm-up: cuBLAS, first launches
     torch.cuda.reset_peak_memory_stats()
-    ssd_cuda.launches = 0
+    ssd_cuda.launches = ssd_tc.launches = ssd_simt.launches = 0
     loss_k, wall_k = timed_loss(model, batch, "pallas")
     launches = ssd_cuda.launches
+    routes = (ssd_tc.launches, ssd_simt.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    ssd["launches"] = launches
-    if launches != model.cfg.num_layers:
-        raise AssertionError(f"scoring: {launches} SSD launches for one loss "
-                             f"of {model.cfg.num_layers} layers")
+    ssd.update(launches=launches, tc_launches=routes[0],
+               simt_launches=routes[1])
+    if (launches, routes) != (model.cfg.num_layers,
+                              (model.cfg.num_layers, 0)):
+        raise AssertionError(f"scoring: {launches} SSD launches ({routes[0]} "
+                             f"tensor-core, {routes[1]} CUDA-core) for one "
+                             f"bf16 loss of {model.cfg.num_layers} layers")
     loss_p, wall_p = timed_loss(model, batch, "chunked")
     tokens = SCORE_B * SCORE_L
     print(f"mamba2-780m scoring {SCORE_B} x {SCORE_L} bf16: SSD launches "
-          f"{launches}; {wall_k:.3f} s wall = {tokens / wall_k:.0f} scored "
+          f"{launches} ({routes[0]} tensor-core, {routes[1]} CUDA-core); "
+          f"{wall_k:.3f} s wall = {tokens / wall_k:.0f} scored "
           f"tokens/s (plain chunked {wall_p:.3f} s); peak {peak:.2f} GiB",
           flush=True)
     ssd.update({f"score_{k}": v for k, v in profile_call(
@@ -1539,15 +1624,22 @@ def phase_mamba_scoring(ssd: dict) -> None:
     torch.cuda.empty_cache()
 
     model = mamba_model("float32")
+    ssd_tc.launches = ssd_simt.launches = 0
     loss_k, wall_k = timed_loss(model, batch, "pallas")
+    routes = (ssd_tc.launches, ssd_simt.launches)
+    if routes != (0, model.cfg.num_layers):
+        raise AssertionError(f"scoring float32: {routes[0]} tensor-core and "
+                             f"{routes[1]} CUDA-core SSD launches")
     loss_p, _ = timed_loss(model, batch, "chunked")
     np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_F32_RTOL,
                                err_msg="float32 loss")
     print(f"mamba2-780m scoring {SCORE_B} x {SCORE_L} float32: loss kernel "
           f"{loss_k:.7f}, plain chunked {loss_p:.7f}, difference "
           f"{abs(loss_k - loss_p):.3g} (rtol {LOSS_F32_RTOL}); {wall_k:.3f} "
-          f"s wall", flush=True)
-    ssd.update(score_f32_loss_err=abs(loss_k - loss_p))
+          f"s wall; SSD launches {routes[1]} CUDA-core, {routes[0]} "
+          f"tensor-core", flush=True)
+    ssd.update(score_f32_loss_err=abs(loss_k - loss_p),
+               score_f32_simt_launches=routes[1])
 
 
 def phase_mamba_serving(ssd: dict) -> None:
@@ -1558,15 +1650,17 @@ def phase_mamba_serving(ssd: dict) -> None:
     model = mamba_model()
     built("mamba2-780m", model, t0)
     _, launches, stats = serve_stream(
-        model, "mamba2-780m", (ssd_cuda, flash_attention_bh,
-                               flash_attention_tc, flash_attention_simt,
-                               decode_attention_bh))
+        model, "mamba2-780m", (ssd_cuda, ssd_tc, ssd_simt,
+                               flash_attention_bh, flash_attention_tc,
+                               flash_attention_simt, decode_attention_bh))
     if any(launches.values()):
         raise AssertionError(f"mamba2 serving launched {launches}; the "
                              "stream runs no kernel")
     ssd.update({k if k.startswith("serving") else f"serving_{k}": v
                 for k, v in stats.items()})
-    ssd["serving_launches"] = launches["ssd_cuda"]
+    ssd.update(serving_launches=launches["ssd_cuda"],
+               serving_tc_launches=launches["ssd_tc"],
+               serving_simt_launches=launches["ssd_simt"])
 
     toks = torch.as_tensor(np.random.default_rng(MAIN_SEED + 1).integers(
         2, model.cfg.vocab_size, size=(SERVE_B, PROMPT)), device=DEVICE)
@@ -1637,34 +1731,48 @@ def phase_mamba_serving(ssd: dict) -> None:
 
 
 def phase_ssd_timings(ssd: dict) -> None:
-    """The kernel alone by CUDA events at the full-width layer shape and at
-    one prefill_32k row, beside the plain chunked scan and the bound; B and
-    C read in place as the model hands them over, and, to show what that
-    layout costs, from contiguous copies."""
+    """Each route alone by CUDA events at the full-width layer shape and at
+    one prefill_32k row, in one run, beside the plain chunked scan and the
+    bound; B and C read in place as the model hands them over, and, to
+    show what that layout costs, from contiguous copies (tensor cores).
+    The tensor cores' output is held to the chunked scan by the floor rule
+    at both shapes."""
     for tag, B, L in (("", SCORE_B, SCORE_L), ("long_", 1, SSD_LONG_L)):
         args = as_bc_slices(ssd_inputs(92, torch.bfloat16, B, L, SSD_H,
                                        SSD_P, SSD_N, dt_shift=-4.0))
+        times, outs = {}, {}
         # warm-ups: the first call of each allocates its buffers
-        ssd_cuda(*args, chunk=SSD_Q)
-        ms, out = cuda_ms(lambda: ssd_cuda(*args, chunk=SSD_Q), 3)
+        for r in ("tc", "simt"):
+            ssd_cuda(*args, chunk=SSD_Q, route=r)
+            times[r], outs[r] = cuda_ms(lambda: ssd_cuda(
+                *args, chunk=SSD_Q, route=r), 10 if r == "tc" else 3)
         packed = (*args[:4], args[4].contiguous(), args[5].contiguous())
         ssd_cuda(*packed, chunk=SSD_Q)
-        packed_ms, _ = cuda_ms(lambda: ssd_cuda(*packed, chunk=SSD_Q), 3)
+        packed_ms, _ = cuda_ms(lambda: ssd_cuda(*packed, chunk=SSD_Q), 10)
         ssd_chunked(*args, chunk=SSD_Q)
         plain_ms, ref = cuda_ms(lambda: ssd_chunked(*args, chunk=SSD_Q))
-        err = float((out.float() - ref.float()).abs().max())
+        err, floor = hold_ssd(f"ssd timing shape L={L} tc", outs["tc"], ref,
+                              0.0, ssd_tc_twin(*args, chunk=SSD_Q))
+        simt_err = float((outs["simt"].float() - ref.float()).abs().max())
         b_ms, b_by = ssd_bound(B, L, SSD_H, SSD_P, SSD_N, SSD_Q)
-        ssd.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms,
+        ms, simt_ms = times["tc"], times["simt"]
+        ssd.update({f"{tag}ms": ms, f"{tag}tc_ms": ms,
+                    f"{tag}simt_ms": simt_ms, f"{tag}plain_ms": plain_ms,
                     f"{tag}bound_ms": b_ms, f"{tag}bound_by": b_by,
                     f"{tag}library_ms": None, f"{tag}timing_err": err,
+                    f"{tag}timing_floor": floor,
+                    f"{tag}simt_timing_err": simt_err,
                     f"{tag}contiguous_bc_ms": packed_ms})
         print(f"ssd {tag or 'scoring_'}shape (B {B}, L {L}, H {SSD_H}, P "
-              f"{SSD_P}, N {SSD_N}, Q {SSD_Q}, bf16): kernel {ms:.3f} ms "
-              f"(B and C contiguous {packed_ms:.3f} ms), "
-              f"plain chunked {plain_ms:.3f} ms (max abs vs kernel "
-              f"{err:.3g}), bound {b_ms:.4f} ms ({b_by}), kernel at "
-              f"{100 * b_ms / ms:.2f}% of it; no library call", flush=True)
-        del args, packed, out, ref
+              f"{SSD_P}, N {SSD_N}, Q {SSD_Q}, bf16): tensor cores {ms:.4f} "
+              f"ms (B and C contiguous {packed_ms:.4f} ms; "
+              f"{100 * b_ms / ms:.2f}% of the bound), CUDA cores "
+              f"{simt_ms:.3f} ms ({100 * b_ms / simt_ms:.2f}%; "
+              f"{simt_ms / ms:.1f}x the tensor cores' time), plain chunked "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); against the "
+              f"chunked scan: tensor cores {err:.3g} (floor {floor:.3g}), "
+              f"CUDA cores {simt_err:.3g}; no library call", flush=True)
+        del args, packed, outs, ref
         torch.cuda.empty_cache()
 
 
@@ -1718,7 +1826,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     ssd = {"name": "ssd_cuda", "route": "cuda",
-           "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+           "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
+           "simt_source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
            "replaces": "src/repro/kernels/ssd/ssd.py:79"}
     phase_ssd_parity(ssd)
     phase_mamba_scoring(ssd)

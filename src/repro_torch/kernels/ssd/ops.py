@@ -1,9 +1,9 @@
 """Public entry of the SSD kernel: the tiling contract, the layout and the
 dispatch.
 
-``ssd`` sends CUDA tensors to the hand-written kernel (:mod:`.ssd`, which
-checks its inputs, then launches or raises) and CPU tensors to the plain
-chunked scan.  The contract is the JAX wrapper's on both: Q = min(chunk,
+``ssd`` sends CUDA tensors to the hand-written kernels (:mod:`.ssd`, which
+picks the tensor-core or CUDA-core route, checks its inputs, then launches
+or raises) and CPU tensors to the plain chunked scan.  The contract is the JAX wrapper's on both: Q = min(chunk,
 L) and L % Q == 0, else ``ValueError``; forward only, so an input that
 requires grad raises :class:`~repro_torch.kernels.ssd.ssd.ForwardOnlyError`.
 """

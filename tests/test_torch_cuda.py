@@ -19,9 +19,12 @@ that the wrapper picks at its rmax.  Of the attention kernels: float32 outputs r
 flash route (bf16, P rounded to bf16 before P·V) rtol one bf16 ulp with an
 absolute floor of twice the distance between the plain version and its
 bf16-P twin on the same inputs (``tc_tolerance``).  Of the SSD
-kernel: float32 rtol 1e-4 / atol 5e-5 against the sequential and the
-chunked plain versions (sums of N products in another order), bf16 one
-ulp.
+kernels: on the CUDA cores, float32 rtol 1e-4 / atol 5e-5 against the
+sequential and the chunked plain versions (sums of N products in another
+order), bf16 one ulp; on the tensor cores (bf16, three intermediates
+rounded to bf16), rtol one bf16 ulp with an absolute floor of twice the
+distance between the plain version and its rounding twin
+(``ssd/ref.py::tc_tolerance``).
 """
 import numpy as np
 import pytest
@@ -41,8 +44,9 @@ from repro_torch.kernels.flash_attention import (flash_attention_bh,
                                                  flash_attention_tc,
                                                  tc_tolerance)
 from repro_torch.kernels.ssd import (ForwardOnlyError, ssd_chunked, ssd_cuda,
-                                     ssd_ref)
+                                     ssd_ref, ssd_simt, ssd_tc, ssd_tc_twin)
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import tc_tolerance as ssd_tc_tolerance
 from repro_torch.kernels.sweep import (batched_event_windows,
                                        batched_event_windows_ref)
 from repro_torch.kernels.sweep import sweep as sweep_mod
@@ -378,21 +382,63 @@ def _ssd_inputs(device, dtype, seed, B, L, H, P, N, a_log=None, d_skip=None):
     return x, dt, a_log, d_skip, b_in, c_in
 
 
+#: every case on the CUDA cores in both types, as before the tensor-core
+#: route; every bf16 case the tensor cores take (P, N, Q multiples of 16)
+#: on the tensor cores too
+SSD_ROUTES = ([(c, dt, "simt") for c in SSD_CASES
+               for dt in (torch.float32, torch.bfloat16)]
+              + [(c, torch.bfloat16, "tc") for c in SSD_CASES
+                 if all(d % 16 == 0 for d in c[3:])])
+
+
+def _hold_ssd_tc(args, chunk, got):
+    """A tensor-core output against the sequential plain version by the
+    floor rule: its rounding twin at this chunk sets the floor, and so
+    does the float32 chunked scan's distance from the recurrence."""
+    f32 = [a.float() for a in args]
+    floor = float((ssd_chunked(*f32, chunk=chunk) - ssd_ref(*f32)).abs().max())
+    plain = ssd_ref(*args)
+    tol, _ = ssd_tc_tolerance(plain, ssd_tc_twin(*args, chunk=chunk), floor)
+    assert got.dtype == plain.dtype and got.shape == plain.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), **tol)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", SSD_CASES)
-def test_cuda_ssd_kernel_matches_plain_version(cuda_device, case, dtype):
+@pytest.mark.parametrize("case,dtype,route", SSD_ROUTES)
+def test_cuda_ssd_kernel_matches_plain_version(cuda_device, case, dtype,
+                                               route):
     B, L, H, P, N, Q = case
     args = _ssd_inputs(cuda_device, dtype, 3, B, L, H, P, N)
-    before = ssd_cuda.launches
-    got = ssd_ops.ssd(*args, chunk=Q)
+    counts = (ssd_cuda, ssd_tc, ssd_simt)
+    before = [f.launches for f in counts]
+    got = ssd_cuda(*args, chunk=Q, route=route)
     torch.cuda.synchronize()
-    assert ssd_cuda.launches == before + 1
+    assert [f.launches - b for f, b in zip(counts, before)] == [
+        1, int(route == "tc"), int(route == "simt")]
     assert got.dtype == dtype and got.shape == (B, L, H, P)
+    if route == "tc":
+        _hold_ssd_tc(args, Q, got)
+        return
     for ref in (ssd_ref(*args), ssd_chunked(*args, chunk=Q)):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.float().cpu().numpy(),
                                    **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 8, "simt"),
+    (torch.float32, 64, "simt")])
+def test_cuda_ssd_default_route(cuda_device, dtype, P, route):
+    """ops.ssd (the model's entry) takes the tensor cores for bf16 with P,
+    N and Q multiples of 16, the CUDA cores for float32 and the rest."""
+    args = _ssd_inputs(cuda_device, dtype, 5, 2, 64, 2, P, 16)
+    launch = ssd_tc if route == "tc" else ssd_simt
+    before = launch.launches
+    ssd_ops.ssd(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert launch.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -408,18 +454,35 @@ def test_cuda_ssd_state_continuity_across_chunks(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_kernel_reads_bc_column_slices(cuda_device):
+def test_cuda_ssd_tc_state_continuity_across_chunks(cuda_device):
+    """bf16 on the tensor cores at chunk 16 and 128 (A = -1, D = 0): each
+    held by the floor rule to the sequential plain version, which has no
+    chunks."""
+    H = 2
+    args = _ssd_inputs(cuda_device, torch.bfloat16, 9, 1, 128, H, 16, 16,
+                       a_log=torch.zeros(H, device=cuda_device),
+                       d_skip=torch.zeros(H, device=cuda_device))
+    before = ssd_tc.launches
+    for chunk in (16, 128):
+        _hold_ssd_tc(args, chunk, ssd_cuda(*args, chunk=chunk, route="tc"))
+    assert ssd_tc.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_cuda_ssd_kernel_reads_bc_column_slices(cuda_device, route):
     """B and C as mamba_block hands them over, column slices of one [B, C]
     tensor, give the output of contiguous copies bitwise; a layout the
     kernel cannot read raises."""
     args = _ssd_inputs(cuda_device, torch.bfloat16, 4, 2, 128, 4, 32, 64)
     bc = torch.cat(args[4:], dim=-1)
-    sliced = ssd_ops.ssd(*args[:4], bc[..., :64], bc[..., 64:], chunk=64)
-    torch.testing.assert_close(sliced, ssd_ops.ssd(*args, chunk=64),
+    sliced = ssd_cuda(*args[:4], bc[..., :64], bc[..., 64:], chunk=64,
+                      route=route)
+    torch.testing.assert_close(sliced, ssd_cuda(*args, chunk=64, route=route),
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="strides"):
         ssd_cuda(*args[:4], args[4].transpose(0, 1).contiguous()
-                 .transpose(0, 1), args[5], chunk=64)
+                 .transpose(0, 1), args[5], chunk=64, route=route)
 
 
 @pytest.mark.cuda
@@ -435,3 +498,10 @@ def test_cuda_ssd_kernel_checks_its_inputs(cuda_device):
     x = args[0].clone().requires_grad_(True)
     with pytest.raises(ForwardOnlyError):
         ssd_ops.ssd(x, *args[1:], chunk=16)
+    with pytest.raises(ValueError, match="tensor-core route takes bf16"):
+        ssd_cuda(*args, chunk=16, route="tc")
+    bf = _ssd_inputs(cuda_device, torch.bfloat16, 1, 1, 32, 2, 16, 16)
+    x = torch.empty(bf[0].numel() + 1, dtype=torch.bfloat16,
+                    device=cuda_device)[1:].view_as(bf[0]).copy_(bf[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_cuda(x, *bf[1:], chunk=16, route="tc")

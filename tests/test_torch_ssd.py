@@ -16,6 +16,9 @@ Tolerance (stated once, used throughout):
   sides compute in float32 from the same bf16 inputs and round once.
 - a whole Mamba block, float32: rtol 1e-4, atol 1e-5 (measured 1.2e-6 at
   outputs of ~4); bfloat16, against JAX run op by op: one bf16 ulp.
+- the tensor-core route's rounding twin (``ssd_tc_twin``): with rounding
+  off, the float32 tolerance above; in bf16 its distance from the JAX
+  kernel is held to ``twin_bound``, derived from its three roundings.
 """
 import jax
 import jax.numpy as jnp
@@ -29,8 +32,10 @@ from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro.layers import ssm as jssm
 from repro.layers.norms import gated_rms_norm as jax_gated_rms_norm
 from repro_torch import convert
-from repro_torch.kernels.ssd import (ForwardOnlyError, ops, ssd_chunked,
-                                     ssd_cuda, ssd_ref)
+from repro_torch.kernels.ssd import (ForwardOnlyError, ops, route,
+                                     ssd_chunked, ssd_cuda, ssd_ref,
+                                     ssd_simt, ssd_tc, ssd_tc_twin,
+                                     tc_tolerance)
 from repro_torch.layers import ssm
 from repro_torch.layers.norms import gated_rms_norm
 
@@ -144,6 +149,138 @@ def test_ssd_kernel_wrapper_takes_only_cuda_tensors():
     _, tx = _inputs(1, 1, 32, 2, 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_cuda(*tx, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route: its rounding twin, its tolerance, the route
+# ---------------------------------------------------------------------------
+#: the JAX kernel tests' SSD_CASES, a chunk of 96 (no multiple of 32 or
+#: 64), and test_ssd_property's shapes (Q 32, D 0) as (B, L, H, P, N, Q)
+TWIN_CASES = SSD_CASES + [(1, 192, 3, 64, 128, 96)]
+TWIN_PROPERTY = [(1, 32, 1, 16, 16, 32), (2, 96, 2, 32, 64, 32),
+                 (1, 128, 4, 16, 64, 32), (2, 64, 4, 32, 16, 32)]
+#: bf16's unit roundoff: a value rounded to bf16 (8 significant bits) moves
+#: by at most 2^-8 of itself
+BF16_U = 2.0**-8
+
+
+def twin_bound(tx, chunk, twin, want):
+    """How far the bf16 twin may sit from the JAX kernel, element by
+    element, from its three roundings.  Each term of y is rounded once
+    (W, or the update's operand) or, through the state, twice (the
+    operand, then h_prev), each time by at most BF16_U of itself; so the
+    twin is within 2·BF16_U·T of the float32 scan, T = Σ|terms|, which is
+    the chunked scan of |x|, |B|, |C| and |D| (every term nonnegative
+    there, and |C_q·B_s| <= Σ_n |C_qn||B_sn|).  Both outputs are then
+    rounded to bf16, BF16_U of each; the float32 sums of the two in other
+    orders add at most the float32 tolerance, rtol 1e-4 of T and atol
+    5e-5 (SSD_F32)."""
+    x, dt, a_log, d_skip, b_in, c_in = tx
+    terms = as_np(ssd_chunked(x.float().abs(), dt, a_log, d_skip.abs(),
+                              b_in.float().abs(), c_in.float().abs(),
+                              chunk=chunk))
+    return ((2 * BF16_U + SSD_F32["rtol"]) * terms + SSD_F32["atol"]
+            + BF16_U * (np.abs(as_np(twin)) + np.abs(as_np(want))))
+
+
+def _twin_inputs(case, dtype):
+    B, L, H, P, N, Q = case
+    d_skip = np.zeros(H) if case in TWIN_PROPERTY else None
+    jx, tx = _inputs(L * 7 + H, B, L, H, P, N, dtype, d_skip=d_skip)
+    return jx, tx, Q
+
+
+@pytest.mark.parametrize("case", TWIN_CASES + TWIN_PROPERTY)
+def test_ssd_tc_twin_without_rounding_matches_chunked_and_jax(case):
+    """With rounding off the twin is the chunked scan: against the port's
+    ssd_chunked and the JAX Pallas kernel (interpret mode), float32."""
+    jx, tx, Q = _twin_inputs(case, jnp.float32)
+    got = as_np(ssd_tc_twin(*tx, chunk=Q, round_to=None))
+    np.testing.assert_allclose(got, as_np(ssd_chunked(*tx, chunk=Q)),
+                               **SSD_F32)
+    np.testing.assert_allclose(got, as_np(jax_ssd(*jx, chunk=Q)), **SSD_F32)
+
+
+@pytest.mark.parametrize("case", TWIN_CASES + TWIN_PROPERTY)
+def test_ssd_tc_twin_bf16_within_its_rounding_bound_of_jax(case):
+    """In bf16 the twin rounds (it differs from the unrounded twin) and
+    stays within twin_bound of the JAX Pallas kernel (interpret mode)."""
+    jx, tx, Q = _twin_inputs(case, jnp.bfloat16)
+    twin = ssd_tc_twin(*tx, chunk=Q)
+    assert twin.dtype == torch.bfloat16 and twin.shape == tx[0].shape
+    want = as_np(jax_ssd(*jx, chunk=Q))
+    got = as_np(twin)
+    assert np.all(np.isfinite(got))
+    bound = twin_bound(tx, Q, twin, want)
+    assert np.all(np.abs(got - want) <= bound), float(
+        (np.abs(got - want) - bound).max())
+    unrounded = as_np(ssd_tc_twin(*tx, chunk=Q, round_to=None))
+    assert np.abs(got - unrounded).max() > 0
+
+
+def test_ssd_tc_tolerance_is_the_floor_rule():
+    """rtol one bf16 ulp; atol the larger of 1e-6, twice the float32
+    floor and twice the twin's largest distance from the plain version;
+    the distance is returned."""
+    plain = torch.tensor([1.0, -2.0, 0.5])
+    twin = torch.tensor([1.0, -2.03125, 0.5078125])
+    tol, dist = tc_tolerance(plain, twin, 1e-3)
+    assert dist == 0.03125
+    assert tol == dict(rtol=2.0**-7, atol=0.0625)
+    assert tc_tolerance(plain, twin, 0.05)[0]["atol"] == 0.1
+    assert tc_tolerance(plain, plain, 0.0)[0] == dict(rtol=2.0**-7,
+                                                      atol=1e-6)
+    tol, dist = tc_tolerance(plain.bfloat16(), twin.bfloat16(), 0.0)
+    assert dist == 0.03125 and tol["atol"] == 0.0625
+
+
+@pytest.mark.parametrize("dtype,P,N,Q,want", [
+    (torch.bfloat16, 64, 128, 256, "tc"),   # mamba2-780m's layer
+    (torch.bfloat16, 16, 16, 16, "tc"),
+    (torch.bfloat16, 64, 128, 96, "tc"),
+    (torch.bfloat16, 48, 80, 48, "tc"),
+    (torch.float32, 64, 128, 256, "simt"),
+    (torch.bfloat16, 8, 8, 16, "simt"),     # P, N no multiple of 16
+    (torch.bfloat16, 64, 128, 40, "simt"),  # a chunk no multiple of 16
+    (torch.bfloat16, 80, 128, 256, "simt"),
+    (torch.bfloat16, 64, 144, 256, "simt"),
+    (torch.bfloat16, 64, 128, 512, "simt"),
+])
+def test_ssd_route(dtype, P, N, Q, want):
+    assert route(dtype, P, N, Q) == want
+
+
+@pytest.mark.parametrize("case", TWIN_CASES)
+def test_ssd_bf16_test_shapes_take_the_tensor_cores(case):
+    B, L, H, P, N, Q = case
+    assert route(torch.bfloat16, P, N, min(Q, L)) == "tc"
+
+
+def test_ssd_explicit_route_the_kernel_cannot_take_raises():
+    """Before any device check: an explicit "tc" on float32 or on a shape
+    the tensor-core kernel does not take, and an unknown route."""
+    _, tx = _inputs(1, 1, 32, 2, 8, 8)
+    with pytest.raises(ValueError, match="tensor-core route takes bf16"):
+        ssd_cuda(*tx, chunk=16, route="tc")
+    bf = [t.bfloat16() if t.dim() in (3, 4) and t is not tx[1] else t
+          for t in tx]
+    with pytest.raises(ValueError, match="P=8 N=8"):
+        ssd_cuda(*bf, chunk=16, route="tc")
+    with pytest.raises(ValueError, match="route must be one of"):
+        ssd_cuda(*tx, chunk=16, route="wgmma")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_cuda(*tx, chunk=16, route="simt")
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_ops_on_the_cpu_runs_the_plain_chunked_scan(dtype):
+    """CPU tensors take the plain chunked scan, bitwise, and launch no
+    kernel on either route."""
+    _, tx = _inputs(2, 2, 64, 2, 16, 32, dtype)
+    counts = [f.launches for f in (ssd_cuda, ssd_tc, ssd_simt)]
+    got = ops.ssd(*tx, chunk=32)
+    assert torch.equal(got, ssd_chunked(*tx, chunk=32))
+    assert [f.launches for f in (ssd_cuda, ssd_tc, ssd_simt)] == counts
 
 
 # ---------------------------------------------------------------------------
