@@ -6,7 +6,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
 2. build the six CUDA kernel libraries from
-   ``src/repro_torch/kernels/*/csrc`` (sweep, flash attention on the tensor
+   ``src/repro_torch/kernels/*/csrc`` (sweep with its two traversals, the
+   single queue and the market, flash attention on the tensor
    cores and on the CUDA cores, decode attention, SSD on the tensor cores
    and on the CUDA cores), one ``nvcc`` each, all started together, with
    ptxas's registers, shared memory and spills (the two tensor-core
@@ -115,12 +116,42 @@ Phases (each prints one line; any failure raises and exits nonzero):
    one row of prefill_32k (B 1, L 32,768), on both routes in one run, B
    and C read in place as the model hands them over (and, on the tensor
    cores, from contiguous copies), beside the plain chunked scan and its
-   bound; no single PyTorch call computes SSD (``library_ms`` null).
+   bound; no single PyTorch call computes SSD (``library_ms`` null);
+13. the sweep kernel's market traversal (``market_kernel``) against its
+   plain version on the card: the JAX package's market kernel-test cases
+   and every choice rule, the pools-config axis (per-lane prices, hazards
+   with zeros, notices, spot scales), three pools whose hazard sums round
+   by their order, eight pools of mixed slot processes, single-slot
+   admission with and without revocation, at 96 lanes and rmax 1-33 over
+   a burn-in, full windows and a tail; a join order from INT32_MAX; and
+   every (G, slots a thread) layout the wrapper can pick (rmax 2 to 256),
+   ptxas's registers printed for each: integers and floats bitwise
+   (floats held to rtol 1e-5), final queues and pool tags bitwise;
+14. the degenerate market (one pool, unit price, no hazard, a legacy
+   three-phase kernel) through the market kernel against the single-queue
+   kernel at the full fleet's 4,096 lanes and 69,632 events: every shared
+   statistic, the final queue and clocks bitwise;
+15. the market main path: ``benchmarks/market_bench.py::bench_market()``'s
+   4-pool market (prices 0.5/0.3/0.2/0.1, hazards 0.02/0.05/0/0.10,
+   notices 0.5/0.01/0/2.0, each pool ``Exponential(μ/4)``) with
+   ``NoticeAwareKernel(checkpoint_time=0.05)`` and the cheapest rule over
+   the single queue's fleet (r = 0.125..8 × k ∈ {2, 5, 10, 20} × 16 seeds
+   = 4,096 lanes, rmax 64, 2^20 events after 65,536 burn-in): the kernel
+   against its plain version on these inputs at cut depth (4,608 events;
+   the times of both), the kernel alone at full size (CUDA events,
+   lane-events/s, the bound of ``market_ops_per_lane_event``) with spot
+   spend held window by window to its float32 rounding bound, then
+   ``run_market_sweep`` with the launch count set to 0 just before and
+   read just after (one launch): its result equal to the summary of the
+   kernel's own call, completed legs = served + on-demand + resumed at
+   every lane, revocations and resumes above 0, and ``avg_cost_job``
+   above the preemption-priced LP floor (``core/lp.py::
+   market_knapsack_lp``) at each lane's realised delay, within 5e-3·k.
 
-The next-to-last line is a JSON object describing the four ported kernels
+The next-to-last line is a JSON object describing the five ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
-with each route's time and launches); the last is ``{"ok": true,
-"device": {...}}``.
+with each route's time and launches; the sweep's two traversals as two
+entries); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -143,11 +174,18 @@ from repro_torch.core.arrivals import (BathtubGCP, Deterministic,  # noqa: E402
                                        Exponential, Gamma, Uniform)
 from repro_torch.core.clocks import window_slab_keys  # noqa: E402
 from repro_torch.core.cost import theorem1_cost  # noqa: E402
-from repro_torch.core.engine import (WindowStats,  # noqa: E402
+from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
+                                     WindowStats,
+                                     _broadcast_market_params,
                                      _engine_layout, _flat_lane_args,
-                                     _lane_tensors, _window_plan,
-                                     init_engine_state, lane_params,
-                                     run_sweep)
+                                     _lane_tensors, _market_layout,
+                                     _window_plan, init_engine_state,
+                                     init_market_state, lane_params,
+                                     market_lane_params, run_market_sweep,
+                                     run_sweep, summarize_market)
+from repro_torch.core.lp import market_knapsack_lp  # noqa: E402
+from repro_torch.core.market import (NoticeAwareKernel,  # noqa: E402
+                                     PoolChoiceKernel, SpotMarket, SpotPool)
 from repro_torch.core.policies import (SingleSlotKernel,  # noqa: E402
                                        ThreePhaseKernel)
 from repro_torch.core.waittime import (DeterministicWait,  # noqa: E402
@@ -155,7 +193,8 @@ from repro_torch.core.waittime import (DeterministicWait,  # noqa: E402
                                        TwoPointWait)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.sweep import sweep  # noqa: E402
-from repro_torch.kernels.sweep.ref import batched_event_windows_ref  # noqa: E402
+from repro_torch.kernels.sweep.ref import (  # noqa: E402
+    batched_event_windows_ref, market_event_windows_ref)
 from repro_torch.cluster.orchestrator import (  # noqa: E402
     OnlineAdmissionController)
 from repro_torch.configs import get_config  # noqa: E402
@@ -316,11 +355,12 @@ def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None):
             lane_params(kernel, lanewise(params), k), k)
 
 
-def compare(name: str, ref: WindowStats, ker: WindowStats) -> float:
-    """Integer statistics bitwise, float sums to RTOL; returns the largest
-    relative float difference."""
+def compare(name: str, ref, ker, fin_ref=None, fin_ker=None) -> float:
+    """Integer statistics bitwise, float sums to RTOL (the fields of either
+    traversal's window stats), and the final queue where the final states
+    are given; returns the largest relative float difference."""
     worst = 0.0
-    for field in WindowStats._fields:
+    for field in ref._fields:
         a = getattr(ref, field).cpu().numpy()
         b = getattr(ker, field).cpu().numpy()
         if a.dtype.kind == "i":
@@ -334,14 +374,19 @@ def compare(name: str, ref: WindowStats, ker: WindowStats) -> float:
                                        err_msg=f"{name}: {field}")
             rel = np.abs(a - b) / np.maximum(np.abs(a), 1e-30)
             worst = max(worst, float(rel.max()))
+    if fin_ref is not None:
+        for field in ("occ", "pool", "order", "next_seq", "qlen"):
+            if not torch.equal(getattr(fin_ref, field),
+                               getattr(fin_ker, field)):
+                raise AssertionError(f"{name}: final {field} differs")
     return worst
 
 
-def max_abs(ref: WindowStats, ker: WindowStats) -> float:
+def max_abs(ref, ker) -> float:
+    """The largest absolute difference of the float window sums."""
     return max(float((getattr(ref, f).double() - getattr(ker, f).double())
                      .abs().max())
-               for f in ("cost_sum", "delay_sum", "time_elapsed",
-                         "empty_time"))
+               for f in ref._fields if getattr(ref, f).is_floating_point())
 
 
 PARITY_CASES = [
@@ -612,15 +657,19 @@ def phase_main_path(entry: dict) -> None:
 SWEEP_PTXAS: dict[tuple[int, int], str] = {}
 
 
-def sweep_ptxas(report: str) -> dict[tuple[int, int], str]:
+def sweep_ptxas(report: str, kernel: str = "sweep_kernel"
+                ) -> dict[tuple[int, int], str]:
     """(G, SPT) -> ptxas's registers and spills line of that instantiation
-    of the sweep kernel (``sweep_kernel<G, SPT>``, mangled ``ILiGELiSPTE``)."""
+    of ``kernel`` (``sweep_kernel<G, SPT>`` or ``market_kernel<G, SPT>``,
+    mangled ``ILiGELiSPTE``)."""
     out, key = {}, None
     for line in report.splitlines():
-        if "Compiling entry" in line and "sweep_kernel" in line:
-            g, spt = line.split("sweep_kernelILi", 1)[1].split("EE", 1)[0] \
-                .split("ELi")
-            key = (int(g), int(spt))
+        if "Compiling entry" in line:
+            key = None
+            if f"{kernel}ILi" in line:
+                g, spt = line.split(f"{kernel}ILi", 1)[1].split("EE", 1)[0] \
+                    .split("ELi")
+                key = (int(g), int(spt))
         elif key and ("Used" in line or "spill" in line):
             out[key] = (out.get(key, "") + " "
                         + line.split(":", 1)[-1].strip()).strip()
@@ -639,9 +688,12 @@ def phase_build() -> None:
         if res.library == sweep.LIBRARY:
             # one instantiation a (G, slots a thread) the wrapper can pick
             SWEEP_PTXAS.update(sweep_ptxas(res.ptxas))
-            for key, line in sorted(SWEEP_PTXAS.items()):
-                print(f"  sweep_kernel<G {key[0]}, SPT {key[1]}>: {line}",
-                      flush=True)
+            MARKET_PTXAS.update(sweep_ptxas(res.ptxas, "market_kernel"))
+            for name, table in (("sweep_kernel", SWEEP_PTXAS),
+                                ("market_kernel", MARKET_PTXAS)):
+                for key, line in sorted(table.items()):
+                    print(f"  {name}<G {key[0]}, SPT {key[1]}>: {line}",
+                          flush=True)
             continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
@@ -1776,6 +1828,423 @@ def phase_ssd_timings(ssd: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the P-pool spot market (the sweep kernel's market traversal)
+# ---------------------------------------------------------------------------
+def spot_market(prices, hazards, notices, arrivals=None) -> SpotMarket:
+    """Pools of the given prices, hazards and notices; each pool's slots
+    ``Exponential(μ/P)`` unless ``arrivals`` names them."""
+    n = len(prices)
+    arrivals = arrivals or [Exponential(MU / n)] * n
+    return SpotMarket(pools=tuple(
+        SpotPool(a, price=p, hazard=h, notice=w)
+        for a, p, h, w in zip(arrivals, prices, hazards, notices)))
+
+
+#: benchmarks/market_bench.py::bench_market(): prices, hazards, notices
+BENCH_POOLS = ((0.5, 0.3, 0.2, 0.1), (0.02, 0.05, 0.0, 0.10),
+               (0.5, 0.01, 0.0, 2.0))
+BENCH_MARKET = spot_market(*BENCH_POOLS)
+MARKET_KERNEL = NoticeAwareKernel(checkpoint_time=0.05, choice="cheapest")
+#: three pools whose hazards sum to other float32 values left to right
+#: than in pairs, so a reordered sum moves the thinned pick
+SUM_HAZARDS = (0.0123457, 0.123456795, 0.00987654)
+#: (name, market, kernel, rmax, per-lane params, per-lane pools config or
+#: None); the pools-config rows draw prices, hazards (a quarter of them 0,
+#: a lane in eight with none) and notices per lane
+MARKET_CASES = [
+    ("degenerate_1pool", SpotMarket.single(Exponential(MU)),
+     ThreePhaseKernel(), 16, {"r": np.linspace(0.25, 4.0, 5)}, None),
+    ("heterogeneous_notice", BENCH_MARKET, MARKET_KERNEL, 16,
+     {"r": np.linspace(0.25, 4.0, 4)}, None),
+    ("pool_choice_fastest", spot_market((1.0, 0.4), (0.0, 0.08), (0.0, 0.3)),
+     PoolChoiceKernel(ThreePhaseKernel(), choice="fastest"), 16,
+     {"r": np.linspace(0.5, 3.0, 3)}, None),
+    ("least_loaded", BENCH_MARKET,
+     NoticeAwareKernel(checkpoint_time=0.05, choice="least_loaded"), 16,
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("uniform_choice", BENCH_MARKET,
+     NoticeAwareKernel(checkpoint_time=0.05, choice="uniform"), 8,
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("weighted_choice", BENCH_MARKET,
+     PoolChoiceKernel(ThreePhaseKernel(), choice="weighted"), 16,
+     {"r": np.linspace(0.5, 6.0, 4), "pool_logits": "per lane"}, None),
+    ("pools_config_axis", BENCH_MARKET, MARKET_KERNEL, 16,
+     {"r": np.linspace(0.5, 6.0, 4)}, "per lane"),
+    ("three_pool_sums", spot_market((0.4, 0.3, 0.2), SUM_HAZARDS,
+                                    (0.5, 0.01, 2.0)), MARKET_KERNEL, 16,
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("eight_pools_mixed",
+     spot_market((0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2),
+                 (0.01, 0.0, 0.02, 0.03, 0.0, 0.05, 0.01, 0.02),
+                 (1.0, 0.01, 0.5, 0.5, 2.0, 0.0, 0.02, 3.0),
+                 [Exponential(MU / 8), Uniform(0.0, 384.0), BathtubGCP(),
+                  Deterministic(150.0), Exponential(MU / 8),
+                  Uniform(10.0, 300.0), Exponential(MU / 4),
+                  Exponential(MU / 16)]),
+     NoticeAwareKernel(checkpoint_time=0.05, choice="least_loaded"), 33,
+     {"r": np.linspace(1.0, 12.0, 4)}, None),
+    ("pool_choice_single_slot", BENCH_MARKET,
+     PoolChoiceKernel(SingleSlotKernel(wait=DeterministicWait(3.0))), 1, {},
+     None),
+    ("legacy_single_slot_revoked",
+     SpotMarket.single(Uniform(0.0, 48.0), price=0.4, hazard=0.05),
+     SingleSlotKernel(wait=ExponentialWait(0.5)), 1, {}, None),
+]
+MARKET_PLAN = _window_plan(1_500, 512, 128)
+MARKET_LANES = 96  # a ragged last block at G 4 (32 lanes a block)
+#: every (G, slots a thread) the wrapper can pick, by rmax
+MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
+MARKET_LAYOUT_PLAN = _window_plan(666, 333, 111)
+MARKET_LAYOUT_LANES = 45
+MARKET_CUT_PLAN = WIDTH_PLAN
+#: ptxas's report of each market instantiation, (G, slots a thread) -> line
+MARKET_PTXAS: dict[tuple[int, int], str] = {}
+
+
+def market_fleet(market, kernel, rmax, params, lanes, seed, mp=None,
+                 device=None):
+    """Lane state, per-lane params, pools config and k for a direct call of
+    the market kernel: ``params`` maps names to per-lane values."""
+    device = device or DEVICE
+    keys = threefry.split(threefry.key(seed, device), lanes)
+    k = torch.full((lanes,), 10.0, dtype=torch.float32, device=device)
+    mp = mp or {n: np.broadcast_to(v, (lanes, market.n_pools))
+                for n, v in market.params().items()}
+    mp = {n: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                             device=device) for n, v in mp.items()}
+    p = {n: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                            device=device) for n, v in params.items()}
+    preempt_on = bool((mp["hazard"] > 0).any())
+    state0 = init_market_state(keys, JOB, market, rmax, mp, preempt_on)
+    return state0, market_lane_params(kernel, p, k), mp, k, preempt_on
+
+
+def market_case_inputs(market, params, pools_config, lanes, rng):
+    """Per-lane params (a grid value repeated over ``lanes``) and, for
+    the pools-config rows, a per-lane pools config."""
+    n = market.n_pools
+    out = {}
+    for name, v in params.items():
+        if name == "pool_logits":
+            out[name] = rng.normal(0.0, 1.5, (lanes, n))
+        else:
+            out[name] = np.resize(np.repeat(v, -(-lanes // len(v))), lanes)
+    mp = None
+    if pools_config:
+        mp = {n_: np.broadcast_to(v, (lanes, n)).copy()
+              for n_, v in market.params().items()}
+        mp["price"] = rng.uniform(0.05, 1.0, (lanes, n))
+        hz = rng.uniform(0.0, 0.2, (lanes, n))
+        hz[rng.random((lanes, n)) < 0.25] = 0.0
+        hz[::8] = 0.0
+        mp["hazard"] = hz
+        mp["notice"] = rng.uniform(0.0, 1.0, (lanes, n))
+        mp["spot_scale"] = rng.uniform(0.5, 2.0, (lanes, n))
+    return out, mp
+
+
+def phase_market_parity() -> float:
+    """The market kernel against its plain version on the card: the JAX
+    package's market kernel-test cases, every choice rule, the pools-config
+    axis, sums that round by their order, eight pools of mixed slot
+    processes, single-slot admission, a join order from INT32_MAX; then
+    every (G, slots a thread) the wrapper can pick."""
+    rng = np.random.default_rng(18)
+    worst, driven = 0.0, set()
+    for name, market, kernel, rmax, params, pools_config in MARKET_CASES:
+        lanes = MARKET_LANES
+        p, mp = market_case_inputs(market, params, pools_config, lanes, rng)
+        state0, p, mp, k, pre = market_fleet(market, kernel, rmax, p, lanes,
+                                             7, mp)
+        args = (JOB, market, kernel, rmax, pre, state0, p, mp, k,
+                MARKET_PLAN)
+        fin_ref, ref = market_event_windows_ref(*args)
+        fin_ker, ker = sweep.market_event_windows(*args)
+        torch.cuda.synchronize()
+        rel = compare(name, ref, ker, fin_ref, fin_ker)
+        worst = max(worst, rel)
+        driven.add(picked_layout(rmax))
+        print(f"market parity {name}: P {market.n_pools}, {lanes} lanes, "
+              f"rmax {rmax}, preemption {'on' if pre else 'off'}, plan "
+              f"{MARKET_PLAN}: ints bitwise, max rel float diff {rel:.3g}; "
+              f"{int(ref.pool_preempted.sum())} revocations, "
+              f"{int(ref.resumed.sum())} resumed", flush=True)
+
+    # a join order a hair below INT32_MAX: the per-window rebase holds it
+    plan = _window_plan(2_000, 128, 0)
+    state0, p, mp, k, pre = market_fleet(
+        BENCH_MARKET, MARKET_KERNEL, 16, {"r": np.full(96, 6.0)}, 96, 2)
+    high = state0._replace(next_seq=state0.next_seq + (2**31 - 10_000))
+    args = (JOB, BENCH_MARKET, MARKET_KERNEL, 16, pre)
+    _, ref = market_event_windows_ref(*args, high, p, mp, k, plan)
+    fin_hi, ker_hi = sweep.market_event_windows(*args, high, p, mp, k, plan)
+    _, ker_lo = sweep.market_event_windows(*args, state0, p, mp, k, plan)
+    rel = compare("market rebase", ref, ker_hi)
+    compare("market rebase vs zero start", ker_lo, ker_hi)
+    if int(fin_hi.next_seq.max()) > 128 + 16:
+        raise AssertionError("market rebase: next_seq not bounded")
+    print(f"market parity rebase: next_seq from 2^31-10^4, {len(plan)} "
+          f"windows: ints bitwise, equal to the zero start, max rel float "
+          f"diff {rel:.3g}", flush=True)
+    worst = max(worst, rel)
+
+    for rmax in MARKET_LAYOUT_RMAX:
+        state0, p, mp, k, pre = market_fleet(
+            BENCH_MARKET, MARKET_KERNEL, rmax,
+            {"r": np.linspace(1.0, rmax - 0.5, MARKET_LAYOUT_LANES)},
+            MARKET_LAYOUT_LANES, 11)
+        args = (JOB, BENCH_MARKET, MARKET_KERNEL, rmax, pre, state0, p, mp,
+                k, MARKET_LAYOUT_PLAN)
+        fin_ref, ref = market_event_windows_ref(*args)
+        fin_ker, ker = sweep.market_event_windows(*args)
+        torch.cuda.synchronize()
+        rel = compare(f"market layout rmax {rmax}", ref, ker,
+                             fin_ref, fin_ker)
+        if bool(torch.signbit(fin_ker.budgets).any()):
+            raise AssertionError(f"market layout rmax {rmax}: a budget with "
+                                 f"its sign bit set")
+        g, spt = picked_layout(rmax)
+        driven.add((g, spt))
+        worst = max(worst, rel)
+        print(f"market layout rmax {rmax}: G {g} ({spt} slots a thread; "
+              f"ptxas: {MARKET_PTXAS.get((g, spt))}), "
+              f"{MARKET_LAYOUT_LANES} lanes, plan {MARKET_LAYOUT_PLAN}: "
+              f"ints bitwise, max rel float diff {rel:.3g}", flush=True)
+    picks = {picked_layout(rmax) for rmax in range(1, sweep.MAX_RMAX + 1)}
+    if driven != picks or (MARKET_PTXAS and set(MARKET_PTXAS) != picks):
+        raise AssertionError(f"market layouts driven {sorted(driven)}, "
+                             f"picked {sorted(picks)}, built "
+                             f"{sorted(MARKET_PTXAS)}")
+    return worst
+
+
+def market_main_inputs(market=BENCH_MARKET, kernel=MARKET_KERNEL):
+    """The market kernel's inputs exactly as ``run_market_sweep`` lays them
+    out for the market main path: grid-major lanes, seed fastest."""
+    params_f, k_f, grid = _lane_tensors({"r": R_GRID[:, None]},
+                                        K_GRID[None, :], DEVICE)
+    keys = threefry.split(threefry.key(MAIN_SEED, DEVICE), N_SEEDS)
+    params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
+    mp = {n: torch.as_tensor(np.array(v), device=DEVICE) for n, v in
+          _broadcast_market_params(market, {}, grid).items()}
+    mp_l = _flat_lane_args(mp, k_f, keys)[0]
+    pre = market.preemptible
+    state0 = init_market_state(keys_l, JOB, market, 64, mp_l, pre)
+    return (JOB, market, kernel, 64, pre, state0,
+            market_lane_params(kernel, params_l, k_l), mp_l, k_l)
+
+
+def market_ops_per_lane_event(rmax: int, n_cols: int,
+                              n_pools: int) -> tuple[int, int]:
+    """(INT32, FP32) operations one market lane-event needs, counted from
+    the plain version's arithmetic by the type of the data they work on.
+
+    As :func:`ops_per_lane_event` for the columns (119 INT32 + 2 FP32 a
+    column: threefry, u01), and a slot the single queue's 16 INT32 + 11
+    FP32 plus the market's 8 INT32 (the pool compares and masks of the two
+    FIFO keys, the revoked pool's order key and one-hot compare, the
+    resume order select, the pool tag select) and 3 FP32 (the revoked
+    age's one-hot read, the resume selects of age and budget).  A pool: 8
+    INT32 (the spot argmin's index select, three per-pool counters'
+    compares and adds, the thinning count) and 8 FP32 (the argmin compare,
+    the clock's subtract and select, the draw's two products, the hazard's
+    running sum, the thinning compare and the price read).  An event: the
+    single queue's 28 INT32 + 36 FP32 plus 16 INT32 (the four-way event
+    kind, revocation masks, the resume law's compares, two counters) and
+    24 FP32 (the preemption clock's merge and refresh with log1p counted as
+    one and its division, the thinning product, the re-admission law, three
+    more float sums)."""
+    return (119 * n_cols + 24 * rmax + 8 * n_pools + 44,
+            2 * n_cols + 14 * rmax + 8 * n_pools + 60)
+
+
+def market_bytes_moved(lanes: int, rmax: int, n_pools: int,
+                       n_windows: int) -> int:
+    """Bytes the market function must move: each lane's state, params,
+    pools config and window keys read once, its final state and per-window
+    statistics (12 scalars, 3 a pool) written once."""
+    state = 4 * (3 + n_pools + 2) + rmax * (4 + 4 + 1 + 4 + 4)
+    reads = state + 4 * 4 + 5 * 4 * n_pools + n_windows * 8
+    writes = state + n_windows * 4 * (12 + 3 * n_pools)
+    return lanes * (reads + writes)
+
+
+def market_bound_ms(lanes, rmax, n_cols, n_pools, plan) -> tuple[float, str]:
+    """The least time the card could take: as :func:`bound_ms`, with the
+    market's operation and byte counts."""
+    n_int, n_fp = (lanes * sum(plan) * n for n in
+                   market_ops_per_lane_event(rmax, n_cols, n_pools))
+    t_ops = max(n_int / PEAK_INT32, (n_int + n_fp) / PEAK_FP32)
+    t_bytes = market_bytes_moved(lanes, rmax, n_pools, len(plan)) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_market_degenerate() -> None:
+    """The 1-pool zero-hazard market (unit price, a legacy three-phase
+    kernel) through the market kernel against the single-queue kernel on
+    the same lanes at full fleet width, cut depth: every statistic they
+    share and the final queue bitwise."""
+    degenerate = SpotMarket.single(SPOT)
+    args = market_main_inputs(degenerate, ThreePhaseKernel())
+    state0, p = args[5], args[6]
+    plan = (4_096, 65_536)
+    fin_m, m = sweep.market_event_windows(*args, plan)
+    single0 = init_engine_state(state0.key, JOB, SPOT, 64)
+    single0 = single0._replace(key=state0.key, next_job=state0.next_job,
+                               next_spot=state0.next_spot[:, 0])
+    fin_s, s = sweep.batched_event_windows(JOB, SPOT, ThreePhaseKernel(), 64,
+                                           single0, p, args[8], plan)
+    torch.cuda.synchronize()
+    for field in WindowStats._fields:
+        if not torch.equal(getattr(m, field), getattr(s, field)):
+            raise AssertionError(f"degenerate market: {field} differs from "
+                                 f"the single queue")
+    for field in ("next_job", "ages", "budgets", "occ", "order", "next_seq",
+                  "qlen"):
+        if not torch.equal(getattr(fin_m, field), getattr(fin_s, field)):
+            raise AssertionError(f"degenerate market: final {field} differs")
+    if not torch.equal(fin_m.next_spot[:, 0], fin_s.next_spot):
+        raise AssertionError("degenerate market: final spot clock differs")
+    print(f"market degenerate: 1 pool, no hazard, unit price, "
+          f"{state0.key.shape[0]} lanes × {sum(plan)} events, rmax 64: the "
+          f"market kernel equals the single-queue kernel bitwise (every "
+          f"shared statistic, the final queue and clocks)", flush=True)
+
+
+def phase_market_width(market: dict) -> None:
+    """Kernel and plain version on the market main path's inputs (cut
+    depth): ints bitwise, floats to RTOL, and their times."""
+    args = market_main_inputs()
+    lanes = args[8].shape[0]
+    sweep.market_event_windows(*args, MARKET_CUT_PLAN)  # warm-up
+    ms, (_, ker) = cuda_ms(
+        lambda: sweep.market_event_windows(*args, MARKET_CUT_PLAN), 3)
+    plain_ms, (_, ref) = cuda_ms(
+        lambda: market_event_windows_ref(*args, MARKET_CUT_PLAN))
+    rel = compare("market width", ref, ker)
+    n_cols = _market_layout(JOB, BENCH_MARKET, MARKET_KERNEL, True).n_cols
+    b_ms, b_by = market_bound_ms(lanes, 64, n_cols, BENCH_MARKET.n_pools,
+                                 MARKET_CUT_PLAN)
+    g, spt = picked_layout(64)
+    market.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  max_abs_err=max_abs(ref, ker), group=g,
+                  slots_a_thread=spt, ptxas=MARKET_PTXAS.get((g, spt)),
+                  n_cols=n_cols)
+    print(f"market width: {lanes} lanes, 4 pools, rmax 64, {n_cols} "
+          f"columns, plan {MARKET_CUT_PLAN}, G {g} ({spt} slots a thread; "
+          f"ptxas: {MARKET_PTXAS.get((g, spt))}): kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms ({plain_ms / ms:.0f}x), bound {b_ms:.4f} ms "
+          f"({b_by}), ints bitwise, max rel float diff {rel:.3g}", flush=True)
+
+
+def phase_market_main_kernel(market: dict) -> dict:
+    """Device time of the market kernel alone at the main path's size, its
+    spot spend held window by window; returns the summary of its windows
+    after the burn-in (what ``run_market_sweep`` must return)."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    args = market_main_inputs()
+    lanes = args[8].shape[0]
+    ladder_ms, _ = cuda_ms(lambda: window_slab_keys(args[5].key, len(plan)))
+    ms, (_, stats) = cuda_ms(lambda: sweep.market_event_windows(*args, plan))
+    b_ms, b_by = market_bound_ms(lanes, 64, market["n_cols"],
+                                 BENCH_MARKET.n_pools, plan)
+    rate = lanes * sum(plan) / (ms / 1e3)
+    market.update(main_ms=ms, main_bound_ms=b_ms, main_bound_by=b_by,
+                  main_lane_events_per_s=rate, main_key_ladder_ms=ladder_ms)
+    print(f"market main-size kernel: {lanes} lanes × {sum(plan)} events, 4 "
+          f"pools, rmax 64, G {sweep.group_size(64)}, in {ms:.1f} ms = "
+          f"{rate:.4g} lane-events/s (bound {b_ms:.1f} ms, {b_by}: "
+          f"{100 * b_ms / ms:.1f}%); window-key ladder {ladder_ms:.3f} ms",
+          flush=True)
+    # spot spend conservation, window by window: a float32 window sum of n
+    # non-negative terms is within n half-ulps of its final value of the
+    # exact sum of its (float32) prices; the legs are exact integers
+    price = BENCH_MARKET.prices().astype(np.float32).astype(np.float64)
+    legs = (stats.pool_served + stats.pool_preempted).cpu().numpy()
+    exact = (legs * price).sum(-1)
+    got = stats.spot_cost.cpu().numpy()
+    bound = legs.sum(-1) * np.spacing(got) / 2
+    if not np.all(np.abs(got - exact) <= bound):
+        bad = np.argwhere(np.abs(got - exact) > bound)[0]
+        raise AssertionError(f"market spend conservation: lane/window "
+                             f"{bad.tolist()}: {got[tuple(bad)]} against "
+                             f"{exact[tuple(bad)]}")
+    rel = np.abs(got - exact) / np.maximum(exact, 1e-30)
+    market.update(spend_max_rel=float(rel.max()),
+                  spend_max_of_bound=float((np.abs(got - exact)
+                                            / np.maximum(bound, 1e-30)).max()))
+    print(f"market spend conservation: every lane's float32 window sum "
+          f"within its rounding bound (n legs × half an ulp; at most "
+          f"{market['spend_max_of_bound']:.3f} of it), largest relative "
+          f"difference {rel.max():.3g}", flush=True)
+    return summarize_market(MarketWindowStats(*(x[:, 1:] for x in stats)))
+
+
+def phase_market_main_path(market: dict, kernel_summary: dict) -> None:
+    """The market main path through ``run_market_sweep``: the launch count
+    set to 0 just before the call and read just after; its result equal to
+    the summary of the kernel's own call on the same inputs
+    (``kernel_summary``), per-lane accounting identities and the
+    preemption-priced LP floor."""
+    sweep.market_event_windows.launches = 0
+    t0 = time.perf_counter()
+    out = run_market_sweep(JOB, BENCH_MARKET, MARKET_KERNEL,
+                           {"r": R_GRID[:, None]}, k=K_GRID[None, :],
+                           n_events=N_EVENTS, key=threefry.key(MAIN_SEED),
+                           n_seeds=N_SEEDS, rmax=64, burn_in=BURN_IN)
+    wall = time.perf_counter() - t0
+    launches = sweep.market_event_windows.launches
+    market["launches"] = launches
+    if launches != 1:
+        raise AssertionError(f"market main path: run_market_sweep launched "
+                             f"the kernel {launches} times; expected 1")
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    market["run_market_sweep_s"] = wall
+    shape = (R_GRID.size, K_GRID.size, N_SEEDS)
+    for name, v in out.items():
+        want = shape + ((4,) if name.startswith("pool_") else ())
+        if v.shape != want or not np.all(np.isfinite(v)):
+            raise AssertionError(f"market {name}: shape {v.shape} or "
+                                 f"non-finite")
+    for name, v in kernel_summary.items():
+        if not np.array_equal(out[name], v.reshape(out[name].shape)):
+            raise AssertionError(f"market main path: {name} differs from the "
+                                 f"kernel's own call")
+    # completed legs: spot service, on-demand, or a checkpointed revocation
+    if not np.array_equal(out["jobs_completed"], out["spot_served"]
+                          + out["ondemand"] + out["resumed"]):
+        raise AssertionError("market: completed != served + ondemand + "
+                             "resumed")
+    if not np.array_equal(out["spot_served"], out["pool_served"].sum(-1)):
+        raise AssertionError("market: spot_served != sum of pool_served")
+    k = np.broadcast_to(K_GRID[None, :, None], shape)
+    if not (out["preemptions"].sum() > 0 and out["resumed"].sum() > 0):
+        raise AssertionError("market: no preemption or no resume")
+    worst = np.inf
+    for idx in np.ndindex(*shape):
+        floor = market_knapsack_lp(float(k[idx]), LAM,
+                                   float(out["avg_delay_job"][idx]),
+                                   BENCH_MARKET,
+                                   include_preemption=True)["objective"]
+        margin = (out["avg_cost_job"][idx] - floor) / k[idx]
+        worst = min(worst, margin)
+        if margin < -0.005:
+            raise AssertionError(f"market LP floor: lane {idx}: "
+                                 f"avg_cost_job {out['avg_cost_job'][idx]:.5f}"
+                                 f" below the floor {floor:.5f}")
+    market["lp_floor_worst_margin_k"] = float(worst)
+    print(f"market main path: run_market_sweep {wall:.3f} s wall "
+          f"({lanes * (N_EVENTS + BURN_IN) / wall:.4g} lane-events/s), "
+          f"kernel launches {launches}, equal to the kernel's own call; "
+          f"{int(out['preemptions'].sum())} revocations, "
+          f"{int(out['resumed'].sum())} resumed; completed legs = served + "
+          f"on-demand + resumed at every lane; avg_cost_job "
+          f"above the preemption-priced LP floor at every lane's delay by "
+          f"at least {worst:.3e}·k (limit -5e-3·k)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1835,11 +2304,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ssd_timings(ssd)
 
+    market = {"name": "sweep_market_event_windows", "route": "cuda",
+              "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
+              "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
+                          "src/repro/core/engine.py:1633 _market_event)",
+              "library_ms": None}
+    phase_market_parity()
+    phase_market_degenerate()
+    phase_market_width(market)
+    phase_market_main_path(market, phase_market_main_kernel(market))
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {
         k: v for k, v in e.items() if k not in keys}
-        for e in (entry, flash, decode, ssd)]
+        for e in (entry, flash, decode, ssd, market)]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """The paper's Algorithm 1 running online, on a live request stream.
 
 The port of the JAX package's ``cluster/orchestrator.py`` as far as the
-serving frontend uses it: :class:`OnlineAdmissionController` admits each
-job to the spot queue with the Theorem-4 three-phase probability at the
-current cap ``r`` and moves ``r`` by projected SGD on the windowed mean
-delay.  The pool and region hooks (``choose_pool``, ``choose_region``),
-``SpotCluster`` and ``MultiRegionCluster`` belong to the market and region
-slices (ROADMAP.md Queue 1 item 13).
+serving frontend and the market use it: :class:`OnlineAdmissionController`
+admits each job to the spot queue with the Theorem-4 three-phase
+probability at the current cap ``r``, moves ``r`` by projected SGD on the
+windowed mean delay, and picks a spot pool for it (``choose_pool``, the
+host twin of the event loop's ``cheapest`` rule).  The region hook
+(``choose_region``), ``SpotCluster`` and ``MultiRegionCluster`` belong to
+later slices (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -46,6 +47,20 @@ class OnlineAdmissionController:
 
     def admit(self, queue_len: int, rng: np.random.Generator) -> bool:
         return rng.random() < three_phase_admit_prob(queue_len, self.r)
+
+    def choose_pool(self, market, qlen_pool, alive=None) -> int:
+        """The cheapest pool (the first on ties), the event loop's default
+        rule.  ``alive`` (a bool mask) restricts the choice to live pools;
+        with none alive it raises ``RuntimeError`` (the cluster's cue to
+        run on demand)."""
+        del qlen_pool
+        prices = market.prices()
+        if alive is not None:
+            alive = np.asarray(alive, bool)
+            if not alive.any():
+                raise RuntimeError("choose_pool: no pool alive")
+            prices = np.where(alive, prices, np.inf)
+        return int(np.argmin(prices))
 
     def on_job_complete(self, delay: float) -> None:
         self._delays.append(delay)

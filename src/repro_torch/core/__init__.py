@@ -9,9 +9,13 @@ The single-queue slice of :mod:`repro.core`:
   * LP oracles           — :mod:`repro_torch.core.lp`
   * wait-time theory     — :mod:`repro_torch.core.waittime` (Theorem 3)
   * policy kernels       — :mod:`repro_torch.core.policies` (Theorem 4)
+  * spot market          — :mod:`repro_torch.core.market` (pools, market
+                           policy kernels, the notice law)
   * sweep engine         — :mod:`repro_torch.core.engine` (``run_sweep``
                            runs a policy grid × seed fleet through the CUDA
-                           batched-event kernel, :mod:`repro_torch.kernels.sweep`)
+                           batched-event kernel, :mod:`repro_torch.kernels.sweep`;
+                           ``run_market_sweep`` the P-pool market through
+                           its market traversal)
 """
 from repro_torch.core.analytic import (
     mm1n_pi,
@@ -35,10 +39,25 @@ from repro_torch.core.engine import (
     EngineState,
     NonFiniteStatsError,
     WindowStats,
+    MarketState,
+    MarketWindowStats,
     init_engine_state,
+    init_market_state,
+    run_market_sim,
+    run_market_sweep,
     run_sim,
     run_sweep,
     summarize,
+    summarize_market,
+)
+from repro_torch.core.market import (
+    NoticeAwareKernel,
+    PanicKernel,
+    PoolChoiceKernel,
+    SpotMarket,
+    SpotPool,
+    as_market,
+    checkpoint_within_notice,
 )
 from repro_torch.core.policies import (
     SingleSlotKernel,
@@ -57,10 +76,14 @@ from repro_torch.core.waittime import (
 __all__ = [
     "ArrivalProcess", "BathtubGCP", "DEFAULT_CHUNK_EVENTS", "Deterministic",
     "DeterministicWait", "EngineState", "Exponential", "ExponentialWait",
-    "Gamma", "INT_STATS", "InfiniteWait", "NonFiniteStatsError",
-    "SingleSlotKernel", "SingleSlotPolicy", "ThreePhaseKernel",
+    "Gamma", "INT_STATS", "InfiniteWait", "MarketState",
+    "MarketWindowStats", "NonFiniteStatsError", "NoticeAwareKernel",
+    "PanicKernel", "PoolChoiceKernel", "SingleSlotKernel",
+    "SingleSlotPolicy", "SpotMarket", "SpotPool", "ThreePhaseKernel",
     "ThreePhasePolicy", "TwoPointWait", "Uniform", "WindowStats",
-    "cost_lower_bound", "init_engine_state", "mm1n_pi", "prob_A_le_S",
-    "run_sim", "run_sweep", "summarize", "theorem1_cost", "theorem2_cost",
+    "as_market", "checkpoint_within_notice", "cost_lower_bound",
+    "init_engine_state", "init_market_state", "mm1n_pi", "prob_A_le_S",
+    "run_market_sim", "run_market_sweep", "run_sim", "run_sweep",
+    "summarize", "summarize_market", "theorem1_cost", "theorem2_cost",
     "theorem5_cost", "theorem5_delta", "three_phase_admit_prob",
 ]

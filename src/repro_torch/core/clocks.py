@@ -8,13 +8,23 @@ with plain arithmetic (:func:`u01`, :func:`exp_from_u`).  The lane key
 advances once per window, not per event.  Words are int64 tensors holding
 32-bit values (see :mod:`repro_torch.core.threefry`).
 
+The market loop's clock helpers live here too: its initial clocks are drawn
+from tag-folded keys (:func:`tagged_keys`, :func:`sample_clock_vector`,
+:func:`sample_hazard_clocks`), and on the slab stream its per-pool
+preemption clocks are one superposed clock (:func:`hazard_clock`) with a
+thinned pick of the firing pool (:func:`thinning_pick`).  Sums over pools
+run left to right, the order XLA's CPU backend gives ``jnp.sum`` and
+``jnp.cumsum`` at these widths, on every device.
+
 This is the only stream of the port so far; the per-event split ladder
 (``rng="split"``) is still to be ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from repro_torch.core import threefry
@@ -22,6 +32,8 @@ from repro_torch.core import threefry
 #: uint32 slab columns reserved when a kernel hook is *not* slab-aware: two
 #: raw key words stand in for a legacy PRNG key.
 KEY_SYNTH_COLS = 2
+#: the engine's "never" (waittime.INF), for clocks that cannot fire
+_INF = 3e38
 
 
 def u01(bits: torch.Tensor) -> torch.Tensor:
@@ -32,6 +44,78 @@ def u01(bits: torch.Tensor) -> torch.Tensor:
 def exp_from_u(u: torch.Tensor) -> torch.Tensor:
     """Unit-rate exponential via inverse CDF (the sampler's ``-log1p(-U)``)."""
     return -torch.log1p(-u)
+
+
+def gumbel_from_u(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel via inverse CDF, guarded at u = 0."""
+    return -torch.log(-torch.log(torch.clamp_min(u, 1e-12)))
+
+
+def tagged_keys(tags: tuple, k: torch.Tensor) -> list:
+    """Per-tag sampling keys, ``fold_in(k, tag)``; a single tag uses ``k``
+    itself, so the 1-pool market draws as the single queue does."""
+    if len(tags) == 1:
+        return [k]
+    return [threefry.fold_in(k, t) for t in tags]
+
+
+def sample_clock_vector(procs: tuple, tags: tuple, k: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """``(..., P)`` renewal samples, one per tag-keyed process, × a
+    ``(..., P)`` scale."""
+    samples = [p.sample(kk) for p, kk in zip(procs, tagged_keys(tags, k))]
+    return torch.stack(samples, dim=-1) * scale
+
+
+def sample_hazard_clocks(tags: tuple, k: torch.Tensor,
+                         hazard: torch.Tensor) -> torch.Tensor:
+    """``Exp(h_t)`` revocation clocks per tag (always tag-folded, even for
+    one tag); ``h_t = 0`` never fires (INF)."""
+    u = torch.stack([threefry.exponential(threefry.fold_in(k, t))
+                     for t in tags], dim=-1)
+    return torch.where(hazard > 0.0, u / torch.clamp_min(hazard, 1e-30),
+                       _INF)
+
+
+def _running_sums(h: torch.Tensor) -> list:
+    """The cumulative sums of ``h``'s last axis, left to right in float32."""
+    cum = [h[..., 0]]
+    for p in range(1, h.shape[-1]):
+        cum.append(cum[-1] + h[..., p])
+    return cum
+
+
+def hazard_clock(hazard, u):
+    """Time to the next preemption under the superposed total hazard:
+    ``min_p Exp(h_p) ~ Exp(Σ h_p)``; a zero total never fires (INF).  Host
+    scalars take a Python path, tensors the engine's (``hazard`` with the
+    pools on its last axis)."""
+    if not (isinstance(hazard, torch.Tensor) or isinstance(u, torch.Tensor)):
+        total = float(np.sum(hazard))
+        if total <= 0.0:
+            return math.inf
+        return -math.log1p(-float(u)) / total
+    total = _running_sums(hazard)[-1]
+    return torch.where(total > 0.0,
+                       exp_from_u(u) / torch.clamp_min(total, 1e-30), _INF)
+
+
+def thinning_pick(hazard, u):
+    """Which pool fired: a categorical draw with weights ``h_p``, a uniform
+    thinned over the hazards' running sums; zero-hazard pools are never
+    picked.  Host and tensor paths as :func:`hazard_clock`."""
+    if not (isinstance(hazard, torch.Tensor) or isinstance(u, torch.Tensor)):
+        cum = np.cumsum(np.asarray(hazard, np.float64))
+        if cum[-1] <= 0.0:
+            return 0
+        return int(min(np.sum(float(u) * cum[-1] >= cum[:-1]),
+                       len(cum) - 1))
+    cum = _running_sums(hazard)
+    x = u * cum[-1]
+    pick = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for c in cum[:-1]:
+        pick = pick + (x >= c).to(torch.int32)
+    return torch.clamp_max(pick, hazard.shape[-1] - 1)
 
 
 @dataclasses.dataclass(frozen=True)

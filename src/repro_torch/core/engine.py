@@ -1,6 +1,9 @@
-"""The single-queue spot/on-demand event engine, run as a (grid × seeds) fleet.
+"""The spot/on-demand event engine, run as a (grid × seeds) fleet.
 
-One merged-renewal event loop: each lane holds a job clock, a spot-slot
+Two traversals of one merged-renewal event loop: the single queue
+(``run_sweep``/``run_sim``) and the P-pool spot market
+(``run_market_sweep``/``run_market_sim``, the second half of this module).
+In the single queue each lane holds a job clock, a spot-slot
 clock and a queue of ``rmax`` slots; every event is the earliest of a job
 arrival, a spot slot and a wait deadline (ties resolve spot > deadline >
 job).  A policy kernel (:mod:`repro_torch.core.policies`) decides
@@ -23,8 +26,9 @@ Randomness: the slab stream only (:mod:`repro_torch.core.clocks`); the
 per-event split ladder is still to be ported (ROADMAP.md Queue 1 item 7).
 
 Executors: the device picks one.  A fleet on a GPU runs through the
-hand-written batched-event kernel (:mod:`repro_torch.kernels.sweep`), a
-fleet on the CPU through its plain PyTorch version on the same lane layout;
+hand-written batched-event kernel of its traversal
+(:mod:`repro_torch.kernels.sweep`), a fleet on the CPU through its plain
+PyTorch version on the same lane layout;
 ``impl=`` only names the one the device implies (``"cuda"`` or ``"ref"``)
 and raises if it names another.  ``device=None`` means the GPU and raises
 if there is none.
@@ -38,7 +42,11 @@ import torch
 
 from repro_torch.core import threefry
 from repro_torch.core.arrivals import ArrivalProcess, Gamma
-from repro_torch.core.clocks import SlabLayout, build_slab_layout, process_udim
+from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
+                                     hazard_clock, process_udim,
+                                     sample_clock_vector,
+                                     sample_hazard_clocks, thinning_pick)
+from repro_torch.core.market import PanicKernel, PoolState, as_market
 from repro_torch.core.policies import SingleSlotKernel
 from repro_torch.core.waittime import INF
 from repro_torch.device import resolve_device
@@ -445,3 +453,547 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
                        keys_l)
     out = summarize(stats)
     return {name: v.reshape(grid_shape + (n_seeds,)) for name, v in out.items()}
+
+
+# ===========================================================================
+# The P-pool spot market: per-pool spot clocks, one superposed preemption
+# clock, pool-tagged FIFO service and revocation
+# ===========================================================================
+#
+# The market loop widens the single queue: the spot clock becomes a (P,)
+# vector, each queued job carries the pool it runs on, and (when any pool
+# has a hazard) one superposed preemption clock at the total hazard revokes
+# the FIFO-oldest job of a pool picked by thinning (clocks.hazard_clock,
+# clocks.thinning_pick).  Ties resolve spot > preempt > deadline > job,
+# ties between pools to the lowest index.  A preempted leg is paid at its
+# pool's price; the kernel's ``on_preempt_u`` then re-queues it (age reset,
+# a fresh join order, same slot and pool) or it defects to on-demand.  With
+# one pool of unit price and no hazard every expression reduces bitwise to
+# the single queue's (the preemption path is statically absent and the
+# extra sums add +0.0).
+
+
+class MarketWindowStats(NamedTuple):
+    """Per-window market accumulators, one per lane; the first ten fields
+    are :class:`WindowStats`'.  Under preemption completions count legs: a
+    checkpointed revocation closes one, its retry another.  The pool fields
+    are ``(lanes, P)``."""
+
+    jobs_arrived: torch.Tensor
+    jobs_completed: torch.Tensor
+    spot_served: torch.Tensor
+    ondemand: torch.Tensor
+    cost_sum: torch.Tensor
+    delay_sum: torch.Tensor
+    time_elapsed: torch.Tensor
+    empty_time: torch.Tensor
+    spot_arrivals: torch.Tensor
+    spot_found_empty: torch.Tensor
+    resumed: torch.Tensor  # i32 revoked legs that checkpointed and re-queued
+    spot_cost: torch.Tensor  # f32 paid to spot pools, partial legs included
+    pool_served: torch.Tensor  # (lanes, P) i32 completions per pool
+    pool_spot_arrivals: torch.Tensor  # (lanes, P) i32 slots per pool
+    pool_preempted: torch.Tensor  # (lanes, P) i32 revocations per pool
+
+    @staticmethod
+    def zeros(lanes: int, n_pools: int, device) -> "MarketWindowStats":
+        z = torch.zeros(lanes, dtype=torch.float32, device=device)
+        zi = torch.zeros(lanes, dtype=torch.int32, device=device)
+        zp = torch.zeros(lanes, n_pools, dtype=torch.int32, device=device)
+        return MarketWindowStats(zi, zi, zi, zi, z, z, z, z, zi, zi, zi, z,
+                                 zp, zp, zp)
+
+
+_POOL_FIELDS = frozenset({"pool_served", "pool_spot_arrivals",
+                          "pool_preempted"})
+#: market statistics that count events (bitwise across executors)
+MARKET_INT_STATS = INT_STATS + ("resumed", "pool_served",
+                                "pool_spot_arrivals", "pool_preempted",
+                                "preemptions", "spot_arrivals",
+                                "spot_found_empty")
+
+
+class MarketState(NamedTuple):
+    """Per-lane market state; leaves lead with the lane axis."""
+
+    key: torch.Tensor  # (lanes, 2) threefry key words
+    next_job: torch.Tensor  # time until the next job arrival
+    next_spot: torch.Tensor  # (lanes, P) per-pool spot-slot clocks
+    next_preempt: torch.Tensor  # the superposed preemption clock (INF = never)
+    ages: torch.Tensor  # (lanes, rmax)
+    budgets: torch.Tensor  # (lanes, rmax)
+    occ: torch.Tensor  # (lanes, rmax) bool
+    pool: torch.Tensor  # (lanes, rmax) int32 pool of each queued job
+    order: torch.Tensor  # (lanes, rmax) int32 join sequence number
+    next_seq: torch.Tensor  # int32
+    qlen: torch.Tensor  # int32
+
+
+def init_market_state(key: torch.Tensor, job: ArrivalProcess, market,
+                      rmax: int, mp: dict, preempt_on: bool) -> MarketState:
+    """Initial state of each ``(lanes, 2)`` key under the per-lane
+    pools-config ``mp`` (``(lanes, P)`` leaves).  As the JAX package's
+    ``init_market_state(..., scalar_preempt=True)``: the job, spot and lane
+    keys are the three subkeys of a split; the pools' spot clocks come from
+    ``fold_in(spot key, tag)`` (the spot key itself for one pool), and the
+    superposed preemption clock is the least of the per-pool hazard draws
+    under ``fold_in(spot key, 2**31 - 1)``."""
+    ks3 = threefry.split(key, 3)
+    kj, ks = ks3[:, 0], ks3[:, 1]
+    lanes, device = key.shape[0], key.device
+    if preempt_on:
+        next_preempt = sample_hazard_clocks(
+            market.tags, threefry.fold_in(ks, 2**31 - 1),
+            mp["hazard"]).min(dim=-1).values
+    else:
+        next_preempt = torch.full((lanes,), INF, dtype=torch.float32,
+                                  device=device)
+    return MarketState(
+        key=ks3[:, 2],
+        next_job=job.sample(kj),
+        next_spot=sample_clock_vector(
+            tuple(p.arrival for p in market.pools), market.tags, ks,
+            mp["spot_scale"]),
+        next_preempt=next_preempt,
+        ages=torch.zeros(lanes, rmax, dtype=torch.float32, device=device),
+        budgets=torch.full((lanes, rmax), INF, dtype=torch.float32,
+                           device=device),
+        occ=torch.zeros(lanes, rmax, dtype=torch.bool, device=device),
+        pool=torch.zeros(lanes, rmax, dtype=torch.int32, device=device),
+        order=torch.zeros(lanes, rmax, dtype=torch.int32, device=device),
+        next_seq=torch.zeros(lanes, dtype=torch.int32, device=device),
+        qlen=torch.zeros(lanes, dtype=torch.int32, device=device),
+    )
+
+
+def _kernel_admit_slab(kernel, params, qlen, pool_state: PoolState,
+                       layout: SlabLayout, x):
+    """(admit?, budget, pool): a market kernel's ``admit_market_u`` on its
+    own columns; a single-queue kernel's ``admit_u``, to pool 0."""
+    u = layout.uniforms(x, layout.admit)
+    if layout.market_admit:
+        admit, budget, pool = kernel.admit_market_u(params, qlen, pool_state,
+                                                    u)
+        return admit, budget, pool.to(torch.int32)
+    admit, budget = kernel.admit_u(params, qlen, u)
+    return admit, budget, torch.zeros_like(qlen)
+
+
+def _kernel_on_preempt_slab(kernel, params, age, notice, qlen,
+                            layout: SlabLayout, x):
+    """resume?: the kernel's ``on_preempt_u``; a kernel without the hook
+    defects on revocation."""
+    if layout.on_preempt_mode == "u":
+        return kernel.on_preempt_u(params, age, notice, qlen,
+                                   layout.uniforms(x, layout.on_preempt))
+    return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
+
+
+def _pick(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v[lane, idx[lane]]`` for every lane."""
+    return torch.gather(v, 1, idx.long()[:, None])[:, 0]
+
+
+def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
+                  preempt_on: bool, layout: SlabLayout, carry: MarketState,
+                  stats: MarketWindowStats, params: dict, mp: dict,
+                  k_cost: torch.Tensor, x: torch.Tensor
+                  ) -> tuple[MarketState, MarketWindowStats]:
+    """One merged event (job arrival / pool spot slot / pool preemption /
+    wait deadline) for every lane; ``x`` is this event's slab row.  The
+    JAX package's ``_market_event`` on the slab stream, without its
+    telemetry, environment and work branches."""
+    device = carry.ages.device
+    iota = torch.arange(rmax, device=device)
+    iota_p = torch.arange(market.n_pools, device=device)
+    price, hazard = mp["price"], mp["hazard"]
+
+    budgets_masked = torch.where(carry.occ, carry.budgets, INF)
+    deadline, defect_slot = torch.min(budgets_masked, dim=1)
+    min_spot, spot_pool = torch.min(carry.next_spot, dim=1)
+    nj = carry.next_job
+    if preempt_on:
+        min_pre = carry.next_preempt
+        pre_pool = thinning_pick(hazard,
+                                 layout.uniforms(x, layout.preempt)[:, 1])
+        dt = torch.minimum(torch.minimum(nj, min_spot),
+                           torch.minimum(deadline, min_pre))
+        is_spot = min_spot <= torch.minimum(nj, torch.minimum(deadline,
+                                                              min_pre))
+        is_pre = (~is_spot) & (min_pre <= torch.minimum(nj, deadline))
+        is_deadline = (~is_spot) & (~is_pre) & (deadline <= nj)
+        is_job = (~is_spot) & (~is_pre) & (~is_deadline)
+    else:
+        dt = torch.minimum(torch.minimum(nj, min_spot), deadline)
+        is_spot = min_spot <= torch.minimum(nj, deadline)
+        is_pre = torch.zeros_like(is_spot)
+        is_deadline = (~is_spot) & (deadline <= nj)
+        is_job = (~is_spot) & (~is_deadline)
+
+    ages = carry.ages + dt[:, None]
+    budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
+
+    # ---- job arrival: the policy kernel admits and picks a pool ----
+    qlen_pool = (carry.occ[:, :, None]
+                 & (carry.pool[:, :, None] == iota_p)).sum(1).to(torch.int32)
+    pool_state = PoolState(price=price, hazard=hazard, notice=mp["notice"],
+                           rate=mp["rate"] / mp["spot_scale"],
+                           qlen_pool=qlen_pool)
+    admit_raw, budget, pool_choice = _kernel_admit_slab(
+        kernel, params, carry.qlen, pool_state, layout, x)
+    admit = is_job & admit_raw & (carry.qlen < rmax)
+    od_now = is_job & (~admit)
+    join_slot = torch.argmin(carry.occ.to(torch.int32), dim=1)
+
+    # ---- pool spot slot: serve the FIFO-oldest job tagged that pool ----
+    eligible_s = carry.occ & (carry.pool == spot_pool[:, None])
+    serve_slot = torch.argmin(torch.where(eligible_s, carry.order,
+                                          _ORDER_MAX), dim=1)
+    has_elig = eligible_s.any(dim=1)
+    served = is_spot & has_elig
+    wait_served = torch.where(iota == serve_slot[:, None], ages, 0.0).sum(1)
+    price_s = _pick(price, spot_pool)
+
+    # ---- pool preemption: revoke the FIFO-oldest job on that pool ----
+    no = torch.zeros_like(is_spot)
+    if preempt_on:
+        eligible_p = carry.occ & (carry.pool == pre_pool[:, None])
+        pre_slot = torch.argmin(torch.where(eligible_p, carry.order,
+                                            _ORDER_MAX), dim=1)
+        pre_hit = is_pre & eligible_p.any(dim=1)
+        age_pre = torch.where(iota == pre_slot[:, None], ages, 0.0).sum(1)
+        # re-admission sees the queue without the revoked job
+        qlen_wo = torch.clamp_min(carry.qlen - 1, 0)
+        resume_raw = _kernel_on_preempt_slab(
+            kernel, params, age_pre, _pick(mp["notice"], pre_pool), qlen_wo,
+            layout, x)
+        resume = pre_hit & resume_raw
+        defect_pre = pre_hit & (~resume)
+        price_p = _pick(price, pre_pool)
+    else:
+        pre_pool = pre_slot = torch.zeros_like(spot_pool)
+        pre_hit = resume = defect_pre = no
+        age_pre = price_p = torch.zeros_like(dt)
+
+    # ---- deadline: the minimal-budget job defects to on-demand ----
+    defected = is_deadline
+    age_defect = torch.where(iota == defect_slot[:, None], ages, 0.0).sum(1)
+
+    leave = served | defected | defect_pre
+    leave_slot = torch.where(served, serve_slot,
+                             torch.where(defected, defect_slot, pre_slot))
+    join_mask = admit[:, None] & (iota == join_slot[:, None])
+    leave_mask = leave[:, None] & (iota == leave_slot[:, None])
+    resume_mask = resume[:, None] & (iota == pre_slot[:, None])
+    budget = torch.as_tensor(budget, dtype=torch.float32, device=device)
+    budget = budget[:, None] if budget.dim() else budget
+    ages = torch.where(join_mask | resume_mask, 0.0, ages)
+    budgets = torch.where(join_mask, budget,
+                          torch.where(resume_mask, INF, budgets))
+    occ = (carry.occ | join_mask) & (~leave_mask)
+    pool = torch.where(join_mask, pool_choice[:, None], carry.pool)
+    order = torch.where(join_mask | resume_mask, carry.next_seq[:, None],
+                        carry.order)
+
+    fire_s = is_spot[:, None] & (iota_p == spot_pool[:, None])
+    u_spot = layout.uniforms(x, layout.spot)
+    spot_draws = torch.stack([p.arrival.sample_u(u_spot)
+                              for p in market.pools], dim=-1) \
+        * mp["spot_scale"]
+    next_spot = torch.where(fire_s, spot_draws, carry.next_spot - dt[:, None])
+    if preempt_on:
+        # the superposed clock is drawn afresh whenever any pool fires
+        next_preempt = torch.where(
+            is_pre, hazard_clock(hazard,
+                                 layout.uniforms(x, layout.preempt)[:, 0]),
+            carry.next_preempt - dt)
+    else:
+        next_preempt = carry.next_preempt
+    job_draw = job.sample_u(layout.uniforms(x, layout.job))
+
+    admit_i = admit.to(torch.int32)
+    new_carry = MarketState(
+        key=carry.key,  # advanced once per window by the slab generator
+        next_job=torch.where(is_job, job_draw, nj - dt),
+        next_spot=next_spot,
+        next_preempt=next_preempt,
+        ages=ages,
+        budgets=budgets,
+        occ=occ,
+        pool=pool,
+        order=order,
+        next_seq=carry.next_seq + (admit | resume).to(torch.int32),
+        qlen=carry.qlen + admit_i - leave.to(torch.int32),
+    )
+    od_any = od_now | defected | defect_pre
+    completed = od_any | served | resume
+    i32 = lambda b: b.to(torch.int32)  # noqa: E731
+    new_stats = MarketWindowStats(
+        jobs_arrived=stats.jobs_arrived + i32(is_job),
+        jobs_completed=stats.jobs_completed + i32(completed),
+        spot_served=stats.spot_served + i32(served),
+        ondemand=stats.ondemand + i32(od_any),
+        cost_sum=stats.cost_sum + torch.where(served, price_s, 0.0)
+        + torch.where(od_any, k_cost, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        delay_sum=stats.delay_sum + torch.where(served, wait_served, 0.0)
+        + torch.where(defected, age_defect, 0.0)
+        + torch.where(pre_hit, age_pre, 0.0),
+        time_elapsed=stats.time_elapsed + dt,
+        empty_time=stats.empty_time + torch.where(carry.qlen == 0, dt, 0.0),
+        spot_arrivals=stats.spot_arrivals + i32(is_spot),
+        spot_found_empty=stats.spot_found_empty + i32(is_spot & (~has_elig)),
+        resumed=stats.resumed + i32(resume),
+        spot_cost=stats.spot_cost + torch.where(served, price_s, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        pool_served=stats.pool_served + i32(fire_s & served[:, None]),
+        pool_spot_arrivals=stats.pool_spot_arrivals + i32(fire_s),
+        pool_preempted=stats.pool_preempted
+        + i32(pre_hit[:, None] & (iota_p == pre_pool[:, None])),
+    )
+    return new_carry, new_stats
+
+
+def _market_layout(job: ArrivalProcess, market, kernel,
+                   preempt_on: bool) -> SlabLayout:
+    """Slab column map for the market loop: the spot span is the largest
+    ``u_dim`` across the pools (every pool transforms the same uniforms;
+    only the firing pool's draw is kept)."""
+    layout = build_slab_layout(
+        kernel, job_udim=process_udim(job),
+        spot_udim=max(process_udim(p.arrival) for p in market.pools),
+        n=market.n_pools, preempt_on=preempt_on, market=True)
+    if layout.admit_mode != "u" or layout.on_preempt_mode == "key":
+        raise NotImplementedError(
+            f"{kernel!r} has no slab hook for its market admission or "
+            "revocation (admit_market_u/on_preempt_u with slab_cols); "
+            "kernels without one need the split stream, which is not "
+            "ported yet (ROADMAP.md Queue 1 item 7)")
+    return layout
+
+
+def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
+    """:func:`lane_params` of the single-queue kernel a market kernel
+    admits through (``PoolChoiceKernel``'s base, or a legacy kernel)."""
+    return lane_params(getattr(kernel, "base", kernel), params, k_cost)
+
+
+def summarize_market(stats: MarketWindowStats) -> dict:
+    """:func:`summarize`'s dict plus the market's: preemptions, resumed
+    legs, spot spend, per-job averages over final completions (spot
+    service or on-demand: a resumed leg is not one), and per-pool arrays
+    (a trailing pool axis).  Scalar fields reduce the last (window) axis,
+    pool fields the one before it."""
+    out = summarize(WindowStats(*stats[:len(WindowStats._fields)]))
+
+    def red(name):
+        x = getattr(stats, name)
+        axis = -2 if name in _POOL_FIELDS else -1
+        return np.asarray(x.cpu(), np.float64).sum(axis=axis)
+
+    pool_served = red("pool_served")
+    pool_arrivals = red("pool_spot_arrivals")
+    pool_preempted = red("pool_preempted")
+    final = np.maximum(red("spot_served") + red("ondemand"), 1.0)
+    out.update({
+        "preemptions": pool_preempted.sum(axis=-1),
+        "resumed": red("resumed"),
+        "spot_cost": red("spot_cost"),
+        "avg_cost_job": red("cost_sum") / final,
+        "avg_delay_job": red("delay_sum") / final,
+        "pool_served": pool_served,
+        "pool_spot_arrivals": pool_arrivals,
+        "pool_preempted": pool_preempted,
+        "pool_utilization": pool_served / np.maximum(pool_arrivals, 1.0),
+    })
+    return out
+
+
+def _check_loc_overrides(name: str, n_locs: int, what: str, **arrays) -> None:
+    """Every per-pool override is a scalar or has a last axis of 1 or
+    ``n_locs``, and holds finite, non-negative values."""
+    for field, arr in arrays.items():
+        if arr is None:
+            continue
+        a = np.asarray(arr)
+        if a.ndim > 0 and a.shape[-1] not in (1, n_locs):
+            raise ValueError(
+                f"{name}: {field} must be scalar or have last-axis length "
+                f"{n_locs} (one per {what}), got shape {a.shape}")
+        if not np.all(np.isfinite(a)):
+            raise ValueError(f"{name}: {field} contains non-finite values")
+        if np.any(a < 0):
+            raise ValueError(f"{name}: {field} must be non-negative, got min "
+                             f"{a.min()}")
+
+
+def _broadcast_config_params(n: int, cfg: dict, overrides: dict,
+                             grid_shape: tuple) -> dict:
+    """Merge config overrides into the per-pool params dict, flat
+    ``(grid points, n)`` float32 numpy arrays: a scalar fills every pool, a
+    ``(n,)`` vector fixes a config, a ``grid_shape + (n,)`` array sweeps
+    the configuration itself."""
+    cfg = dict(cfg)
+    for name, val in overrides.items():
+        if val is None:
+            continue
+        v = np.asarray(val, np.float32)
+        cfg[name] = np.broadcast_to(v, (n,)) if v.ndim == 0 else v
+    return {name: np.broadcast_to(v, grid_shape + (n,)).reshape(-1, n)
+            for name, v in cfg.items()}
+
+
+def _broadcast_market_params(market, overrides: dict,
+                             grid_shape: tuple) -> dict:
+    """Pools-config overrides → flat per-grid-point market params."""
+    return _broadcast_config_params(market.n_pools, market.params(),
+                                    overrides, grid_shape)
+
+
+def _check_market_options(name: str, market, kernel, telemetry, env, work,
+                          shard: str = "none", mesh=None) -> None:
+    """Named errors for the market options the port does not serve yet."""
+    for axis, value, item in (("telemetry", telemetry, 10), ("env", env, 10),
+                              ("work", work, 10)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{name}: {axis}= is not ported yet (ROADMAP.md Queue 1 item "
+                f"{item}); the port runs telemetry=env=work=None")
+    if shard != "none" or mesh is not None:
+        raise NotImplementedError(
+            f"{name}: shard={shard!r}/mesh= (lane sharding) is not ported "
+            "yet (ROADMAP.md Queue 1 item 12)")
+    if isinstance(kernel, PanicKernel):
+        raise NotImplementedError(
+            f"{name}: PanicKernel repairs choices against pools that the "
+            "environment timeline blacks out; env= is not ported yet "
+            "(ROADMAP.md Queue 1 item 10)")
+    for pool in market.pools:
+        if isinstance(pool.arrival, Gamma):
+            raise NotImplementedError(
+                f"{name}: a Gamma spot pool needs jax.random.gamma's "
+                "rejection sampler for its initial clock, which is not "
+                "ported yet (ROADMAP.md Queue 1 item 7)")
+
+
+def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
+                      params, mp, k_cost, keys) -> MarketWindowStats:
+    """Flat market lanes through the executor of their device; returns
+    (lanes, windows[, P]) stats without the burn-in window."""
+    from repro_torch.kernels.sweep import market_events
+
+    state0 = init_market_state(keys, job, market, rmax, mp, preempt_on)
+    _, stats = market_events(job, market, kernel, rmax, preempt_on, state0,
+                             market_lane_params(kernel, params, k_cost), mp,
+                             k_cost, plan)
+    if burn_in:
+        stats = MarketWindowStats(*(x[:, 1:] for x in stats))
+    return stats
+
+
+def _market_tensors(mp: dict, device) -> dict:
+    return {name: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for name, v in mp.items()}
+
+
+def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
+                   k: float = 10.0, n_events: int, key: torch.Tensor,
+                   rmax: int = 64, burn_in: int = 0,
+                   chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
+                   impl: str | None = None, rng: str = "slab",
+                   telemetry=None, env=None, work=None, device=None) -> dict:
+    """Run one market policy at one parameter point; long-run stats
+    (floats, and ``(P,)`` arrays for the pool fields).
+
+    A one-lane :func:`run_market_sweep` whose lane key is ``key`` itself,
+    under the market's own pools config; ``params`` leaves are taken as
+    they are (a ``(P,)`` ``pool_logits`` is one lane's logits).
+    ``device``, ``impl`` and ``rng`` as in :func:`run_sim`.
+    """
+    market = as_market(market)
+    params = {} if params is None else params
+    _check_market_options("run_market_sim", market, kernel, telemetry, env,
+                          work)
+    device = _resolve(device, impl, rng, job, market.pools[0].arrival,
+                      "run_market_sim")
+    _check_run_shape("run_market_sim", n_events, burn_in)
+    if np.ndim(k) != 0:
+        raise ValueError(f"run_market_sim: k must be a scalar, got shape "
+                         f"{np.shape(k)}")
+
+    def one_lane(p):  # leaves as given (a (P,) pool_logits too), one lane
+        return {n: one_lane(v) if isinstance(v, dict) else
+                torch.from_numpy(np.array(v, np.float32)).to(device)[None]
+                for n, v in p.items()}
+
+    params_f = one_lane(params)
+    k_f = torch.full((1,), np.float32(k), device=device)
+    mp = _market_tensors(_broadcast_market_params(market, {}, ()), device)
+    chunk = n_events if chunk_events is None else min(chunk_events, n_events)
+    plan = _window_plan(n_events, chunk, burn_in)
+    stats = _run_market_lanes(job, market, kernel, rmax, market.preemptible,
+                              plan, burn_in, params_f, mp, k_f,
+                              key.to(device)[None])
+    out = summarize_market(MarketWindowStats(*(x[0] for x in stats)))
+    return {name: float(v) if np.ndim(v) == 0 else v
+            for name, v in out.items()}
+
+
+def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
+                     k=10.0, prices=None, hazards=None, notices=None,
+                     spot_scales=None, n_events: int, key: torch.Tensor,
+                     n_seeds: int = 1, rmax: int = 64, burn_in: int = 0,
+                     chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
+                     impl: str | None = None, rng: str = "slab",
+                     telemetry=None, env=None, work=None,
+                     shard: str = "none", mesh=None, device=None) -> dict:
+    """Run a (params × k × pools-config × seeds) market grid in one executor
+    call.
+
+    ``params`` leaves and ``k`` broadcast to a grid as in
+    :func:`run_sweep`; ``prices``/``hazards``/``notices``/``spot_scales``
+    override the market's pools config per grid point: a scalar fills every
+    pool, a ``(P,)`` vector fixes one config, a ``grid_shape + (P,)`` array
+    sweeps it.  A ``hazards`` override turns the preemption path on even
+    for a market without hazards.  ``device``, ``impl`` and ``rng`` as in
+    :func:`run_sweep`: a GPU fleet runs the hand-written market kernel, a
+    CPU fleet its plain version.  ``telemetry``, ``env``, ``work`` and
+    ``shard`` are not ported and raise.
+
+    Returns :func:`summarize_market`'s dict: scalar statistics shaped
+    ``grid_shape + (n_seeds,)``, pool statistics ``grid_shape + (n_seeds,
+    P)``.
+    """
+    market = as_market(market)
+    n = market.n_pools
+    params = {} if params is None else params
+    _check_market_options("run_market_sweep", market, kernel, telemetry, env,
+                          work, shard, mesh)
+    device = _resolve(device, impl, rng, job, market.pools[0].arrival,
+                      "run_market_sweep")
+    _check_run_shape("run_market_sweep", n_events, burn_in)
+    _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
+                         hazards=hazards, notices=notices,
+                         spot_scales=spot_scales)
+    overrides = {"price": prices, "hazard": hazards, "notice": notices,
+                 "spot_scale": spot_scales}
+    override_shapes = [np.shape(v)[:-1] for v in overrides.values()
+                       if v is not None and np.ndim(v) > 1]
+    k = np.asarray(k, np.float32)
+    params_f, k_f, grid_shape = _lane_tensors(
+        params, np.broadcast_to(k, np.broadcast_shapes(k.shape,
+                                                       *override_shapes)),
+        device)
+    mp = _market_tensors(_broadcast_market_params(market, overrides,
+                                                  grid_shape), device)
+    preempt_on = market.preemptible or hazards is not None
+    keys = threefry.split(key.to(device), n_seeds)
+    params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
+    mp_l = _flat_lane_args(mp, k_f, keys)[0]
+    chunk = n_events if chunk_events is None else min(chunk_events, n_events)
+    plan = _window_plan(n_events, chunk, burn_in)
+    stats = _run_market_lanes(job, market, kernel, rmax, preempt_on, plan,
+                              burn_in, params_l, mp_l, k_l, keys_l)
+    out = summarize_market(stats)
+    return {name: v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
+            for name, v in out.items()}

@@ -1,0 +1,328 @@
+"""SpotMarket — heterogeneous spot pools with preemption-with-notice.
+
+The port of the JAX package's ``core/market.py`` for the slab stream.  A
+market is P spot *pools* (instance type × zone), each with its own slot
+process, price ``c_p``, Poisson preemption hazard ``h_p`` and notice window:
+
+  * :class:`SpotPool` and :class:`SpotMarket` — static, hashable
+    descriptors; :meth:`SpotMarket.params` lowers the pools to the per-lane
+    float32 pools-config dict the event loop reads.
+  * market policy kernels — :class:`PoolChoiceKernel` (any single-queue
+    kernel plus a pool-choice rule; revoked jobs defect) and
+    :class:`NoticeAwareKernel` (three-phase admission, a pool-choice rule,
+    and checkpoint-within-notice recovery).  Their slab hooks
+    (``admit_market_u``, ``on_preempt_u``) consume float32 uniforms from
+    their own slab columns; the keyed hooks (``admit_market``,
+    ``on_preempt``) exist so the slab layout sees the JAX protocol, and
+    raise: they belong to the split stream (ROADMAP.md Queue 1 item 7).
+  * :func:`checkpoint_within_notice` — the notice law, shared by the
+    event loop and a host orchestrator.
+
+Semantics (the JAX package's): a queued job tagged pool ``p`` runs on a
+pool-p spot instance; pool p's spot event is its service (cost ``c_p``).
+Pool p's preemption revokes its FIFO-oldest job: the partial leg is paid
+(``c_p``), then the kernel checkpoints and re-queues it or it defects to
+on-demand (cost ``k``).  Per-pool initial clocks are keyed by
+``fold_in(key, pool.tag)``, so permuting pools with their tags leaves every
+stream, and the statistics, unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.arrivals import ArrivalProcess
+from repro_torch.core.clocks import choice_cols, gumbel_from_u, kernel_slab_cols
+from repro_torch.core.policies import three_phase_admit_prob
+from repro_torch.core.waittime import INF
+
+#: the pool-choice rules :func:`choose_pool_u` knows
+CHOICES = ("cheapest", "fastest", "least_loaded", "uniform", "weighted")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpotPool:
+    """One spot pool: arrival process + price + preemption hazard/notice.
+
+    ``tag`` is the pool's PRNG-stream identity (defaults to its index in the
+    market); keep tags fixed when permuting pools.
+    """
+
+    arrival: ArrivalProcess
+    price: float = 1.0
+    hazard: float = 0.0  # preemption events per unit time on the running job
+    notice: float = 0.0  # advance-notice window length
+    tag: int | None = None
+
+    def rate(self) -> float:
+        return self.arrival.rate()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpotMarket:
+    """P heterogeneous spot pools as one static, hashable descriptor."""
+
+    pools: tuple[SpotPool, ...]
+
+    def __post_init__(self):
+        if not self.pools:
+            raise ValueError("a SpotMarket needs at least one pool")
+        tagged = tuple(
+            dataclasses.replace(p, tag=i) if p.tag is None else p
+            for i, p in enumerate(self.pools))
+        tags = [p.tag for p in tagged]
+        if len(set(tags)) != len(tags):
+            raise ValueError(f"pool tags must be unique, got {tags}")
+        object.__setattr__(self, "pools", tagged)
+
+    @property
+    def n_pools(self) -> int:
+        return len(self.pools)
+
+    @property
+    def tags(self) -> tuple[int, ...]:
+        return tuple(p.tag for p in self.pools)
+
+    @property
+    def preemptible(self) -> bool:
+        """Static: does any pool carry a preemption hazard?"""
+        return any(p.hazard > 0.0 for p in self.pools)
+
+    @property
+    def is_degenerate(self) -> bool:
+        """1 pool, unit price, zero hazard: the single queue, bitwise."""
+        p = self.pools[0]
+        return self.n_pools == 1 and p.hazard == 0.0 and p.price == 1.0
+
+    def prices(self) -> np.ndarray:
+        return np.array([p.price for p in self.pools], np.float64)
+
+    def hazards(self) -> np.ndarray:
+        return np.array([p.hazard for p in self.pools], np.float64)
+
+    def notices(self) -> np.ndarray:
+        return np.array([p.notice for p in self.pools], np.float64)
+
+    def rates(self) -> np.ndarray:
+        return np.array([p.rate() for p in self.pools], np.float64)
+
+    def total_rate(self) -> float:
+        return float(self.rates().sum())
+
+    def params(self) -> dict:
+        """The pools-config dict of float32 ``(P,)`` numpy arrays: price,
+        hazard, notice, ``spot_scale`` (multiplies pool inter-arrival times)
+        and the raw slot ``rate``."""
+        f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+        return {"price": f32(self.prices()), "hazard": f32(self.hazards()),
+                "notice": f32(self.notices()),
+                "spot_scale": np.ones(self.n_pools, np.float32),
+                "rate": f32(self.rates())}
+
+    @staticmethod
+    def single(spot: ArrivalProcess, *, price: float = 1.0,
+               hazard: float = 0.0, notice: float = 0.0) -> "SpotMarket":
+        """A one-pool market (``hazard=0`` is the degenerate case)."""
+        return SpotMarket(pools=(SpotPool(arrival=spot, price=price,
+                                          hazard=hazard, notice=notice,
+                                          tag=0),))
+
+    def relabel(self, perm: Sequence[int]) -> "SpotMarket":
+        """Permute pool positions, keeping each pool's tag."""
+        if sorted(perm) != list(range(self.n_pools)):
+            raise ValueError(f"not a permutation of {self.n_pools} pools")
+        return SpotMarket(pools=tuple(self.pools[i] for i in perm))
+
+
+def as_market(spot) -> SpotMarket:
+    """Coerce an :class:`ArrivalProcess` (or a market) to a SpotMarket."""
+    if isinstance(spot, SpotMarket):
+        return spot
+    if isinstance(spot, ArrivalProcess):
+        return SpotMarket.single(spot)
+    raise TypeError(f"expected ArrivalProcess or SpotMarket, got {spot!r}")
+
+
+def checkpoint_within_notice(checkpoint_time, notice):
+    """Can a revoked job checkpoint before its instance disappears?  Host
+    scalars take a Python path, tensors the engine's (float32)."""
+    if not (isinstance(checkpoint_time, torch.Tensor)
+            or isinstance(notice, torch.Tensor)):
+        return checkpoint_time <= notice
+    like = notice if isinstance(notice, torch.Tensor) else checkpoint_time
+    return (torch.as_tensor(checkpoint_time, dtype=torch.float32,
+                            device=like.device)
+            <= torch.as_tensor(notice, dtype=torch.float32,
+                               device=like.device))
+
+
+class PoolState(NamedTuple):
+    """Non-clairvoyant per-pool state handed to ``admit_market_u``; every
+    field is ``(lanes, P)``."""
+
+    price: torch.Tensor  # f32 current pool prices c_p
+    hazard: torch.Tensor  # f32 preemption hazards h_p
+    notice: torch.Tensor  # f32 notice windows
+    rate: torch.Tensor  # f32 slot arrival rates (scaled)
+    qlen_pool: torch.Tensor  # i32 queued jobs per pool
+
+
+def _split_stream(name: str):
+    raise NotImplementedError(
+        f"{name} draws from a PRNG key: that is the split stream, which is "
+        "not ported yet (ROADMAP.md Queue 1 item 7); the port runs the slab "
+        "hooks (*_u)")
+
+
+def choose_pool(choice: str, pool_state: PoolState, params=None,
+                key=None) -> torch.Tensor:
+    """The deterministic pool-choice rules (first index on ties):
+    ``cheapest``, ``fastest``, ``least_loaded``.  ``uniform`` and
+    ``weighted`` draw from a key (the split stream) and raise; the slab
+    stream takes :func:`choose_pool_u`."""
+    del params
+    if choice == "cheapest":
+        return torch.argmin(pool_state.price, dim=-1).to(torch.int32)
+    if choice == "fastest":
+        return torch.argmax(pool_state.rate, dim=-1).to(torch.int32)
+    if choice == "least_loaded":
+        return torch.argmin(pool_state.qlen_pool, dim=-1).to(torch.int32)
+    if choice in ("uniform", "weighted"):
+        _split_stream(f"choose_pool({choice!r}, key)")
+    raise ValueError(f"unknown pool choice rule {choice!r}")
+
+
+def choose_pool_u(choice: str, pool_state: PoolState, params,
+                  u: torch.Tensor) -> torch.Tensor:
+    """Slab twin of :func:`choose_pool`: ``uniform`` takes one uniform
+    column, ``weighted`` Gumbel-samples from ``params["pool_logits"]`` with
+    ``P`` columns; the deterministic rules consume nothing."""
+    n = pool_state.price.shape[-1]
+    if choice == "uniform":
+        return torch.clamp_max((u[..., 0] * n).to(torch.int32), n - 1)
+    if choice == "weighted":
+        g = gumbel_from_u(u[..., :n])
+        logits = params["pool_logits"]
+        if logits.dim() < g.dim():  # one logit a lane, the same every pool
+            logits = logits[..., None]
+        return torch.argmax(logits + g, dim=-1).to(torch.int32)
+    return choose_pool(choice, pool_state, params)
+
+
+def _check_choice(choice: str) -> None:
+    if choice not in CHOICES:
+        raise ValueError(f"unknown pool choice rule {choice!r} (expected one "
+                         f"of {CHOICES})")
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolChoiceKernel:
+    """Adapt a single-queue kernel to the market with a choice rule.
+
+    Admission and wait budgets come from ``base.admit_u``; the pool from
+    :func:`choose_pool_u`.  Revoked jobs always defect to on-demand.
+    """
+
+    base: object
+    choice: str = "cheapest"
+
+    def __post_init__(self):
+        _check_choice(self.choice)
+
+    def admit_market(self, params, qlen, pool_state, key):
+        _split_stream("PoolChoiceKernel.admit_market")
+
+    def on_preempt(self, params, age, notice, qlen, key):
+        _split_stream("PoolChoiceKernel.on_preempt")
+
+    def slab_cols(self, hook, n):
+        if hook == "admit_market":
+            base_cols = kernel_slab_cols(self.base, "admit", n)
+            if base_cols is None:
+                return None
+            return base_cols + choice_cols(self.choice, n)
+        if hook == "on_preempt":
+            return 0  # always defects: draws nothing
+        return None
+
+    def admit_market_u(self, params, qlen, pool_state, u):
+        base_cols = kernel_slab_cols(self.base, "admit",
+                                     pool_state.price.shape[-1])
+        admit, budget = self.base.admit_u(params, qlen, u[..., :base_cols])
+        return admit, budget, choose_pool_u(self.choice, pool_state, params,
+                                            u[..., base_cols:])
+
+    def on_preempt_u(self, params, age, notice, qlen, u):
+        del params, age, u
+        return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoticeAwareKernel:
+    """Three-phase admission + pool choice + checkpoint-within-notice.
+
+    A revoked job checkpoints iff its checkpoint fits the pool's notice
+    window (:func:`checkpoint_within_notice`), then re-enters admission
+    under the Theorem-4 law at the queue length without it.  Params:
+    ``{"r": f32}`` (+ optional ``"ckpt"`` overriding ``checkpoint_time``).
+    """
+
+    checkpoint_time: float = 0.05
+    choice: str = "cheapest"
+
+    def __post_init__(self):
+        _check_choice(self.choice)
+
+    def init_params(self, r: float, ckpt: float | None = None) -> dict:
+        p = {"r": np.float32(r)}
+        if ckpt is not None:
+            p["ckpt"] = np.float32(ckpt)
+        return p
+
+    def admit_market(self, params, qlen, pool_state, key):
+        _split_stream("NoticeAwareKernel.admit_market")
+
+    def on_preempt(self, params, age, notice, qlen, key):
+        _split_stream("NoticeAwareKernel.on_preempt")
+
+    def slab_cols(self, hook, n):
+        if hook == "admit_market":
+            return 1 + choice_cols(self.choice, n)  # admission draw + rule
+        if hook == "on_preempt":
+            return 1  # the re-admission draw
+        return None
+
+    def admit_market_u(self, params, qlen, pool_state, u):
+        p = three_phase_admit_prob(qlen, params["r"])
+        admit = u[..., 0] < p
+        pool = choose_pool_u(self.choice, pool_state, params, u[..., 1:])
+        return admit, INF, pool
+
+    def ckpt(self, params, like: torch.Tensor) -> torch.Tensor:
+        """The checkpoint time: ``params["ckpt"]`` or the static one."""
+        if "ckpt" in params:
+            return params["ckpt"]
+        return torch.tensor(np.float32(self.checkpoint_time),
+                            device=like.device)
+
+    def on_preempt_u(self, params, age, notice, qlen, u):
+        del age
+        within = checkpoint_within_notice(self.ckpt(params, notice), notice)
+        readmit = u[..., 0] < three_phase_admit_prob(qlen, params["r"])
+        return within & readmit
+
+
+@dataclasses.dataclass(frozen=True)
+class PanicKernel:
+    """Blackout failover around a base kernel (the JAX package's).
+
+    Its repairs key on pools whose availability is zero, which only the
+    environment timeline (``env=``) can make so; that axis is not ported
+    (ROADMAP.md Queue 1 item 10), so the engine refuses this kernel.
+    """
+
+    base: object
+    drain_dead: bool = False

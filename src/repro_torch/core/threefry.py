@@ -7,7 +7,8 @@ default):
 * a key is two 32-bit words, an int64 tensor of shape ``(..., 2)``;
   :func:`key` makes ``[seed >> 32, seed & 0xFFFFFFFF]``;
 * :func:`split` is the fold-like split: subkey ``i`` is both words of
-  ``threefry2x32(key, (0, i))``;
+  ``threefry2x32(key, (0, i))``; :func:`fold_in` of ``data`` is the same
+  hash of ``(0, data)``, so it equals subkey ``data`` of a split;
 * :func:`bits32` hashes the flat element index ``(hi, lo)`` and returns
   ``x0 ^ x1`` (a scalar shape uses counter ``(0, 0)``);
 * :func:`uniform` puts the top 23 bits under the exponent of 1.0 and
@@ -65,6 +66,15 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     """``(..., 2)`` key -> ``(..., n, 2)`` subkeys (``jax.random.split``)."""
     hi, lo = _counters(n, key.device)
     x0, x1 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, lo)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``(..., 2)`` key -> ``(..., 2)`` key folded with the 32-bit integer
+    ``data`` (``jax.random.fold_in``: the hash of counter ``(0, data)``)."""
+    data = torch.as_tensor(int(data) & MASK, dtype=torch.int64,
+                           device=key.device)
+    x0, x1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
     return torch.stack([x0, x1], dim=-1)
 
 

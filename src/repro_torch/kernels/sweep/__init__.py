@@ -3,11 +3,15 @@
 House layout: ``csrc/sweep.cu`` is the hand-written CUDA kernel and
 ``sweep.py`` its ctypes wrapper, ``ref.py`` the plain PyTorch version the
 kernel must match, ``ops.py`` the device dispatch.  Consumed by
-:mod:`repro_torch.core.engine`: ``run_sweep`` on a CUDA device.
+:mod:`repro_torch.core.engine`: ``run_sweep`` (the single queue) and
+``run_market_sweep`` (the P-pool market) on a CUDA device.
 """
-from repro_torch.kernels.sweep.ops import batched_events
-from repro_torch.kernels.sweep.ref import batched_event_windows_ref
-from repro_torch.kernels.sweep.sweep import batched_event_windows
+from repro_torch.kernels.sweep.ops import batched_events, market_events
+from repro_torch.kernels.sweep.ref import (batched_event_windows_ref,
+                                           market_event_windows_ref)
+from repro_torch.kernels.sweep.sweep import (batched_event_windows,
+                                             market_event_windows)
 
 __all__ = ["batched_events", "batched_event_windows",
-           "batched_event_windows_ref"]
+           "batched_event_windows_ref", "market_event_windows",
+           "market_event_windows_ref", "market_events"]

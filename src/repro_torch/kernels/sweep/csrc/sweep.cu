@@ -1,11 +1,13 @@
-// Batched-event kernel for the single-queue spot/on-demand event loop,
-// written by hand for Hopper (sm_90a).
+// Batched-event kernels for the spot/on-demand event loops, written by
+// hand for Hopper (sm_90a): sweep_kernel runs the single queue,
+// market_kernel (below) the P-pool spot market.
 //
 // Replaces repro/kernels/sweep/sweep.py::batched_event_windows, the Pallas
-// kernel behind the JAX package's impl="pallas" executor, for the
-// single-queue loop (repro/core/engine.py::_engine_event) on the slab
-// stream.  Its plain PyTorch version is ../ref.py; the ctypes wrapper is
-// ../sweep.py.
+// kernel behind the JAX package's impl="pallas" executor, for two of the
+// event bodies it runs on the slab stream: the single queue
+// (repro/core/engine.py::_engine_event) and the market
+// (repro/core/engine.py::_market_event).  Their plain PyTorch versions are
+// in ../ref.py; the ctypes wrappers in ../sweep.py.
 //
 // What bounds it: integer and FP32 instruction issue, not bytes.  A
 // lane-event costs n_cols threefry-2x32 columns (20 rounds of
@@ -256,15 +258,31 @@ __device__ __forceinline__ int first_equal(const LaneGroup<G>& grp,
 }
 
 // this thread's value of register (s % SPT) of slot s, from its owner
-template <int G, int SPT>
-__device__ __forceinline__ float slot_value(const LaneGroup<G>& grp,
-                                            const float (&x)[SPT], int s) {
+template <int G, int SPT, typename T>
+__device__ __forceinline__ T slot_value(const LaneGroup<G>& grp,
+                                        const T (&x)[SPT], int s) {
   const int j = s & (SPT - 1);
-  float v = x[0];
+  T v = x[0];
 #pragma unroll
   for (int i = 1; i < SPT; ++i)
     if (j == i) v = x[i];
   return grp.from(v, s / SPT);
+}
+
+// the window-end order rebase: subtract the oldest occupied join sequence
+// (or next_seq where the queue is empty) from every occupied slot's
+template <int G, int SPT>
+__device__ __forceinline__ void rebase_order(const LaneGroup<G>& grp,
+                                             unsigned occ, int (&order)[SPT],
+                                             int& next_seq, int s0, int R) {
+  int base = kOrderMax;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j)
+    if (s0 + j < R) base = min(base, (occ >> j) & 1u ? order[j] : next_seq);
+  base = grp.reduce_min(base);
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) order[j] = (occ >> j) & 1u ? order[j] - base : 0;
+  next_seq -= base;
 }
 
 // the samples of the pass's n events, from their slab rows in u_s (nc
@@ -489,15 +507,7 @@ __global__ void sweep_kernel(const Args a) {
       a.fstats[3 * n + o] = empty_time;
     }
 
-    // order rebase: subtract the oldest occupied sequence (or next_seq)
-    int base = kOrderMax;
-#pragma unroll
-    for (int j = 0; j < SPT; ++j)
-      if (s0 + j < R) base = min(base, (occ >> j) & 1u ? order[j] : next_seq);
-    base = grp.reduce_min(base);
-#pragma unroll
-    for (int j = 0; j < SPT; ++j) order[j] = (occ >> j) & 1u ? order[j] - base : 0;
-    next_seq -= base;
+    rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
 
   if (!live) return;
@@ -549,6 +559,548 @@ cudaError_t launch_g(const Args& a, int group, int spt, int warps_per_block,
       case 8: return launch_gs<8, 8>(a, warps_per_block, s);
       case 16: return launch_gs<16, 8>(a, warps_per_block, s);
       case 32: return launch_gs<32, 8>(a, warps_per_block, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The P-pool spot market (repro/core/engine.py::_market_event on the slab
+// stream; plain version ../ref.py::market_event_windows_ref, wrapper
+// ../sweep.py::market_event_windows)
+// ---------------------------------------------------------------------------
+// The same design as the single queue's: a lane on G threads, its slot
+// state in registers across windows, the slab drawn a pass ahead into
+// shared memory and every draw the event chain needs sampled there first.
+// What the market adds a lane-event: a pool tag a slot; P spot clocks
+// (registers, the same on every thread of the group) merged by an argmin
+// whose ties go to the lowest pool; one superposed preemption clock, its
+// firing pool picked by thinning in the sample pass; two masked FIFO
+// reductions where the single queue has one (the oldest job tagged the
+// firing spot pool, the oldest tagged the revoked pool), each an int32
+// min and a ballot with the pool compare folded into the key; and the
+// per-pool counts, each on the thread that owns the pool (pool q on thread
+// q % G).  P is a bound of the run (at most kMaxPools), not a template
+// parameter: the pools' loops unroll to kMaxPools and test p < P, so the
+// library holds the same seven (G, SPT) builds as the single queue.
+// Hazard sums run left to right, as XLA's CPU backend sums a pool vector;
+// the hazard clock and the slot rates divide (IEEE division), as XLA does
+// by a traced value.
+constexpr int kMaxPools = 8;
+// events a market draw pass covers at most (fewer where a row is wide)
+constexpr int kMarketPass = 16;
+// floats an event's samples take: job clock, wait budget, pool choice
+// (int bits), revoked pool (int bits), preemption clock, P spot draws
+constexpr int kEv = 5 + kMaxPools;
+constexpr int kMSampleStride = kMarketPass * kEv + 1;
+// a lane's pool table in shared memory: price, spot scale, the hazards'
+// running sums, pool logits
+constexpr int kTab = 4 * kMaxPools + 1;
+
+enum Admit { kThreePhaseAdmit = 0, kSingleSlotAdmit = 1 };
+enum Choice { kPoolZero = 0, kCheapest = 1, kFastest = 2, kLeastLoaded = 3,
+              kUniformChoice = 4, kWeighted = 5 };
+enum Resume { kDefect = 0, kNoticeAware = 1 };
+
+struct MArgs {
+  // initial state, per lane (slot arrays lanes x rmax, pool clocks lanes x P)
+  const float* next_job0;
+  const float* next_spot0;
+  const float* next_pre0;
+  const float* ages0;
+  const float* budgets0;
+  const uint8_t* occ0;
+  const int32_t* pool0;
+  const int32_t* order0;
+  const int32_t* next_seq0;
+  const int32_t* qlen0;
+  const uint32_t* win_keys;  // lanes x windows x 2
+  const int32_t* plan;
+  const float* k_cost;  // per lane
+  const float* pa;      // per lane: r, or the wait family's first param
+  const float* pb;      // per lane: the wait family's second param
+  const float* ckpt;    // per lane: checkpoint time (notice-aware kernels)
+  // the pools config, lanes x P each (logits only for the weighted rule)
+  const float* price;
+  const float* hazard;
+  const float* notice;
+  const float* rate;
+  const float* scale;
+  const float* logits;
+  // final state
+  float* next_job;
+  float* next_spot;
+  float* next_pre;
+  float* ages;
+  float* budgets;
+  uint8_t* occ;
+  int32_t* pool;
+  int32_t* order;
+  int32_t* next_seq;
+  int32_t* qlen;
+  int32_t* istats;  // 7 x lanes x windows
+  float* fstats;    // 5 x lanes x windows
+  int32_t* pstats;  // 3 x lanes x windows x P
+  int lanes, rmax, n_windows, n_cols, n_pools;
+  int job_code, job_n, admit_code, wait_code, choice_code, resume_code;
+  int preempt_on, any_exp_pool;
+  int job_col, spot_col, admit_col, choice_col, pre_col, onpre_col;
+  int pool_code[kMaxPools], pool_n[kMaxPools];
+  float job_c[4];
+  float pool_c[kMaxPools][4];
+};
+
+// the Theorem-4 admission probability at queue length q under cap r
+__device__ __forceinline__ float three_phase_p(float r, int q) {
+  const float n_hat = floorf(r), frac = r - n_hat;
+  const float qf = static_cast<float>(q);
+  return qf < n_hat ? 1.f : (qf == n_hat ? frac : 0.f);
+}
+
+// the samples of the pass's n events (kEv floats each in x_s) from their
+// slab rows in u_s; thread t takes events t, t + G, ...
+template <int G>
+__device__ __forceinline__ void market_sample_pass(
+    float* x_s, const float* u_s, const float* tab, int n, int nc,
+    const MArgs& a, float pa, float pb, int fixed_choice, int t) {
+  const int P = a.n_pools;
+  for (int e = t; e < n; e += G) {
+    const float* u = u_s + e * nc;
+    float* x = x_s + e * kEv;
+    const int off[1] = {e * nc};
+    float out[1];
+    sample_arrivals<1>(a.job_code, a.job_c, a.job_n, u_s, off, a.job_col,
+                       out);
+    x[0] = out[0];
+    out[0] = kInf;
+    if (a.admit_code == kSingleSlotAdmit)
+      sample_waits<1>(a.wait_code, pa, pb, u_s, off, a.admit_col, out);
+    x[1] = out[0];
+    int choice = fixed_choice;
+    if (a.choice_code == kUniformChoice) {
+      choice = min(static_cast<int>(u[a.choice_col] * static_cast<float>(P)),
+                   P - 1);
+    } else if (a.choice_code == kWeighted) {
+      float best = 0.f;
+#pragma unroll
+      for (int p = 0; p < kMaxPools; ++p) {
+        if (p < P) {
+          const float g =
+              -logf(-logf(fmaxf(u[a.choice_col + p], 1e-12f)));
+          const float v = tab[3 * kMaxPools + p] + g;
+          if (p == 0 || v > best) {
+            best = v;
+            choice = p;
+          }
+        }
+      }
+    }
+    x[2] = __int_as_float(choice);
+    if (a.preempt_on) {
+      const float total = tab[2 * kMaxPools + P - 1];
+      const float xu = u[a.pre_col + 1] * total;
+      int pick = 0;
+#pragma unroll
+      for (int p = 0; p < kMaxPools - 1; ++p)
+        if (p < P - 1) pick += xu >= tab[2 * kMaxPools + p];
+      x[3] = __int_as_float(min(pick, P - 1));
+      x[4] = total > 0.f ? exp_from_u(u[a.pre_col]) / fmaxf(total, 1e-30f)
+                         : kInf;
+    }
+    // every pool transforms the same spot columns
+    const float unit = a.any_exp_pool ? exp_from_u(u[a.spot_col]) : 0.f;
+#pragma unroll
+    for (int p = 0; p < kMaxPools; ++p) {
+      if (p < P) {
+        float d;
+        if (a.pool_code[p] == kExponential) {
+          d = unit * a.pool_c[p][0];
+        } else {
+          sample_arrivals<1>(a.pool_code[p], a.pool_c[p], a.pool_n[p], u_s,
+                             off, a.spot_col, out);
+          d = out[0];
+        }
+        x[5 + p] = d * tab[kMaxPools + p];
+      }
+    }
+  }
+}
+
+template <int G, int SPT>
+__global__ void market_kernel(const MArgs a) {
+  extern __shared__ float smem[];
+  const LaneGroup<G> grp(threadIdx.x & 31);
+  const int t = grp.t;
+  const int lane_in_block = threadIdx.x / G;
+  const int lanes_per_block = blockDim.x / G;
+  const int lane0 = blockIdx.x * lanes_per_block + lane_in_block;
+  // lanes past the fleet run a copy of the last lane and store nothing
+  const bool live = lane0 < a.lanes;
+  const int lane = live ? lane0 : a.lanes - 1;
+  const int R = a.rmax, W = a.n_windows, L = a.lanes, nc = a.n_cols;
+  const int P = a.n_pools;
+  const int per_pass = min(kDraws / nc, kMarketPass);
+  float* u_s = smem + lane_in_block * kLaneStride;
+  float* x_s = smem + lanes_per_block * kLaneStride +
+               lane_in_block * kMSampleStride;
+  float* tab = smem + lanes_per_block * (kLaneStride + kMSampleStride) +
+               lane_in_block * kTab;
+  const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
+  const int s0 = t * SPT;
+
+  // the lane's pool table, and what depends on it alone
+  const size_t lp = static_cast<size_t>(lane) * P;
+  for (int p = t; p < P; p += G) {
+    tab[p] = a.price[lp + p];
+    tab[kMaxPools + p] = a.scale[lp + p];
+    tab[3 * kMaxPools + p] = a.logits ? a.logits[lp + p] : 0.f;
+  }
+  if (t == 0) {
+    float cum = a.hazard[lp];
+    tab[2 * kMaxPools] = cum;
+    for (int p = 1; p < P; ++p) {
+      cum = cum + a.hazard[lp + p];
+      tab[2 * kMaxPools + p] = cum;
+    }
+  }
+  __syncwarp();
+  int fixed_choice = 0;  // cheapest / fastest: first index on ties
+  unsigned within = 0;   // bit p: a checkpoint fits pool p's notice
+  {
+    const float ck = a.ckpt[lane];
+    float best = 0.f;
+#pragma unroll
+    for (int p = 0; p < kMaxPools; ++p) {
+      if (p < P) {
+        if (a.choice_code == kCheapest) {
+          const float v = tab[p];
+          if (p == 0 || v < best) { best = v; fixed_choice = p; }
+        } else if (a.choice_code == kFastest) {
+          const float v = a.rate[lp + p] / tab[kMaxPools + p];
+          if (p == 0 || v > best) { best = v; fixed_choice = p; }
+        }
+        within |= static_cast<unsigned>(ck <= a.notice[lp + p]) << p;
+      }
+    }
+  }
+
+  float nj = a.next_job0[lane], npre = a.next_pre0[lane];
+  float ns[kMaxPools];
+#pragma unroll
+  for (int p = 0; p < kMaxPools; ++p) ns[p] = p < P ? a.next_spot0[lp + p] : kInf;
+  int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
+  float ages[SPT], budgets[SPT];
+  int order[SPT], pool[SPT];
+  unsigned occ = 0;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    ages[j] = 0.f;
+    budgets[j] = kInf;
+    order[j] = 0;
+    pool[j] = 0;
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
+      ages[j] = a.ages0[o];
+      budgets[j] = a.budgets0[o];
+      occ |= static_cast<unsigned>(a.occ0[o] != 0) << j;
+      order[j] = a.order0[o];
+      pool[j] = a.pool0[o];
+    }
+  }
+  // queued jobs a pool (least_loaded only), kept by increments from here
+  int qp[kMaxPools];
+#pragma unroll
+  for (int p = 0; p < kMaxPools; ++p) {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) c += ((occ >> j) & 1u) && pool[j] == p;
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o, G);
+    qp[p] = c;
+  }
+
+  for (int w = 0; w < W; ++w) {
+    const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
+    const uint32_t k0 = a.win_keys[kw], k1 = a.win_keys[kw + 1];
+    const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+    const int n_ev = a.plan[w];
+    int jobs_arrived = 0, jobs_completed = 0, spot_served = 0, ondemand = 0;
+    int spot_arrivals = 0, spot_found_empty = 0, resumed = 0;
+    float cost_sum = 0.f, delay_sum = 0.f, time_elapsed = 0.f;
+    float empty_time = 0.f, spot_cost = 0.f;
+    // pools q = t and t + G of this thread: served, slots, revocations
+    int p_served[2] = {0, 0}, p_slots[2] = {0, 0}, p_pre[2] = {0, 0};
+
+    for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
+      const int n_pass = min(per_pass, n_ev - e0);
+      __syncwarp();
+      draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
+                   k2, t);
+      __syncwarp();
+      market_sample_pass<G>(x_s, u_s, tab, n_pass, nc, a, pa, pb,
+                            fixed_choice, t);
+      __syncwarp();
+
+      for (int e = 0; e < n_pass; ++e) {
+        const float* u = u_s + e * nc;
+        const float* x = x_s + e * kEv;
+
+        // the firing spot pool: the earliest clock, the lowest on ties
+        float min_spot = ns[0];
+        int spot_pool = 0;
+#pragma unroll
+        for (int p = 1; p < kMaxPools; ++p)
+          if (p < P && ns[p] < min_spot) { min_spot = ns[p]; spot_pool = p; }
+        const int pre_pool = a.preempt_on ? __float_as_int(x[3]) : 0;
+
+        // pre-event slot reductions: deadline, the oldest job of the spot
+        // pool, the oldest of the revoked pool, the first free slot
+        int bkey[SPT], skey[SPT], pkey[SPT];
+        bool any_s = false, any_p = false;
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          const bool o = (occ >> j) & 1u;
+          const bool es = o && pool[j] == spot_pool;
+          const bool ep = o && pool[j] == pre_pool;
+          bkey[j] = __float_as_int(o ? budgets[j] : kInf);
+          skey[j] = es ? order[j] : kOrderMax;
+          pkey[j] = ep ? order[j] : kOrderMax;
+          any_s |= es;
+          any_p |= ep;
+        }
+        int bmin = bkey[0], smin = skey[0], pmin = pkey[0];
+#pragma unroll
+        for (int j = 1; j < SPT; ++j) {
+          bmin = min(bmin, bkey[j]);
+          smin = min(smin, skey[j]);
+          pmin = min(pmin, pkey[j]);
+        }
+        bmin = grp.reduce_min(bmin);
+        smin = grp.reduce_min(smin);
+        const int di = first_equal<G, SPT>(grp, bkey, bmin);
+        const int si = first_equal<G, SPT>(grp, skey, smin);
+        const bool has_elig = grp.first(any_s) < G;
+        int pi = 0;
+        bool has_pre = false;
+        if (a.preempt_on) {
+          pmin = grp.reduce_min(pmin);
+          pi = first_equal<G, SPT>(grp, pkey, pmin);
+          has_pre = grp.first(any_p) < G;
+        }
+        const unsigned free_bits = ~occ & ((1u << SPT) - 1u);
+        const int owner = grp.first(free_bits != 0);
+        const int fj = free_bits ? __ffs(free_bits) - 1 : 0;
+        const int fi = owner * SPT + grp.from(fj, owner & (G - 1));
+        const float deadline = __int_as_float(bmin);
+
+        // ties resolve spot > preempt > deadline > job
+        float dt;
+        bool is_spot, is_pre = false, is_deadline;
+        if (a.preempt_on) {
+          dt = fminf(fminf(nj, min_spot), fminf(deadline, npre));
+          is_spot = min_spot <= fminf(nj, fminf(deadline, npre));
+          is_pre = !is_spot && npre <= fminf(nj, deadline);
+          is_deadline = !is_spot && !is_pre && deadline <= nj;
+        } else {
+          dt = fminf(fminf(nj, min_spot), deadline);
+          is_spot = min_spot <= fminf(nj, deadline);
+          is_deadline = !is_spot && deadline <= nj;
+        }
+        const bool is_job = !is_spot && !is_pre && !is_deadline;
+
+        // admission and the pool it joins
+        const float budget = x[1];
+        const bool admit_raw = a.admit_code == kThreePhaseAdmit
+                                   ? u[a.admit_col] < three_phase_p(pa, qlen)
+                                   : qlen == 0 && budget > 0.f;
+        int choice = __float_as_int(x[2]);
+        if (a.choice_code == kLeastLoaded) {
+          int best = qp[0];
+          choice = 0;
+#pragma unroll
+          for (int p = 1; p < kMaxPools; ++p)
+            if (p < P && qp[p] < best) { best = qp[p]; choice = p; }
+        }
+        const bool admit = is_job && admit_raw && qlen < R;
+        const bool od_now = is_job && !admit;
+        const bool served = is_spot && has_elig;
+        const float price_s = tab[spot_pool];
+
+        // revocation: checkpoint and re-queue, or defect
+        const bool pre_hit = is_pre && has_pre;
+        bool resume = false;
+        if (a.resume_code == kNoticeAware) {
+          const int qlen_wo = max(qlen - 1, 0);
+          resume = pre_hit && ((within >> pre_pool) & 1u) &&
+                   u[a.onpre_col] < three_phase_p(pa, qlen_wo);
+        }
+        const bool defect_pre = pre_hit && !resume;
+        const bool defected = is_deadline;
+        const bool leave = served || defected || defect_pre;
+        const int leave_slot = served ? si : (defected ? di : pi);
+
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          ages[j] = ages[j] + dt;
+          budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+        }
+        const float wait_served = slot_value<G, SPT>(grp, ages, si);
+        const float age_defect = slot_value<G, SPT>(grp, ages, di);
+        float age_pre = 0.f, price_p = 0.f;
+        if (a.preempt_on) {
+          age_pre = slot_value<G, SPT>(grp, ages, pi);
+          price_p = tab[pre_pool];
+        }
+        if (a.choice_code == kLeastLoaded) {
+          const int dpool = slot_value<G, SPT>(grp, pool, di);
+          const int leave_pool = served ? spot_pool
+                                        : (defected ? dpool : pre_pool);
+#pragma unroll
+          for (int p = 0; p < kMaxPools; ++p)
+            qp[p] += (admit && p == choice) - (leave && p == leave_pool);
+        }
+        const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
+        const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          if (j == join_j) {
+            ages[j] = 0.f;
+            budgets[j] = budget;
+            order[j] = next_seq;
+            pool[j] = choice;
+          } else if (j == resume_j) {
+            ages[j] = 0.f;
+            budgets[j] = kInf;
+            order[j] = next_seq;
+          }
+        }
+        if (join_j >= 0) occ |= 1u << join_j;
+        if (leave && leave_slot / SPT == t)
+          occ &= ~(1u << (leave_slot & (SPT - 1)));
+
+        const bool od_any = od_now || defected || defect_pre;
+        jobs_arrived += is_job;
+        jobs_completed += od_any || served || resume;
+        spot_served += served;
+        ondemand += od_any;
+        cost_sum = cost_sum + (served ? price_s : 0.f);
+        cost_sum = cost_sum + (od_any ? kc : 0.f);
+        delay_sum = delay_sum + (served ? wait_served : 0.f);
+        delay_sum = delay_sum + (defected ? age_defect : 0.f);
+        spot_cost = spot_cost + (served ? price_s : 0.f);
+        if (a.preempt_on) {  // without it these add +0.0
+          cost_sum = cost_sum + (pre_hit ? price_p : 0.f);
+          delay_sum = delay_sum + (pre_hit ? age_pre : 0.f);
+          spot_cost = spot_cost + (pre_hit ? price_p : 0.f);
+        }
+        time_elapsed = time_elapsed + dt;
+        empty_time = empty_time + (qlen == 0 ? dt : 0.f);
+        spot_arrivals += is_spot;
+        spot_found_empty += is_spot && !has_elig;
+        resumed += resume;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q = t + i * G;
+          p_slots[i] += is_spot && spot_pool == q;
+          p_served[i] += served && spot_pool == q;
+          p_pre[i] += pre_hit && pre_pool == q;
+        }
+
+        nj = is_job ? x[0] : nj - dt;
+#pragma unroll
+        for (int p = 0; p < kMaxPools; ++p)
+          if (p < P) ns[p] = is_spot && p == spot_pool ? x[5 + p] : ns[p] - dt;
+        if (a.preempt_on) npre = is_pre ? x[4] : npre - dt;
+        next_seq += admit || resume;
+        qlen += static_cast<int>(admit) - static_cast<int>(leave);
+      }
+    }
+
+    if (live) {
+      const size_t o = static_cast<size_t>(lane) * W + w, n = size_t(L) * W;
+      if (t == 0) {
+        a.istats[0 * n + o] = jobs_arrived;
+        a.istats[1 * n + o] = jobs_completed;
+        a.istats[2 * n + o] = spot_served;
+        a.istats[3 * n + o] = ondemand;
+        a.istats[4 * n + o] = spot_arrivals;
+        a.istats[5 * n + o] = spot_found_empty;
+        a.istats[6 * n + o] = resumed;
+        a.fstats[0 * n + o] = cost_sum;
+        a.fstats[1 * n + o] = delay_sum;
+        a.fstats[2 * n + o] = time_elapsed;
+        a.fstats[3 * n + o] = empty_time;
+        a.fstats[4 * n + o] = spot_cost;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = t + i * G;
+        if (q < P) {
+          const size_t po = o * P + q, pn = n * P;
+          a.pstats[0 * pn + po] = p_served[i];
+          a.pstats[1 * pn + po] = p_slots[i];
+          a.pstats[2 * pn + po] = p_pre[i];
+        }
+      }
+    }
+
+    rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
+      a.ages[o] = ages[j];
+      a.budgets[o] = budgets[j];
+      a.occ[o] = (occ >> j) & 1u;
+      a.pool[o] = pool[j];
+      a.order[o] = order[j];
+    }
+  }
+  if (t == 0) {
+    a.next_job[lane] = nj;
+    a.next_pre[lane] = npre;
+#pragma unroll
+    for (int p = 0; p < kMaxPools; ++p)
+      if (p < P) a.next_spot[lp + p] = ns[p];
+    a.next_seq[lane] = next_seq;
+    a.qlen[lane] = qlen;
+  }
+}
+
+template <int G, int SPT>
+cudaError_t market_launch_gs(const MArgs& a, int warps_per_block,
+                             cudaStream_t s) {
+  const int lanes_per_block = warps_per_block * 32 / G;
+  const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
+  const dim3 block(warps_per_block * 32);
+  const size_t smem = sizeof(float) * lanes_per_block *
+                      (kLaneStride + kMSampleStride + kTab);
+  cudaError_t err = cudaFuncSetAttribute(
+      market_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  market_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the (G, SPT) pairs sweep.py::group_size picks, and no other
+cudaError_t market_launch_g(const MArgs& a, int group, int spt,
+                            int warps_per_block, cudaStream_t s) {
+  if (group == 4) {
+    switch (spt) {
+      case 1: return market_launch_gs<4, 1>(a, warps_per_block, s);
+      case 2: return market_launch_gs<4, 2>(a, warps_per_block, s);
+      case 4: return market_launch_gs<4, 4>(a, warps_per_block, s);
+      case 8: return market_launch_gs<4, 8>(a, warps_per_block, s);
+    }
+  } else if (spt == 8) {
+    switch (group) {
+      case 8: return market_launch_gs<8, 8>(a, warps_per_block, s);
+      case 16: return market_launch_gs<16, 8>(a, warps_per_block, s);
+      case 32: return market_launch_gs<32, 8>(a, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -615,4 +1167,85 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
 
 extern "C" const char* sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// ptrs: the 35 pointers of MArgs in order (logits may be 0); icfg: lanes,
+// rmax, n_windows, n_cols, n_pools, job_code, job_n, admit_code,
+// wait_code, choice_code, resume_code, preempt_on, any_exp_pool, job_col,
+// spot_col, admit_col, choice_col, pre_col, onpre_col, G, SPT, warps a
+// block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4].
+// Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a (G, SPT) that is not built).
+extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
+                             const float* fcfg, void* stream) {
+  MArgs a;
+  int i = 0;
+  a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_spot0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_pre0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.ages0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.budgets0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.occ0 = reinterpret_cast<const uint8_t*>(ptrs[i++]);
+  a.pool0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.order0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.next_seq0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.qlen0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.win_keys = reinterpret_cast<const uint32_t*>(ptrs[i++]);
+  a.plan = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.k_cost = reinterpret_cast<const float*>(ptrs[i++]);
+  a.pa = reinterpret_cast<const float*>(ptrs[i++]);
+  a.pb = reinterpret_cast<const float*>(ptrs[i++]);
+  a.ckpt = reinterpret_cast<const float*>(ptrs[i++]);
+  a.price = reinterpret_cast<const float*>(ptrs[i++]);
+  a.hazard = reinterpret_cast<const float*>(ptrs[i++]);
+  a.notice = reinterpret_cast<const float*>(ptrs[i++]);
+  a.rate = reinterpret_cast<const float*>(ptrs[i++]);
+  a.scale = reinterpret_cast<const float*>(ptrs[i++]);
+  a.logits = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_job = reinterpret_cast<float*>(ptrs[i++]);
+  a.next_spot = reinterpret_cast<float*>(ptrs[i++]);
+  a.next_pre = reinterpret_cast<float*>(ptrs[i++]);
+  a.ages = reinterpret_cast<float*>(ptrs[i++]);
+  a.budgets = reinterpret_cast<float*>(ptrs[i++]);
+  a.occ = reinterpret_cast<uint8_t*>(ptrs[i++]);
+  a.pool = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.order = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.next_seq = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.qlen = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.istats = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.fstats = reinterpret_cast<float*>(ptrs[i++]);
+  a.pstats = reinterpret_cast<int32_t*>(ptrs[i++]);
+  i = 0;
+  a.lanes = icfg[i++];
+  a.rmax = icfg[i++];
+  a.n_windows = icfg[i++];
+  a.n_cols = icfg[i++];
+  a.n_pools = icfg[i++];
+  a.job_code = icfg[i++];
+  a.job_n = icfg[i++];
+  a.admit_code = icfg[i++];
+  a.wait_code = icfg[i++];
+  a.choice_code = icfg[i++];
+  a.resume_code = icfg[i++];
+  a.preempt_on = icfg[i++];
+  a.any_exp_pool = icfg[i++];
+  a.job_col = icfg[i++];
+  a.spot_col = icfg[i++];
+  a.admit_col = icfg[i++];
+  a.choice_col = icfg[i++];
+  a.pre_col = icfg[i++];
+  a.onpre_col = icfg[i++];
+  const int group = icfg[i++], spt = icfg[i++], warps_per_block = icfg[i++];
+  for (int p = 0; p < kMaxPools; ++p) {
+    a.pool_code[p] = icfg[i + p];
+    a.pool_n[p] = icfg[i + kMaxPools + p];
+    for (int c = 0; c < 4; ++c) a.pool_c[p][c] = fcfg[4 + 4 * p + c];
+  }
+  for (int c = 0; c < 4; ++c) a.job_c[c] = fcfg[c];
+  if (a.n_cols < 1 || a.n_cols > kDraws || a.n_pools < 1 ||
+      a.n_pools > kMaxPools || warps_per_block < 1 || warps_per_block > 32 ||
+      group * spt < a.rmax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(market_launch_g(a, group, spt, warps_per_block,
+                                          static_cast<cudaStream_t>(stream)));
 }

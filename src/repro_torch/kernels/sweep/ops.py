@@ -6,8 +6,10 @@ on the CPU goes to the kernel's plain PyTorch version (``ref.py``).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.sweep.ref import batched_event_windows_ref
-from repro_torch.kernels.sweep.sweep import batched_event_windows
+from repro_torch.kernels.sweep.ref import (batched_event_windows_ref,
+                                           market_event_windows_ref)
+from repro_torch.kernels.sweep.sweep import (batched_event_windows,
+                                             market_event_windows)
 
 
 def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan):
@@ -17,3 +19,14 @@ def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan):
                                          params, k_cost, plan)
     return batched_event_windows(job, spot, kernel, rmax, state, params,
                                  k_cost, plan)
+
+
+def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,
+                  k_cost, plan):
+    """Run stacked market event windows; see ``market_event_windows``."""
+    if state.key.device.type == "cpu":
+        return market_event_windows_ref(job, market, kernel, rmax,
+                                        preempt_on, state, params, mp,
+                                        k_cost, plan)
+    return market_event_windows(job, market, kernel, rmax, preempt_on, state,
+                                params, mp, k_cost, plan)

@@ -1,6 +1,8 @@
-"""ctypes wrapper of the hand-written CUDA batched-event kernel (csrc/sweep.cu).
+"""ctypes wrappers of the hand-written CUDA batched-event kernels (csrc/sweep.cu).
 
-The kernel runs a fleet of single-queue lanes through a static plan of
+Two traversals of one kernel family: :func:`batched_event_windows` runs the
+single queue, :func:`market_event_windows` the P-pool spot market.  Each
+runs a fleet of lanes through a static plan of
 event windows (burn-in, chunks, tail), each lane on a group of G threads
 (:func:`group_size` picks G from rmax), with the lane state in registers
 across all windows and the slab's random bits drawn in the kernel from
@@ -22,8 +24,11 @@ import torch
 
 from repro_torch.core.arrivals import (BathtubGCP, Deterministic, Exponential,
                                        Gamma, Uniform)
-from repro_torch.core.clocks import window_slab_keys
-from repro_torch.core.engine import (EngineState, WindowStats, _engine_layout)
+from repro_torch.core.clocks import kernel_slab_cols, window_slab_keys
+from repro_torch.core.engine import (EngineState, MarketState,
+                                     MarketWindowStats, WindowStats,
+                                     _engine_layout, _market_layout)
+from repro_torch.core.market import NoticeAwareKernel, PoolChoiceKernel
 from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
 from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
                                        InfiniteWait, TwoPointWait)
@@ -50,6 +55,8 @@ def _library() -> ctypes.CDLL:
     lib = load(LIBRARY)
     lib.sweep_launch.argtypes = [ctypes.c_void_p] * 4
     lib.sweep_launch.restype = ctypes.c_int
+    lib.market_launch.argtypes = [ctypes.c_void_p] * 4
+    lib.market_launch.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]
     lib.sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,3 +240,175 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
 
 #: launches of the kernel since the count was last set to 0
 batched_event_windows.launches = 0
+
+
+#: pools a market lane can hold (the kernel's kMaxPools)
+MAX_POOLS = 8
+_CHOICE_CODES = {"cheapest": 1, "fastest": 2, "least_loaded": 3,
+                 "uniform": 4, "weighted": 5}
+
+
+class TooManyPoolsError(ValueError):
+    """A market of more pools than the market kernel holds (MAX_POOLS)."""
+
+
+def _market_policy(kernel, params: dict, lanes: int, device):
+    """(admit code, wait code, choice code, resume code, pa, pb, ckpt):
+    the market kernel's rules and per-lane params as csrc/sweep.cu's
+    ``market_kernel`` reads them.  A legacy single-queue kernel joins pool
+    0 (choice 0) and defects on revocation (resume 0)."""
+    zero = torch.zeros(lanes, dtype=torch.float32, device=device)
+    if isinstance(kernel, NoticeAwareKernel):
+        ckpt = kernel.ckpt(params, zero).expand(lanes).contiguous()
+        return (0, 0, _CHOICE_CODES[kernel.choice], 1, params["r"], zero,
+                ckpt)
+    choice, base = 0, kernel
+    if isinstance(kernel, PoolChoiceKernel):
+        choice, base = _CHOICE_CODES[kernel.choice], kernel.base
+    admit, wait, pa, pb = _policy(base, params, lanes, device)
+    return admit, wait, choice, 0, pa, pb, zero
+
+
+def _choice_col(kernel, layout, n_pools: int) -> int:
+    """First slab column of the pool-choice rule's draws."""
+    if isinstance(kernel, NoticeAwareKernel):
+        return layout.admit[0] + 1
+    if isinstance(kernel, PoolChoiceKernel):
+        return layout.admit[0] + kernel_slab_cols(kernel.base, "admit",
+                                                  n_pools)
+    return 0
+
+
+def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
+                         state: MarketState, params: dict, mp: dict,
+                         k_cost: torch.Tensor, plan: tuple[int, ...]
+                         ) -> tuple[MarketState, MarketWindowStats]:
+    """Run every market lane through the windows of ``plan`` in one launch.
+
+    Same contract as
+    :func:`repro_torch.kernels.sweep.ref.market_event_windows_ref`:
+    ``state`` holds ``(lanes, ...)`` CUDA tensors, ``params`` the kernel's
+    per-lane float32 params, ``mp`` the per-lane pools config (``(lanes,
+    P)`` price, hazard, notice, rate, spot_scale), ``k_cost`` the per-lane
+    on-demand price.  A lane runs on :func:`group_size` threads.  Returns
+    ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and ``(lanes,
+    W, P)`` for the pool fields.  Raises if the kernel cannot be built or
+    launched, or for more than ``MAX_POOLS`` pools; it never falls back.
+    """
+    layout = _market_layout(job, market, kernel, preempt_on)
+    n_pools = market.n_pools
+    lanes, device = state.key.shape[0], state.key.device
+    if n_pools > MAX_POOLS:
+        raise TooManyPoolsError(f"market kernel: {n_pools} pools exceed "
+                                f"{MAX_POOLS}")
+    if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
+        raise ValueError(f"market kernel: need lanes >= 1 and 1 <= rmax <= "
+                         f"{MAX_RMAX}, got {lanes} lanes, rmax {rmax}")
+    if layout.n_cols > MAX_COLS:
+        raise ValueError(f"market kernel: a slab row of {layout.n_cols} "
+                         f"columns exceeds {MAX_COLS}")
+    if max(plan) * layout.n_cols >= 2**32:
+        raise ValueError("market kernel: a window's slab index must fit in "
+                         "32 bits")
+    group = group_size(rmax)
+    admit, wait, choice, resume, pa, pb, ckpt = _market_policy(
+        kernel, params, lanes, device)
+    logits = None
+    if choice == _CHOICE_CODES["weighted"]:
+        logits = params["pool_logits"]
+        logits = (logits[:, None] if logits.dim() == 1 else logits) \
+            .expand(lanes, n_pools).contiguous()
+    job_code, job_c, job_n = _arrival(job)
+    pools = [_arrival(p.arrival) for p in market.pools]
+
+    slab_keys, final_key = window_slab_keys(state.key, len(plan))
+    win_keys = _as_int32_words(slab_keys).contiguous()
+    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
+    w = len(plan)
+    f32, i32 = torch.float32, torch.int32
+    lp = (lanes, n_pools)
+    inputs = [("next_job", state.next_job, f32, (lanes,)),
+              ("next_spot", state.next_spot, f32, lp),
+              ("next_preempt", state.next_preempt, f32, (lanes,)),
+              ("ages", state.ages, f32, (lanes, rmax)),
+              ("budgets", state.budgets, f32, (lanes, rmax)),
+              ("occ", state.occ, torch.bool, (lanes, rmax)),
+              ("pool", state.pool, i32, (lanes, rmax)),
+              ("order", state.order, i32, (lanes, rmax)),
+              ("next_seq", state.next_seq, i32, (lanes,)),
+              ("qlen", state.qlen, i32, (lanes,)),
+              ("window keys", win_keys, i32, (lanes, w, 2)),
+              ("plan", plan_t, i32, (w,)),
+              ("k_cost", k_cost, f32, (lanes,)),
+              ("policy param a", pa, f32, (lanes,)),
+              ("policy param b", pb, f32, (lanes,)),
+              ("checkpoint time", ckpt, f32, (lanes,))] + [
+                  (name, mp[name], f32, lp)
+                  for name in ("price", "hazard", "notice", "rate",
+                               "spot_scale")]
+    if logits is not None:
+        inputs.append(("pool_logits", logits, f32, lp))
+    for name, x, dtype, shape in inputs:
+        _check(name, x, dtype, shape)
+
+    out = MarketState(
+        key=final_key,
+        next_job=torch.empty(lanes, dtype=f32, device=device),
+        next_spot=torch.empty(lp, dtype=f32, device=device),
+        next_preempt=torch.empty(lanes, dtype=f32, device=device),
+        ages=torch.empty(lanes, rmax, dtype=f32, device=device),
+        budgets=torch.empty(lanes, rmax, dtype=f32, device=device),
+        occ=torch.empty(lanes, rmax, dtype=torch.bool, device=device),
+        pool=torch.empty(lanes, rmax, dtype=i32, device=device),
+        order=torch.empty(lanes, rmax, dtype=i32, device=device),
+        next_seq=torch.empty(lanes, dtype=i32, device=device),
+        qlen=torch.empty(lanes, dtype=i32, device=device))
+    istats = torch.empty(7, lanes, w, dtype=i32, device=device)
+    fstats = torch.empty(5, lanes, w, dtype=f32, device=device)
+    pstats = torch.empty(3, lanes, w, n_pools, dtype=i32, device=device)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    in_ptrs = [x.data_ptr() for _, x, _, _ in inputs[:21]]
+    ptrs = np.array(in_ptrs + [0 if logits is None else logits.data_ptr()]
+                    + [x.data_ptr() for x in out[1:]]
+                    + [istats.data_ptr(), fstats.data_ptr(),
+                       pstats.data_ptr()], np.int64)
+    codes = np.zeros(MAX_POOLS, np.int32)
+    ns = np.zeros(MAX_POOLS, np.int32)
+    fcfg = np.zeros(4 + 4 * MAX_POOLS, np.float32)
+    fcfg[:len(job_c)] = job_c
+    for p, (code, c, n) in enumerate(pools):
+        codes[p], ns[p] = code, n
+        fcfg[4 + 4 * p:4 + 4 * p + len(c)] = c
+    on_preempt = layout.on_preempt[0] if layout.on_preempt else 0
+    icfg = np.array([lanes, rmax, w, layout.n_cols, n_pools, job_code, job_n,
+                     admit, wait, choice, resume, int(preempt_on),
+                     int(any(code == 0 for code, _, _ in pools)),
+                     layout.job[0], layout.spot[0], layout.admit[0],
+                     _choice_col(kernel, layout, n_pools),
+                     layout.preempt[0] if preempt_on else 0, on_preempt,
+                     group, slots_per_thread(rmax, group),
+                     warps_per_block(lanes, group, sms)]
+                    + codes.tolist() + ns.tolist(), np.int32)
+
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.market_launch(ptrs.ctypes.data, icfg.ctypes.data,
+                               fcfg.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError(f"market kernel launch failed: "
+                           f"{lib.sweep_error_string(rc).decode()}")
+    market_event_windows.launches += 1
+    stats = MarketWindowStats(
+        jobs_arrived=istats[0], jobs_completed=istats[1],
+        spot_served=istats[2], ondemand=istats[3], cost_sum=fstats[0],
+        delay_sum=fstats[1], time_elapsed=fstats[2], empty_time=fstats[3],
+        spot_arrivals=istats[4], spot_found_empty=istats[5],
+        resumed=istats[6], spot_cost=fstats[4], pool_served=pstats[0],
+        pool_spot_arrivals=pstats[1], pool_preempted=pstats[2])
+    return out, stats
+
+
+#: launches of the market kernel since the count was last set to 0
+market_event_windows.launches = 0

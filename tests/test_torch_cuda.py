@@ -9,9 +9,10 @@ a machine that has only PyTorch; there, from the repository root:
 
 (``--noconftest``: tests/conftest.py imports JAX.)
 
-Tolerance of the sweep kernel: integer statistics and the final join
-orders, occupancy, counters and keys bitwise; float32 sums and clocks to
-rtol 1e-5 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
+Tolerance of the sweep kernel, both traversals (the single queue and the
+P-pool market): integer statistics and the final join orders, occupancy,
+pool tags, counters and keys bitwise; float32 sums and clocks to rtol 1e-5
+(see tests/_torch_parity.py). A Gamma job's first clock is drawn
 exponential: the port has no Gamma initial sampler yet; every later draw
 is Gamma's.  Each lane-group layout case runs on the G threads a lane
 that the wrapper picks at its rmax.  Of the attention kernels: float32 outputs rtol 1e-5 (with a
@@ -48,7 +49,9 @@ from repro_torch.kernels.ssd import (ForwardOnlyError, ssd_chunked, ssd_cuda,
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import tc_tolerance as ssd_tc_tolerance
 from repro_torch.kernels.sweep import (batched_event_windows,
-                                       batched_event_windows_ref)
+                                       batched_event_windows_ref,
+                                       market_event_windows,
+                                       market_event_windows_ref)
 from repro_torch.kernels.sweep import sweep as sweep_mod
 
 LAM, MU = 1 / 12, 1 / 24
@@ -194,6 +197,144 @@ def test_cuda_sweep_budgets_order_as_int32(cuda_device, case):
     assert not bool(torch.signbit(b).any())
     assert bool((b.view(torch.int32) >= 0).all())
     assert bool(((b >= 0) & (b <= 3e38)).all())
+
+
+#: the market traversal's cases: (name, market, kernel, rmax, params), at
+#: P 1, 2, 3, 4 and 8, every choice rule, single-slot admission, slot
+#: processes other than Exponential
+def _market(prices, hazards, notices, arrivals=None):
+    n = len(prices)
+    arrivals = arrivals or [T.Exponential(MU / n)] * n
+    return T.SpotMarket(pools=tuple(
+        T.SpotPool(a, price=p, hazard=h, notice=w)
+        for a, p, h, w in zip(arrivals, prices, hazards, notices)))
+
+
+_HETERO = _market((0.5, 0.3, 0.2, 0.1), (0.02, 0.05, 0.0, 0.10),
+                  (0.5, 0.01, 0.0, 2.0))
+_NOTICE = T.NoticeAwareKernel(checkpoint_time=0.05)
+MARKET_CASES = [
+    ("p1_degenerate", T.SpotMarket.single(T.Exponential(MU)),
+     T.ThreePhaseKernel(), 16, {"r": np.linspace(0.25, 4.0, 15)}),
+    ("p2_fastest", _market((1.0, 0.4), (0.0, 0.08), (0.0, 0.3)),
+     T.PoolChoiceKernel(T.ThreePhaseKernel(), "fastest"), 16,
+     {"r": np.linspace(0.5, 3.0, 15)}),
+    ("p3_order_sensitive_sums",
+     _market((0.4, 0.3, 0.2), (0.0123457, 0.123456795, 0.00987654),
+             (0.5, 0.01, 2.0)), _NOTICE, 16, {"r": np.linspace(0.5, 6, 15)}),
+    ("p4_notice", _HETERO, _NOTICE, 64, {"r": np.linspace(1.0, 60.0, 15)}),
+    ("p4_least_loaded", _HETERO, T.NoticeAwareKernel(0.05, "least_loaded"),
+     8, {"r": np.linspace(0.5, 7.0, 15)}),
+    ("p4_uniform", _HETERO, T.NoticeAwareKernel(0.05, "uniform"), 16,
+     {"r": np.linspace(0.5, 7.0, 15)}),
+    ("p4_weighted", _HETERO, T.PoolChoiceKernel(T.ThreePhaseKernel(),
+                                                "weighted"), 16,
+     {"r": np.linspace(0.5, 7.0, 15), "pool_logits": np.linspace(-1, 1, 15)}),
+    ("p4_single_slot", _HETERO,
+     T.PoolChoiceKernel(T.SingleSlotKernel(wait=T.DeterministicWait(3.0))),
+     1, {}),
+    ("p8_mixed_slots",
+     _market((0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2),
+             (0.01, 0.0, 0.02, 0.03, 0.0, 0.05, 0.01, 0.02),
+             (1.0, 0.01, 0.5, 0.5, 2.0, 0.0, 0.02, 3.0),
+             [T.Exponential(MU / 8), T.Uniform(0.0, 384.0), T.BathtubGCP(),
+              T.Deterministic(150.0), T.Exponential(MU / 8),
+              T.Uniform(10.0, 300.0), T.Exponential(MU / 4),
+              T.Exponential(MU / 16)]),
+     T.NoticeAwareKernel(0.05, "least_loaded"), 33,
+     {"r": np.linspace(1.0, 30.0, 15)}),
+]
+#: with the cases' rmax these reach every (G, slots a thread) build
+MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
+
+
+def _market_run(device, market, kernel, rmax, params, lanes=45):
+    """``lanes`` lanes (no multiple of 32/G for G < 32) through windows of
+    333 events after a 111-event burn-in, straight into the kernel."""
+    plan = engine._window_plan(666, 333, 111)
+    n = market.n_pools
+    k = torch.full((lanes,), 10.0, device=device)
+    mp = {name: torch.as_tensor(np.tile(v, (lanes, 1)), device=device)
+          for name, v in market.params().items()}
+    p = engine.market_lane_params(kernel, {
+        name: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
+        for name, v in params.items()}, k)
+    if "pool_logits" in p:  # one logit a lane, the same for every pool
+        p["pool_logits"] = p["pool_logits"][:, None].expand(lanes, n)
+    pre = market.preemptible
+    s0 = engine.init_market_state(
+        threefry.split(threefry.key(11, device), lanes), T.Exponential(LAM),
+        market, rmax, mp, pre)
+    args = (T.Exponential(LAM), market, kernel, rmax, pre, s0, p, mp, k, plan)
+    return args, market_event_windows(*args)
+
+
+def _assert_market_equal(args, fin_k, ker, name):
+    fin_r, ref = market_event_windows_ref(*args)
+    torch.cuda.synchronize()
+    assert_close({f: v.cpu().numpy() for f, v in ref._asdict().items()}, ker,
+                 engine.MARKET_INT_STATS, name)
+    assert_close({f: v.cpu().numpy() for f, v in fin_r._asdict().items()},
+                 fin_k, (), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,market,kernel,rmax,params", MARKET_CASES,
+                         ids=[c[0] for c in MARKET_CASES])
+def test_cuda_market_kernel_matches_plain_version(cuda_device, name, market,
+                                                  kernel, rmax, params):
+    args, (fin_k, ker) = _market_run(cuda_device, market, kernel, rmax,
+                                     params)
+    _assert_market_equal(args, fin_k, ker, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rmax", MARKET_LAYOUT_RMAX,
+                         ids=lambda r: f"rmax{r}-G{sweep_mod.group_size(r)}")
+def test_cuda_market_layouts_match_plain_version(cuda_device, rmax):
+    args, (fin_k, ker) = _market_run(cuda_device, _HETERO, _NOTICE, rmax,
+                                     {"r": np.linspace(1.0, rmax, 9)})
+    _assert_market_equal(args, fin_k, ker, f"rmax {rmax}")
+
+
+def test_market_layouts_reach_every_built_pair():
+    """The market cases and layouts drive every (G, slots a thread) pair
+    the wrapper can pick over rmax 1..256 (the market kernel is built for
+    the same pairs as the single queue's)."""
+    picks = {_picked(r) for r in range(1, sweep_mod.MAX_RMAX + 1)}
+    assert {_picked(r) for r in MARKET_LAYOUT_RMAX} == picks
+    assert {c[0][:2] for c in MARKET_CASES} == {"p1", "p2", "p3", "p4", "p8"}
+
+
+@pytest.mark.cuda
+def test_cuda_market_degenerate_is_the_single_queue_kernel(cuda_device):
+    """One pool, unit price, no hazard: the market kernel equals the
+    single-queue kernel on the same lanes, bitwise."""
+    market = T.SpotMarket.single(T.Exponential(MU))
+    kernel = T.ThreePhaseKernel()
+    args, (fin_m, m) = _market_run(cuda_device, market, kernel, 64,
+                                   {"r": np.linspace(1.0, 60.0, 9)})
+    s0 = args[5]
+    single = engine.EngineState(
+        key=s0.key, next_job=s0.next_job, next_spot=s0.next_spot[:, 0],
+        ages=s0.ages, budgets=s0.budgets, occ=s0.occ, order=s0.order,
+        next_seq=s0.next_seq, qlen=s0.qlen)
+    fin_s, s = batched_event_windows(args[0], T.Exponential(MU), kernel, 64,
+                                     single, args[6], args[8], args[9])
+    torch.cuda.synchronize()
+    for field in engine.WindowStats._fields:
+        assert torch.equal(getattr(m, field), getattr(s, field)), field
+    assert torch.equal(fin_m.next_spot[:, 0], fin_s.next_spot)
+
+
+@pytest.mark.cuda
+def test_cuda_market_launch_count_and_checks(cuda_device):
+    before = market_event_windows.launches
+    args, _ = _market_run(cuda_device, _HETERO, _NOTICE, 16, {"r": [2.0]},
+                          lanes=4)
+    assert market_event_windows.launches == before + 1
+    with pytest.raises(ValueError, match="float32"):
+        market_event_windows(*args[:8], args[8].double(), args[9])
 
 
 def _normals(device, dtype, seed, *shapes):

@@ -18,6 +18,19 @@ out = run_sweep(Exponential(1 / 12), Exponential(1 / 24), ThreePhaseKernel(),
                 {{"r": np.array([1.0, 2.5])}}, n_events=200, n_seeds=2,
                 rmax=8, key=repro_torch.key(0), device="cpu")
 assert out["avg_cost"].shape == (2, 2) and np.isfinite(out["avg_cost"]).all()
+from repro_torch.core import (NoticeAwareKernel, SpotMarket, SpotPool,
+                              run_market_sweep)
+from repro_torch.cluster.orchestrator import OnlineAdmissionController
+market = SpotMarket(pools=(
+    SpotPool(Exponential(1 / 48), price=0.5, hazard=0.05, notice=0.5),
+    SpotPool(Exponential(1 / 48), price=0.2)))
+out = run_market_sweep(Exponential(1 / 12), market, NoticeAwareKernel(0.05),
+                       {{"r": np.array([1.0, 2.5])}}, n_events=200,
+                       n_seeds=2, rmax=8, key=repro_torch.key(0),
+                       device="cpu")
+assert out["pool_served"].shape == (2, 2, 2)
+assert np.isfinite(out["avg_cost_job"]).all()
+assert OnlineAdmissionController(delta=1.0).choose_pool(market, [0, 0]) == 1
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
