@@ -6,13 +6,13 @@ Phases (each prints one line; any failure raises and exits nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
 2. build the six CUDA kernel libraries from
-   ``src/repro_torch/kernels/*/csrc`` (sweep with its two traversals, the
-   single queue and the market, flash attention on the tensor
-   cores and on the CUDA cores, decode attention, SSD on the tensor cores
-   and on the CUDA cores), one ``nvcc`` each, all started together, with
-   ptxas's registers, shared memory and spills (the two tensor-core
-   kernels must spill nothing, and ptxas must not serialise flash's
-   wgmma);
+   ``src/repro_torch/kernels/*/csrc`` (sweep with its three traversals,
+   the single queue, the market and the regions, flash attention on the
+   tensor cores and on the CUDA cores, decode attention, SSD on the tensor
+   cores and on the CUDA cores), one ``nvcc`` each, all started together,
+   with ptxas's registers, shared memory and spills (the two tensor-core
+   kernels and the seven region builds must spill nothing, and ptxas must
+   not serialise flash's wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
@@ -148,10 +148,46 @@ Phases (each prints one line; any failure raises and exits nonzero):
    above the preemption-priced LP floor (``core/lp.py::
    market_knapsack_lp``) at each lane's realised delay, within 5e-3·k.
 
+16. the sweep kernel's region traversal (``region_kernel``) against its
+   plain version on the card: the JAX package's test topology (regions of
+   rmax 16/8/4/16, a ragged 44-slot partition) under every routing rule
+   (home through a bare three-phase kernel, cheapest, fastest,
+   least_loaded, uniform, weighted with per-lane logits), a routed
+   single-slot kernel, the regions-config axis (per-lane prices, hazards
+   with zeros, job scales, notices), a region of rmax 1 and eight regions
+   of mixed processes, at 94 lanes (a ragged last warp) over a burn-in,
+   full windows and a tail; a join order from INT32_MAX; and every
+   (G, slots a thread) layout the wrapper can pick (2 to 256 slots),
+   ptxas's registers printed for each: integers and floats bitwise, final
+   queues bitwise;
+17. at the full fleet's 4,096 lanes and 69,632 events, through the region
+   kernel: one region of unit price and no hazard against the
+   single-queue kernel, and one region of price 0.4, hazard 0.05 and
+   notice 1.0 under ``NoticeAwareKernel`` against the 1-pool market
+   kernel, every shared statistic and the final queue and clocks bitwise;
+18. the region main path: ``benchmarks/region_bench.py::
+   bench_topology(rmax=16)`` (four regions splitting λ and μ, jobs
+   λ/4, λ/2, λ/8, λ/8, spot μ/4 each, prices 0.5/0.3/0.2/0.1, hazards
+   0.02/0.05/0/0.10, notices 0.5/0.01/0/2.0, 64 slots) with
+   ``RoutingKernel(NoticeAwareKernel(checkpoint_time=0.05),
+   "least_loaded")`` over the single queue's fleet (4,096 lanes, 2^20
+   events after 65,536 burn-in): the kernel against its plain version on
+   these inputs at cut depth (4,608 events; both times and the bound of
+   ``region_ops_per_lane_event``), the kernel alone at full size with
+   spot spend held window by window to its float32 rounding bound, then
+   ``run_region_sweep`` with the launch count set to 0 just before and
+   read just after (one launch): its result equal to the summary of the
+   kernel's own call; at every lane completed = served + on-demand +
+   resumed, ``spot_served`` = Σ ``region_served``, ``jobs_arrived`` = Σ
+   ``region_jobs``, ``routed_home`` ≤ admitted ≤ ``jobs_arrived``, and
+   ``avg_cost_job`` above the preemption-priced pooled LP floor
+   (``core/lp.py::region_knapsack_lp``) at its realised delay, within
+   5e-3·k; revocations, resumes and cross-region admissions above 0.
+
 The next-to-last line is a JSON object describing the five ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
-with each route's time and launches; the sweep's two traversals as two
-entries); the last is ``{"ok": true, "device": {...}}``.
+with each route's time and launches; the sweep's three traversals as
+three entries); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -175,17 +211,23 @@ from repro_torch.core.arrivals import (BathtubGCP, Deterministic,  # noqa: E402
 from repro_torch.core.clocks import window_slab_keys  # noqa: E402
 from repro_torch.core.cost import theorem1_cost  # noqa: E402
 from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
-                                     WindowStats,
-                                     _broadcast_market_params,
+                                     RegionWindowStats, WindowStats,
+                                     _broadcast_config_params,
                                      _engine_layout, _flat_lane_args,
                                      _lane_tensors, _market_layout,
+                                     _region_layout, _config_tensors,
                                      _window_plan, init_engine_state,
-                                     init_market_state, lane_params,
-                                     market_lane_params, run_market_sweep,
-                                     run_sweep, summarize_market)
-from repro_torch.core.lp import market_knapsack_lp  # noqa: E402
+                                     init_market_state, init_region_state,
+                                     lane_params, market_lane_params,
+                                     run_market_sweep, run_region_sweep,
+                                     run_sweep, summarize_market,
+                                     summarize_region)
+from repro_torch.core.lp import (market_knapsack_lp,  # noqa: E402
+                                 region_knapsack_lp)
 from repro_torch.core.market import (NoticeAwareKernel,  # noqa: E402
                                      PoolChoiceKernel, SpotMarket, SpotPool)
+from repro_torch.core.regions import (Region, RegionTopology,  # noqa: E402
+                                      RoutingKernel)
 from repro_torch.core.policies import (SingleSlotKernel,  # noqa: E402
                                        ThreePhaseKernel)
 from repro_torch.core.waittime import (DeterministicWait,  # noqa: E402
@@ -194,7 +236,8 @@ from repro_torch.core.waittime import (DeterministicWait,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.sweep import sweep  # noqa: E402
 from repro_torch.kernels.sweep.ref import (  # noqa: E402
-    batched_event_windows_ref, market_event_windows_ref)
+    batched_event_windows_ref, market_event_windows_ref,
+    region_event_windows_ref)
 from repro_torch.cluster.orchestrator import (  # noqa: E402
     OnlineAdmissionController)
 from repro_torch.configs import get_config  # noqa: E402
@@ -281,16 +324,18 @@ def bytes_moved(lanes: int, rmax: int, n_windows: int) -> int:
     return lanes * (reads + writes)
 
 
-def bound_ms(lanes: int, rmax: int, n_cols: int, plan) -> tuple[float, str]:
-    """The least time the card could take for the run: the larger of the
-    operation time and the byte time, and which one it is.  The operation
-    time is the larger of the INT32 count over the INT32 rate, the FP32
-    count over the FP32 rate, and both over the FP32 rate (one warp
-    instruction a scheduler a clock issues either kind)."""
-    n_int, n_fp = (lanes * sum(plan) * n
-                   for n in ops_per_lane_event(rmax, n_cols))
+def bound_ms(lanes: int, plan, ops: tuple[int, int],
+             n_bytes: int) -> tuple[float, str]:
+    """The least time the card could take for a run of ``lanes`` lanes over
+    ``plan`` that does ``ops`` (INT32, FP32) operations a lane-event and
+    moves ``n_bytes``: the larger of the operation time and the byte time,
+    and which one it is.  The operation time is the larger of the INT32
+    count over the INT32 rate, the FP32 count over the FP32 rate, and both
+    over the FP32 rate (one warp instruction a scheduler a clock issues
+    either kind)."""
+    n_int, n_fp = (lanes * sum(plan) * n for n in ops)
     t_ops = max(n_int / PEAK_INT32, (n_int + n_fp) / PEAK_FP32)
-    t_bytes = bytes_moved(lanes, rmax, len(plan)) / PEAK_BYTES
+    t_bytes = n_bytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -376,8 +421,8 @@ def compare(name: str, ref, ker, fin_ref=None, fin_ker=None) -> float:
             worst = max(worst, float(rel.max()))
     if fin_ref is not None:
         for field in ("occ", "pool", "order", "next_seq", "qlen"):
-            if not torch.equal(getattr(fin_ref, field),
-                               getattr(fin_ker, field)):
+            if field in fin_ref._fields and not torch.equal(
+                    getattr(fin_ref, field), getattr(fin_ker, field)):
                 raise AssertionError(f"{name}: final {field} differs")
     return worst
 
@@ -551,7 +596,9 @@ def phase_width(entry: dict) -> None:
         plain_ms, (_, ref) = cuda_ms(lambda: batched_event_windows_ref(*args))
         rel = compare(f"width {name}", ref, ker)
         n_cols = _engine_layout(JOB, SPOT, kernel).n_cols
-        b_ms, b_by = bound_ms(lanes, rmax, n_cols, WIDTH_PLAN)
+        b_ms, b_by = bound_ms(lanes, WIDTH_PLAN,
+                              ops_per_lane_event(rmax, n_cols),
+                              bytes_moved(lanes, rmax, len(WIDTH_PLAN)))
         err = max_abs(ref, ker)
         g, spt = picked_layout(rmax)
         entry.update({f"group_{name}": g, f"slots_a_thread_{name}": spt,
@@ -583,7 +630,8 @@ def phase_main_kernel(entry: dict) -> None:
         ms, _ = cuda_ms(lambda: sweep.batched_event_windows(
             JOB, SPOT, kernel, rmax, state0, p, k, plan))
         n_cols = _engine_layout(JOB, SPOT, kernel).n_cols
-        b_ms, _ = bound_ms(lanes, rmax, n_cols, plan)
+        b_ms, _ = bound_ms(lanes, plan, ops_per_lane_event(rmax, n_cols),
+                          bytes_moved(lanes, rmax, len(plan)))
         rate = lanes * sum(plan) / (ms / 1e3)
         entry.update({f"main_{name}_ms": ms, f"main_{name}_bound_ms": b_ms,
                       f"main_{name}_lane_events_per_s": rate,
@@ -689,11 +737,18 @@ def phase_build() -> None:
             # one instantiation a (G, slots a thread) the wrapper can pick
             SWEEP_PTXAS.update(sweep_ptxas(res.ptxas))
             MARKET_PTXAS.update(sweep_ptxas(res.ptxas, "market_kernel"))
+            REGION_PTXAS.update(sweep_ptxas(res.ptxas, "region_kernel"))
             for name, table in (("sweep_kernel", SWEEP_PTXAS),
-                                ("market_kernel", MARKET_PTXAS)):
+                                ("market_kernel", MARKET_PTXAS),
+                                ("region_kernel", REGION_PTXAS)):
                 for key, line in sorted(table.items()):
                     print(f"  {name}<G {key[0]}, SPT {key[1]}>: {line}",
                           flush=True)
+            # the region builds must not spill
+            for key, line in REGION_PTXAS.items():
+                if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    raise AssertionError(f"region_kernel<G {key[0]}, SPT "
+                                         f"{key[1]}>: {line}")
             continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
@@ -1902,46 +1957,57 @@ MARKET_CUT_PLAN = WIDTH_PLAN
 MARKET_PTXAS: dict[tuple[int, int], str] = {}
 
 
+def lane_inputs(defaults, params, lanes, seed, cfg=None, device=None):
+    """Keys, params, k (10 a lane) and a pools or regions config as tensors
+    for a direct call of the market or region kernel: ``params`` maps names
+    to per-lane values, ``cfg`` is a per-lane config (``defaults`` a lane
+    when it is None)."""
+    device = device or DEVICE
+    keys = threefry.split(threefry.key(seed, device), lanes)
+    k = torch.full((lanes,), 10.0, dtype=torch.float32, device=device)
+    cfg = cfg or {n: np.broadcast_to(v, (lanes,) + v.shape)
+                  for n, v in defaults.items()}
+    p = {n: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                            device=device) for n, v in params.items()}
+    return keys, p, k, _config_tensors(
+        {n: np.ascontiguousarray(v) for n, v in cfg.items()}, device)
+
+
+def case_inputs(defaults, params, config, lanes, rng, scale):
+    """Per-lane params (a grid value repeated over ``lanes``, logits drawn
+    a lane) and, for the config rows, a per-lane pools or regions config:
+    prices, hazards (a quarter of them 0, a lane in eight with none),
+    notices and the ``scale`` column."""
+    n = len(defaults["price"])
+    out = {}
+    for name, v in params.items():
+        if name.endswith("_logits"):
+            out[name] = rng.normal(0.0, 1.5, (lanes, n))
+        else:
+            out[name] = np.resize(np.repeat(v, -(-lanes // len(v))), lanes)
+    cfg = None
+    if config:
+        cfg = {n_: np.broadcast_to(v, (lanes, n)).copy()
+               for n_, v in defaults.items()}
+        cfg["price"] = rng.uniform(0.05, 1.0, (lanes, n))
+        hz = rng.uniform(0.0, 0.2, (lanes, n))
+        hz[rng.random((lanes, n)) < 0.25] = 0.0
+        hz[::8] = 0.0
+        cfg["hazard"] = hz
+        cfg["notice"] = rng.uniform(0.0, 1.0, (lanes, n))
+        cfg[scale] = rng.uniform(0.5, 2.0, (lanes, n))
+    return out, cfg
+
+
 def market_fleet(market, kernel, rmax, params, lanes, seed, mp=None,
                  device=None):
     """Lane state, per-lane params, pools config and k for a direct call of
     the market kernel: ``params`` maps names to per-lane values."""
-    device = device or DEVICE
-    keys = threefry.split(threefry.key(seed, device), lanes)
-    k = torch.full((lanes,), 10.0, dtype=torch.float32, device=device)
-    mp = mp or {n: np.broadcast_to(v, (lanes, market.n_pools))
-                for n, v in market.params().items()}
-    mp = {n: torch.as_tensor(np.ascontiguousarray(v, np.float32),
-                             device=device) for n, v in mp.items()}
-    p = {n: torch.as_tensor(np.ascontiguousarray(v, np.float32),
-                            device=device) for n, v in params.items()}
+    keys, p, k, mp = lane_inputs(market.params(), params, lanes, seed, mp,
+                                 device)
     preempt_on = bool((mp["hazard"] > 0).any())
     state0 = init_market_state(keys, JOB, market, rmax, mp, preempt_on)
     return state0, market_lane_params(kernel, p, k), mp, k, preempt_on
-
-
-def market_case_inputs(market, params, pools_config, lanes, rng):
-    """Per-lane params (a grid value repeated over ``lanes``) and, for
-    the pools-config rows, a per-lane pools config."""
-    n = market.n_pools
-    out = {}
-    for name, v in params.items():
-        if name == "pool_logits":
-            out[name] = rng.normal(0.0, 1.5, (lanes, n))
-        else:
-            out[name] = np.resize(np.repeat(v, -(-lanes // len(v))), lanes)
-    mp = None
-    if pools_config:
-        mp = {n_: np.broadcast_to(v, (lanes, n)).copy()
-              for n_, v in market.params().items()}
-        mp["price"] = rng.uniform(0.05, 1.0, (lanes, n))
-        hz = rng.uniform(0.0, 0.2, (lanes, n))
-        hz[rng.random((lanes, n)) < 0.25] = 0.0
-        hz[::8] = 0.0
-        mp["hazard"] = hz
-        mp["notice"] = rng.uniform(0.0, 1.0, (lanes, n))
-        mp["spot_scale"] = rng.uniform(0.5, 2.0, (lanes, n))
-    return out, mp
 
 
 def phase_market_parity() -> float:
@@ -1954,7 +2020,8 @@ def phase_market_parity() -> float:
     worst, driven = 0.0, set()
     for name, market, kernel, rmax, params, pools_config in MARKET_CASES:
         lanes = MARKET_LANES
-        p, mp = market_case_inputs(market, params, pools_config, lanes, rng)
+        p, mp = case_inputs(market.params(), params, pools_config, lanes,
+                            rng, "spot_scale")
         state0, p, mp, k, pre = market_fleet(market, kernel, rmax, p, lanes,
                                              7, mp)
         args = (JOB, market, kernel, rmax, pre, state0, p, mp, k,
@@ -2019,16 +2086,22 @@ def phase_market_parity() -> float:
     return worst
 
 
-def market_main_inputs(market=BENCH_MARKET, kernel=MARKET_KERNEL):
-    """The market kernel's inputs exactly as ``run_market_sweep`` lays them
-    out for the market main path: grid-major lanes, seed fastest."""
+def main_lanes(n_locs: int, defaults: dict):
+    """The main path's lanes exactly as ``run_market_sweep`` and
+    ``run_region_sweep`` lay them out (grid-major, seed fastest): keys,
+    params, k and the pools or regions config ``defaults`` a lane."""
     params_f, k_f, grid = _lane_tensors({"r": R_GRID[:, None]},
                                         K_GRID[None, :], DEVICE)
     keys = threefry.split(threefry.key(MAIN_SEED, DEVICE), N_SEEDS)
     params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
-    mp = {n: torch.as_tensor(np.array(v), device=DEVICE) for n, v in
-          _broadcast_market_params(market, {}, grid).items()}
-    mp_l = _flat_lane_args(mp, k_f, keys)[0]
+    cfg = _config_tensors(_broadcast_config_params(n_locs, defaults, {},
+                                                   grid), DEVICE)
+    return keys_l, params_l, k_l, _flat_lane_args(cfg, k_f, keys)[0]
+
+
+def market_main_inputs(market=BENCH_MARKET, kernel=MARKET_KERNEL):
+    """The market kernel's inputs for the market main path."""
+    keys_l, params_l, k_l, mp_l = main_lanes(market.n_pools, market.params())
     pre = market.preemptible
     state0 = init_market_state(keys_l, JOB, market, 64, mp_l, pre)
     return (JOB, market, kernel, 64, pre, state0,
@@ -2068,17 +2141,6 @@ def market_bytes_moved(lanes: int, rmax: int, n_pools: int,
     reads = state + 4 * 4 + 5 * 4 * n_pools + n_windows * 8
     writes = state + n_windows * 4 * (12 + 3 * n_pools)
     return lanes * (reads + writes)
-
-
-def market_bound_ms(lanes, rmax, n_cols, n_pools, plan) -> tuple[float, str]:
-    """The least time the card could take: as :func:`bound_ms`, with the
-    market's operation and byte counts."""
-    n_int, n_fp = (lanes * sum(plan) * n for n in
-                   market_ops_per_lane_event(rmax, n_cols, n_pools))
-    t_ops = max(n_int / PEAK_INT32, (n_int + n_fp) / PEAK_FP32)
-    t_bytes = market_bytes_moved(lanes, rmax, n_pools, len(plan)) / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_market_degenerate() -> None:
@@ -2125,8 +2187,10 @@ def phase_market_width(market: dict) -> None:
         lambda: market_event_windows_ref(*args, MARKET_CUT_PLAN))
     rel = compare("market width", ref, ker)
     n_cols = _market_layout(JOB, BENCH_MARKET, MARKET_KERNEL, True).n_cols
-    b_ms, b_by = market_bound_ms(lanes, 64, n_cols, BENCH_MARKET.n_pools,
-                                 MARKET_CUT_PLAN)
+    n_pools = BENCH_MARKET.n_pools
+    b_ms, b_by = bound_ms(
+        lanes, MARKET_CUT_PLAN, market_ops_per_lane_event(64, n_cols, n_pools),
+        market_bytes_moved(lanes, 64, n_pools, len(MARKET_CUT_PLAN)))
     g, spt = picked_layout(64)
     market.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                   max_abs_err=max_abs(ref, ker), group=g,
@@ -2148,8 +2212,10 @@ def phase_market_main_kernel(market: dict) -> dict:
     lanes = args[8].shape[0]
     ladder_ms, _ = cuda_ms(lambda: window_slab_keys(args[5].key, len(plan)))
     ms, (_, stats) = cuda_ms(lambda: sweep.market_event_windows(*args, plan))
-    b_ms, b_by = market_bound_ms(lanes, 64, market["n_cols"],
-                                 BENCH_MARKET.n_pools, plan)
+    n_pools = BENCH_MARKET.n_pools
+    b_ms, b_by = bound_ms(
+        lanes, plan, market_ops_per_lane_event(64, market["n_cols"], n_pools),
+        market_bytes_moved(lanes, 64, n_pools, len(plan)))
     rate = lanes * sum(plan) / (ms / 1e3)
     market.update(main_ms=ms, main_bound_ms=b_ms, main_bound_by=b_by,
                   main_lane_events_per_s=rate, main_key_ladder_ms=ladder_ms)
@@ -2245,6 +2311,444 @@ def phase_market_main_path(market: dict, kernel_summary: dict) -> None:
           f"at least {worst:.3e}·k (limit -5e-3·k)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# N-region routing (the sweep kernel's region traversal)
+# ---------------------------------------------------------------------------
+def region_topology(rows) -> RegionTopology:
+    """Regions from rows of (job process, spot process, price, hazard,
+    notice, rmax)."""
+    return RegionTopology(regions=tuple(
+        Region(job, spot, price=c, hazard=h, notice=w, rmax=m)
+        for job, spot, c, h, w, m in rows))
+
+
+#: benchmarks/region_bench.py::bench_topology(rmax=16): four regions that
+#: split the paper's λ and μ
+BENCH_TOPOLOGY = region_topology(
+    [(Exponential(LAM / 4), Exponential(MU / 4), 0.5, 0.02, 0.5, 16),
+     (Exponential(LAM / 2), Exponential(MU / 4), 0.3, 0.05, 0.01, 16),
+     (Exponential(LAM / 8), Exponential(MU / 4), 0.2, 0.0, 0.0, 16),
+     (Exponential(LAM / 8), Exponential(MU / 4), 0.1, 0.10, 2.0, 16)])
+REGION_KERNEL = RoutingKernel(NoticeAwareKernel(checkpoint_time=0.05),
+                              choice="least_loaded")
+#: tests/test_core_regions.py::_hetero_topology: rmax 16/8/4/16, a ragged
+#: partition of 44 slots
+HETERO_TOPOLOGY = region_topology(
+    [(Exponential(LAM / 4), Exponential(1 / 30), 0.5, 0.02, 0.5, 16),
+     (Exponential(LAM / 2), Exponential(1 / 40), 0.3, 0.05, 0.01, 8),
+     (Exponential(LAM / 8), Exponential(1 / 60), 0.2, 0.0, 0.0, 4),
+     (Exponential(LAM / 8), Exponential(1 / 90), 0.1, 0.10, 2.0, 16)])
+_NOTICE = NoticeAwareKernel(checkpoint_time=0.05)
+#: (name, topology, kernel, per-lane params, per-lane regions config or
+#: None); "per lane" logits and configs are drawn for each lane
+REGION_CASES = [
+    ("home", HETERO_TOPOLOGY, ThreePhaseKernel(),
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("cheapest", HETERO_TOPOLOGY, RoutingKernel(_NOTICE, "cheapest"),
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("fastest", HETERO_TOPOLOGY, RoutingKernel(ThreePhaseKernel(), "fastest"),
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("least_loaded", HETERO_TOPOLOGY, RoutingKernel(_NOTICE, "least_loaded"),
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("uniform", HETERO_TOPOLOGY, RoutingKernel(_NOTICE, "uniform"),
+     {"r": np.linspace(0.5, 6.0, 4)}, None),
+    ("weighted", HETERO_TOPOLOGY, RoutingKernel(ThreePhaseKernel(),
+                                                "weighted"),
+     {"r": np.linspace(0.5, 6.0, 4), "region_logits": "per lane"}, None),
+    ("single_slot", HETERO_TOPOLOGY,
+     RoutingKernel(SingleSlotKernel(wait=DeterministicWait(3.0)),
+                   "least_loaded"), {}, None),
+    ("regions_config", HETERO_TOPOLOGY, RoutingKernel(_NOTICE, "fastest"),
+     {"r": np.linspace(0.5, 6.0, 4)}, "per lane"),
+    ("rmax1_region", region_topology(
+        [(Exponential(LAM / 2), Exponential(1 / 30), 0.5, 0.05, 0.5, 1),
+         (Exponential(LAM / 2), Uniform(0.0, 48.0), 0.3, 0.0, 0.0, 6)]),
+     RoutingKernel(_NOTICE, "least_loaded"), {"r": np.linspace(0.5, 6.0, 4)},
+     None),
+    ("eight_regions", region_topology([
+        (job, spot, 0.9 - 0.1 * i, h, w, m) for i, (job, spot, h, w, m)
+        in enumerate(zip(
+            [Exponential(LAM / 8)] * 6 + [Uniform(0.0, 192.0),
+                                          Exponential(LAM / 8)],
+            [Exponential(MU / 8), Uniform(0.0, 384.0), BathtubGCP(),
+             Deterministic(150.0), Exponential(MU / 8), Uniform(10.0, 300.0),
+             Exponential(MU / 4), Exponential(MU / 16)],
+            (0.01, 0.0, 0.02, 0.03, 0.0, 0.05, 0.01, 0.02),
+            (1.0, 0.01, 0.5, 0.5, 2.0, 0.0, 0.02, 3.0),
+            (5, 3, 1, 8, 4, 2, 6, 4)))]),
+     RoutingKernel(_NOTICE, "weighted"),
+     {"r": np.linspace(0.5, 6.0, 4), "region_logits": "per lane"}, None),
+]
+#: a burn-in, two windows and a tail, none a multiple of a draw pass (rows
+#: of 4 to 9 or 16 columns take 16, 12, 10, 9, 8, 7 or 4 events a pass)
+REGION_PLAN = _window_plan(1_001, 383, 97)
+REGION_LANES = 94  # no multiple of 32/G: a ragged last warp at every G
+#: total slots whose wrapper picks are every (G, slots a thread) built
+REGION_LAYOUT_SLOTS = (2, 8, 16, 32, 64, 100, 256)
+REGION_LAYOUT_PLAN = _window_plan(450, 333, 64)
+#: ptxas's report of each region instantiation, (G, slots a thread) -> line
+REGION_PTXAS: dict[tuple[int, int], str] = {}
+
+
+def region_fleet(topo, kernel, params, lanes, seed, rp=None):
+    """The region kernel's arguments for a direct call (before the plan):
+    ``params`` maps names to per-lane values."""
+    keys, p, k, rp = lane_inputs(topo.params(), params, lanes, seed, rp)
+    preempt_on = bool((rp["hazard"] > 0).any())
+    state0 = init_region_state(keys, topo, rp, preempt_on)
+    return (topo, kernel, preempt_on, state0,
+            market_lane_params(kernel, p, k), rp, k)
+
+
+def phase_region_parity() -> float:
+    """The region kernel against its plain version on the card: the JAX
+    test topology (a ragged 16/8/4/16 partition) under every routing rule,
+    a routed single-slot kernel, the regions-config axis, a region of rmax
+    1, eight regions of mixed processes, a join order from INT32_MAX; then
+    every (G, slots a thread) the wrapper can pick."""
+    rng = np.random.default_rng(19)
+    worst, driven = 0.0, set()
+    for name, topo, kernel, params, regions_config in REGION_CASES:
+        p, rp = case_inputs(topo.params(), params, regions_config,
+                            REGION_LANES, rng, "job_scale")
+        args = region_fleet(topo, kernel, p, REGION_LANES, 7, rp)
+        fin_ref, ref = region_event_windows_ref(*args, REGION_PLAN)
+        fin_ker, ker = sweep.region_event_windows(*args, REGION_PLAN)
+        torch.cuda.synchronize()
+        rel = compare(f"region {name}", ref, ker, fin_ref, fin_ker)
+        worst = max(worst, rel)
+        driven.add(picked_layout(topo.total_slots))
+        print(f"region parity {name}: R {topo.n_regions}, slots "
+              f"{topo.total_slots} ({'/'.join(str(r.rmax) for r in topo.regions)}), "
+              f"{REGION_LANES} lanes, preemption "
+              f"{'on' if args[2] else 'off'}, plan {REGION_PLAN}: ints "
+              f"bitwise, max rel float diff {rel:.3g}; "
+              f"{int(ref.region_routed.sum())} admitted "
+              f"({int(ref.routed_home.sum())} home), "
+              f"{int(ref.region_preempted.sum())} revocations, "
+              f"{int(ref.resumed.sum())} resumed", flush=True)
+
+    # a join order a hair below INT32_MAX: the per-window rebase holds it
+    plan = _window_plan(1_280, 128, 0)
+    args = region_fleet(HETERO_TOPOLOGY, REGION_KERNEL,
+                        {"r": np.full(96, 6.0)}, 96, 2)
+    state0 = args[3]
+    high = state0._replace(next_seq=state0.next_seq + (2**31 - 10_000))
+    _, ref = region_event_windows_ref(*args[:3], high, *args[4:], plan)
+    fin_hi, ker_hi = sweep.region_event_windows(*args[:3], high, *args[4:],
+                                                plan)
+    _, ker_lo = sweep.region_event_windows(*args, plan)
+    rel = compare("region rebase", ref, ker_hi)
+    compare("region rebase vs zero start", ker_lo, ker_hi)
+    if int(fin_hi.next_seq.max()) > 128 + HETERO_TOPOLOGY.total_slots:
+        raise AssertionError("region rebase: next_seq not bounded")
+    print(f"region parity rebase: next_seq from 2^31-10^4, {len(plan)} "
+          f"windows: ints bitwise, equal to the zero start, max rel float "
+          f"diff {rel:.3g}", flush=True)
+    worst = max(worst, rel)
+
+    for slots in REGION_LAYOUT_SLOTS:
+        topo = region_topology(
+            [(Exponential(LAM / 2), Exponential(MU / 2), 0.5, 0.03, 0.5,
+              -(-slots // 2)),
+             (Exponential(LAM / 2), Exponential(MU / 2), 0.2, 0.06, 0.01,
+              slots // 2)])
+        args = region_fleet(topo, REGION_KERNEL,
+                            {"r": np.linspace(1.0, slots / 2,
+                                              MARKET_LAYOUT_LANES)},
+                            MARKET_LAYOUT_LANES, 11)
+        fin_ref, ref = region_event_windows_ref(*args, REGION_LAYOUT_PLAN)
+        fin_ker, ker = sweep.region_event_windows(*args, REGION_LAYOUT_PLAN)
+        torch.cuda.synchronize()
+        rel = compare(f"region layout slots {slots}", ref, ker, fin_ref,
+                      fin_ker)
+        if bool(torch.signbit(fin_ker.budgets).any()):
+            raise AssertionError(f"region layout slots {slots}: a budget "
+                                 f"with its sign bit set")
+        g, spt = picked_layout(slots)
+        driven.add((g, spt))
+        worst = max(worst, rel)
+        print(f"region layout slots {slots}: G {g} ({spt} slots a thread; "
+              f"ptxas: {REGION_PTXAS.get((g, spt))}), "
+              f"{MARKET_LAYOUT_LANES} lanes, plan {REGION_LAYOUT_PLAN}: "
+              f"ints bitwise, max rel float diff {rel:.3g}", flush=True)
+    picks = {picked_layout(rmax) for rmax in range(1, sweep.MAX_RMAX + 1)}
+    if driven != picks or (REGION_PTXAS and set(REGION_PTXAS) != picks):
+        raise AssertionError(f"region layouts driven {sorted(driven)}, "
+                             f"picked {sorted(picks)}, built "
+                             f"{sorted(REGION_PTXAS)}")
+    return worst
+
+
+def region_main_inputs(topo=BENCH_TOPOLOGY, kernel=REGION_KERNEL):
+    """The region kernel's arguments for the region main path."""
+    keys_l, params_l, k_l, rp_l = main_lanes(topo.n_regions, topo.params())
+    pre = topo.preemptible
+    state0 = init_region_state(keys_l, topo, rp_l, pre)
+    return (topo, kernel, pre, state0,
+            market_lane_params(kernel, params_l, k_l), rp_l, k_l)
+
+
+def region_ops_per_lane_event(slots: int, n_cols: int, n_regions: int,
+                              group: int) -> tuple[int, int]:
+    """(INT32, FP32) operations one region lane-event needs on ``group``
+    threads a lane, counted by the type of the data they work on: the plain
+    version's arithmetic, with the static partition's work counted a thread,
+    as the kernel does it.
+
+    As :func:`market_ops_per_lane_event` for the columns (119 INT32 + 2
+    FP32).  A slot: the single queue's 16 INT32 + 11 FP32 plus the
+    region's 5 INT32 (the revoked partition's bit test, its order key's
+    select, arg-min compare and one-hot compare, the resume order select)
+    and 3 FP32 (the revoked age's one-hot read, the resume selects of age
+    and budget).  A thread: 36 INT32 for the three partition masks (spot,
+    revoked and target region; each two offsets clamped to the thread's
+    slots, two shifts, two subtracts and a bit operation, then its
+    operation with the occupancy).  A region: 26 INT32 (two arg-min index
+    selects, five counters' compares and adds, the thinning count, the
+    queue length's two one-hot updates and the total, the target's queue,
+    capacity and revoked-queue reads, least_loaded's compare and select,
+    the free-slot view) and 16 FP32 (two clock compares, two clocks'
+    subtract and select, two draws' products each, the hazard's running
+    sum, the thinning compare, two price reads, the rate and job-rate
+    divisions).  An event: the market's 44 INT32 + 60 FP32 plus 4 INT32
+    (the route's home compare, the routed-home counter)."""
+    return (119 * n_cols + 21 * slots + 36 * group + 26 * n_regions + 48,
+            2 * n_cols + 14 * slots + 16 * n_regions + 60)
+
+
+def region_bytes_moved(lanes: int, slots: int, n_regions: int,
+                       n_windows: int) -> int:
+    """Bytes the region function must move: each lane's state (key, R job
+    and spot clocks and queue lengths, the preemption clock, next_seq, the
+    packed slots), params (k, two policy params, the checkpoint time),
+    regions config (six (R,) vectors) and window keys read once, its final
+    state and per-window statistics (13 scalars, 5 a region) written
+    once."""
+    state = 4 * (2 + 3 * n_regions + 2) + slots * (4 + 4 + 1 + 4)
+    reads = state + 4 * 4 + 6 * 4 * n_regions + n_windows * 8
+    writes = state + n_windows * 4 * (13 + 5 * n_regions)
+    return lanes * (reads + writes)
+
+
+def region_bound_ms(lanes: int, plan, n_cols: int) -> tuple[float, str]:
+    """:func:`bound_ms` of the region main path's topology and kernel."""
+    slots, n = BENCH_TOPOLOGY.total_slots, BENCH_TOPOLOGY.n_regions
+    return bound_ms(lanes, plan, region_ops_per_lane_event(
+        slots, n_cols, n, sweep.group_size(slots)),
+        region_bytes_moved(lanes, slots, n, len(plan)))
+
+
+def phase_region_degenerate() -> None:
+    """At full fleet width and cut depth, through the region kernel: one
+    region of unit price and no hazard under a legacy three-phase kernel
+    against the single-queue kernel, and one region of price 0.4, hazard
+    0.05 and notice 1.0 under ``NoticeAwareKernel`` against the 1-pool
+    market kernel (``pool_*`` as ``region_*``): every shared statistic and
+    the final queue and clocks bitwise."""
+    plan = (4_096, 65_536)
+    single = RegionTopology.single(JOB, SPOT, rmax=64)
+    args = region_main_inputs(single, ThreePhaseKernel())
+    state0, p, k = args[3], args[4], args[6]
+    fin_r, r = sweep.region_event_windows(*args, plan)
+    single0 = init_engine_state(state0.key, JOB, SPOT, 64)._replace(
+        key=state0.key, next_job=state0.next_job[:, 0],
+        next_spot=state0.next_spot[:, 0])
+    fin_s, s = sweep.batched_event_windows(JOB, SPOT, ThreePhaseKernel(), 64,
+                                           single0, p, k, plan)
+    torch.cuda.synchronize()
+    for field in WindowStats._fields:
+        if not torch.equal(getattr(r, field), getattr(s, field)):
+            raise AssertionError(f"degenerate region: {field} differs from "
+                                 f"the single queue")
+    for field in ("ages", "budgets", "occ", "order", "next_seq"):
+        if not torch.equal(getattr(fin_r, field), getattr(fin_s, field)):
+            raise AssertionError(f"degenerate region: final {field} differs")
+    for field in ("next_job", "next_spot", "qlen"):
+        if not torch.equal(getattr(fin_r, field)[:, 0],
+                           getattr(fin_s, field)):
+            raise AssertionError(f"degenerate region: final {field} differs")
+
+    spot = Exponential(1 / 40)
+    kernel = NoticeAwareKernel(checkpoint_time=0.05)
+    one = RegionTopology.single(JOB, spot, price=0.4, hazard=0.05,
+                                notice=1.0, rmax=64)
+    market = SpotMarket.single(spot, price=0.4, hazard=0.05, notice=1.0)
+    args = region_main_inputs(one, kernel)
+    state0, p, k = args[3], args[4], args[6]
+    lanes = k.shape[0]
+    fin_r, r = sweep.region_event_windows(*args, plan)
+    mp = {n: torch.as_tensor(np.tile(v, (lanes, 1)), device=DEVICE)
+          for n, v in market.params().items()}
+    market0 = init_market_state(state0.key, JOB, market, 64, mp, True)
+    market0 = market0._replace(
+        key=state0.key, next_job=state0.next_job[:, 0],
+        next_spot=state0.next_spot, next_preempt=state0.next_preempt)
+    fin_m, m = sweep.market_event_windows(JOB, market, kernel, 64, True,
+                                          market0, p, mp, k, plan)
+    torch.cuda.synchronize()
+    for field in MarketWindowStats._fields:
+        if not torch.equal(getattr(r, field.replace("pool_", "region_")),
+                           getattr(m, field)):
+            raise AssertionError(f"one-region market: {field} differs from "
+                                 f"the 1-pool market kernel")
+    for field in ("next_spot", "next_preempt", "ages", "budgets", "occ",
+                  "order", "next_seq"):
+        if not torch.equal(getattr(fin_r, field), getattr(fin_m, field)):
+            raise AssertionError(f"one-region market: final {field} differs")
+    for field in ("next_job", "qlen"):
+        if not torch.equal(getattr(fin_r, field)[:, 0],
+                           getattr(fin_m, field)):
+            raise AssertionError(f"one-region market: final {field} differs")
+    print(f"region degenerate: {lanes} lanes × {sum(plan)} events, rmax "
+          f"64: one region of unit price and no hazard equals the "
+          f"single-queue kernel, one region of price 0.4, hazard 0.05 and "
+          f"notice 1.0 the 1-pool market kernel ({int(m.pool_preempted.sum())}"
+          f" revocations, {int(m.resumed.sum())} resumed), bitwise (every "
+          f"shared statistic, the final queue and clocks)", flush=True)
+
+
+def phase_region_width(region: dict) -> None:
+    """Kernel and plain version on the region main path's inputs (cut
+    depth): ints bitwise, floats to RTOL, and their times."""
+    args = region_main_inputs()
+    lanes, slots = args[6].shape[0], BENCH_TOPOLOGY.total_slots
+    sweep.region_event_windows(*args, WIDTH_PLAN)  # warm-up
+    ms, (_, ker) = cuda_ms(
+        lambda: sweep.region_event_windows(*args, WIDTH_PLAN), 3)
+    plain_ms, (_, ref) = cuda_ms(
+        lambda: region_event_windows_ref(*args, WIDTH_PLAN))
+    rel = compare("region width", ref, ker)
+    n_cols = _region_layout(BENCH_TOPOLOGY, REGION_KERNEL, True).n_cols
+    b_ms, b_by = region_bound_ms(lanes, WIDTH_PLAN, n_cols)
+    g, spt = picked_layout(slots)
+    region.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                  max_abs_err=max_abs(ref, ker), group=g,
+                  slots_a_thread=spt, ptxas=REGION_PTXAS.get((g, spt)),
+                  n_cols=n_cols)
+    print(f"region width: {lanes} lanes, 4 regions, {slots} slots, "
+          f"{n_cols} columns, plan {WIDTH_PLAN}, G {g} ({spt} slots a "
+          f"thread; ptxas: {REGION_PTXAS.get((g, spt))}): kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms ({plain_ms / ms:.0f}x), bound "
+          f"{b_ms:.4f} ms ({b_by}), ints bitwise, max rel float diff "
+          f"{rel:.3g}", flush=True)
+
+
+def phase_region_main_kernel(region: dict) -> dict:
+    """Device time of the region kernel alone at the main path's size, its
+    spot spend held window by window; returns the summary of its windows
+    after the burn-in (what ``run_region_sweep`` must return)."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    args = region_main_inputs()
+    lanes, slots = args[6].shape[0], BENCH_TOPOLOGY.total_slots
+    ladder_ms, _ = cuda_ms(lambda: window_slab_keys(args[3].key, len(plan)))
+    ms, (_, stats) = cuda_ms(lambda: sweep.region_event_windows(*args, plan))
+    b_ms, b_by = region_bound_ms(lanes, plan, region["n_cols"])
+    rate = lanes * sum(plan) / (ms / 1e3)
+    region.update(main_ms=ms, main_bound_ms=b_ms, main_bound_by=b_by,
+                  main_lane_events_per_s=rate, main_key_ladder_ms=ladder_ms)
+    print(f"region main-size kernel: {lanes} lanes × {sum(plan)} events, 4 "
+          f"regions, {slots} slots, G {sweep.group_size(slots)}, in "
+          f"{ms:.1f} ms = {rate:.4g} lane-events/s (bound {b_ms:.1f} ms, "
+          f"{b_by}: {100 * b_ms / ms:.1f}%); window-key ladder "
+          f"{ladder_ms:.3f} ms", flush=True)
+    # spot spend conservation, window by window, as the market's
+    price = BENCH_TOPOLOGY.prices().astype(np.float32).astype(np.float64)
+    legs = (stats.region_served + stats.region_preempted).cpu().numpy()
+    exact = (legs * price).sum(-1)
+    got = stats.spot_cost.cpu().numpy()
+    bound = legs.sum(-1) * np.spacing(got) / 2
+    if not np.all(np.abs(got - exact) <= bound):
+        bad = np.argwhere(np.abs(got - exact) > bound)[0]
+        raise AssertionError(f"region spend conservation: lane/window "
+                             f"{bad.tolist()}: {got[tuple(bad)]} against "
+                             f"{exact[tuple(bad)]}")
+    rel = np.abs(got - exact) / np.maximum(exact, 1e-30)
+    region.update(spend_max_rel=float(rel.max()),
+                  spend_max_of_bound=float((np.abs(got - exact)
+                                            / np.maximum(bound, 1e-30)).max()))
+    print(f"region spend conservation: every lane's float32 window sum "
+          f"within its rounding bound (n legs × half an ulp; at most "
+          f"{region['spend_max_of_bound']:.3f} of it), largest relative "
+          f"difference {rel.max():.3g}", flush=True)
+    return summarize_region(RegionWindowStats(*(x[:, 1:] for x in stats)))
+
+
+def phase_region_main_path(region: dict, kernel_summary: dict) -> None:
+    """The region main path through ``run_region_sweep``: the launch count
+    set to 0 just before the call and read just after; its result equal to
+    the summary of the kernel's own call on the same inputs
+    (``kernel_summary``), the per-lane accounting identities and the
+    preemption-priced pooled LP floor."""
+    sweep.region_event_windows.launches = 0
+    t0 = time.perf_counter()
+    out = run_region_sweep(BENCH_TOPOLOGY, REGION_KERNEL,
+                           {"r": R_GRID[:, None]}, k=K_GRID[None, :],
+                           n_events=N_EVENTS, key=threefry.key(MAIN_SEED),
+                           n_seeds=N_SEEDS, burn_in=BURN_IN)
+    wall = time.perf_counter() - t0
+    launches = sweep.region_event_windows.launches
+    region["launches"] = launches
+    if launches != 1:
+        raise AssertionError(f"region main path: run_region_sweep launched "
+                             f"the kernel {launches} times; expected 1")
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    region["run_region_sweep_s"] = wall
+    shape = (R_GRID.size, K_GRID.size, N_SEEDS)
+    for name, v in out.items():
+        want = shape + ((4,) if name.startswith("region_") else ())
+        if v.shape != want or not np.all(np.isfinite(v)):
+            raise AssertionError(f"region {name}: shape {v.shape} or "
+                                 f"non-finite")
+    for name, v in kernel_summary.items():
+        if not np.array_equal(out[name], v.reshape(out[name].shape)):
+            raise AssertionError(f"region main path: {name} differs from the "
+                                 f"kernel's own call")
+    admitted = out["region_routed"].sum(-1)
+    checks = {  # at every lane
+        "completed = served + on-demand + resumed": np.array_equal(
+            out["jobs_completed"],
+            out["spot_served"] + out["ondemand"] + out["resumed"]),
+        "spot_served = sum of region_served": np.array_equal(
+            out["spot_served"], out["region_served"].sum(-1)),
+        "jobs_arrived = sum of region_jobs": np.array_equal(
+            out["jobs_arrived"], out["region_jobs"].sum(-1)),
+        "routed_home <= admitted <= jobs_arrived": bool(np.all(
+            (out["routed_home"] <= admitted)
+            & (admitted <= out["jobs_arrived"])))}
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"region main path: {what} fails")
+    if not (out["preemptions"].sum() > 0 and out["resumed"].sum() > 0
+            and out["cross_region_frac"].sum() > 0):
+        raise AssertionError("region main path: no revocation, resume or "
+                             "cross-region admission")
+    k = np.broadcast_to(K_GRID[None, :, None], shape)
+    worst = np.inf
+    for idx in np.ndindex(*shape):
+        floor = region_knapsack_lp(float(k[idx]),
+                                   float(out["avg_delay_job"][idx]),
+                                   BENCH_TOPOLOGY,
+                                   include_preemption=True)["objective"]
+        margin = (out["avg_cost_job"][idx] - floor) / k[idx]
+        worst = min(worst, margin)
+        if margin < -0.005:
+            raise AssertionError(f"region LP floor: lane {idx}: "
+                                 f"avg_cost_job {out['avg_cost_job'][idx]:.5f}"
+                                 f" below the floor {floor:.5f}")
+    region["lp_floor_worst_margin_k"] = float(worst)
+    region["cross_region_frac_mean"] = float(out["cross_region_frac"].mean())
+    print(f"region main path: run_region_sweep {wall:.3f} s wall "
+          f"({lanes * (N_EVENTS + BURN_IN) / wall:.4g} lane-events/s), "
+          f"kernel launches {launches}, equal to the kernel's own call; "
+          f"{int(out['preemptions'].sum())} revocations, "
+          f"{int(out['resumed'].sum())} resumed, cross-region share "
+          f"{out['cross_region_frac'].mean():.4f} (mean); "
+          f"{', '.join(checks)} at every lane; avg_cost_job above the "
+          f"preemption-priced pooled LP floor at every lane's delay by at "
+          f"least {worst:.3e}·k (limit -5e-3·k)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2314,11 +2818,21 @@ def main() -> int:
     phase_market_width(market)
     phase_market_main_path(market, phase_market_main_kernel(market))
 
+    region = {"name": "sweep_region_event_windows", "route": "cuda",
+              "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
+              "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
+                          "src/repro/core/engine.py:2836 _region_event)",
+              "library_ms": None}
+    phase_region_parity()
+    phase_region_degenerate()
+    phase_region_width(region)
+    phase_region_main_path(region, phase_region_main_kernel(region))
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {
         k: v for k, v in e.items() if k not in keys}
-        for e in (entry, flash, decode, ssd, market)]
+        for e in (entry, flash, decode, ssd, market, region)]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

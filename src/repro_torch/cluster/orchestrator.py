@@ -4,10 +4,11 @@ The port of the JAX package's ``cluster/orchestrator.py`` as far as the
 serving frontend and the market use it: :class:`OnlineAdmissionController`
 admits each job to the spot queue with the Theorem-4 three-phase
 probability at the current cap ``r``, moves ``r`` by projected SGD on the
-windowed mean delay, and picks a spot pool for it (``choose_pool``, the
-host twin of the event loop's ``cheapest`` rule).  The region hook
-(``choose_region``), ``SpotCluster`` and ``MultiRegionCluster`` belong to
-later slices (ROADMAP.md Queue 1 item 13).
+windowed mean delay, picks a spot pool for it (``choose_pool``, the host
+twin of the event loop's ``cheapest`` rule) and routes it to a region
+(``choose_region``, the host twin of the deterministic routing rules).
+``SpotCluster`` and ``MultiRegionCluster`` belong to a later slice
+(ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 
 from repro_torch.core.policies import (ThreePhaseKernel, ThreePhasePolicy,
                                        three_phase_admit_prob)
+from repro_torch.core.regions import host_route
 
 
 class OnlineAdmissionController:
@@ -61,6 +63,15 @@ class OnlineAdmissionController:
                 raise RuntimeError("choose_pool: no pool alive")
             prices = np.where(alive, prices, np.inf)
         return int(np.argmin(prices))
+
+    def choose_region(self, topology, qlen_region, home: int = 0,
+                      rule: str = "cheapest", alive=None) -> int:
+        """The routing hook's host twin: the deterministic
+        :func:`repro_torch.core.regions.host_route` rules, with the region
+        health mask ``alive`` (failover as there)."""
+        return host_route(rule, prices=topology.prices(),
+                          rates=topology.rates(), qlens=qlen_region,
+                          home=home, alive=alive)
 
     def on_job_complete(self, delay: float) -> None:
         self._delays.append(delay)

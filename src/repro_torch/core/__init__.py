@@ -11,11 +11,14 @@ The single-queue slice of :mod:`repro.core`:
   * policy kernels       — :mod:`repro_torch.core.policies` (Theorem 4)
   * spot market          — :mod:`repro_torch.core.market` (pools, market
                            policy kernels, the notice law)
+  * regions              — :mod:`repro_torch.core.regions` (topologies,
+                           routing rules, ``RoutingKernel``)
   * sweep engine         — :mod:`repro_torch.core.engine` (``run_sweep``
                            runs a policy grid × seed fleet through the CUDA
                            batched-event kernel, :mod:`repro_torch.kernels.sweep`;
                            ``run_market_sweep`` the P-pool market through
-                           its market traversal)
+                           its market traversal, ``run_region_sweep``
+                           N-region routing through its region traversal)
 """
 from repro_torch.core.analytic import (
     mm1n_pi,
@@ -32,7 +35,8 @@ from repro_torch.core.arrivals import (
     Uniform,
     prob_A_le_S,
 )
-from repro_torch.core.cost import cost_lower_bound, theorem1_cost
+from repro_torch.core.cost import (cost_lower_bound, region_cost_lower_bound,
+                                   theorem1_cost, theorem1_region_cost)
 from repro_torch.core.engine import (
     DEFAULT_CHUNK_EVENTS,
     INT_STATS,
@@ -41,15 +45,22 @@ from repro_torch.core.engine import (
     WindowStats,
     MarketState,
     MarketWindowStats,
+    RegionState,
+    RegionWindowStats,
     init_engine_state,
     init_market_state,
+    init_region_state,
     run_market_sim,
     run_market_sweep,
+    run_region_sim,
+    run_region_sweep,
     run_sim,
     run_sweep,
     summarize,
     summarize_market,
+    summarize_region,
 )
+from repro_torch.core.lp import region_knapsack_lp
 from repro_torch.core.market import (
     NoticeAwareKernel,
     PanicKernel,
@@ -58,6 +69,16 @@ from repro_torch.core.market import (
     SpotPool,
     as_market,
     checkpoint_within_notice,
+)
+from repro_torch.core.regions import (
+    Region,
+    RegionTopology,
+    RegionView,
+    RoutingKernel,
+    as_topology,
+    choose_region,
+    choose_region_u,
+    host_route,
 )
 from repro_torch.core.policies import (
     SingleSlotKernel,
@@ -78,12 +99,17 @@ __all__ = [
     "DeterministicWait", "EngineState", "Exponential", "ExponentialWait",
     "Gamma", "INT_STATS", "InfiniteWait", "MarketState",
     "MarketWindowStats", "NonFiniteStatsError", "NoticeAwareKernel",
-    "PanicKernel", "PoolChoiceKernel", "SingleSlotKernel",
-    "SingleSlotPolicy", "SpotMarket", "SpotPool", "ThreePhaseKernel",
-    "ThreePhasePolicy", "TwoPointWait", "Uniform", "WindowStats",
-    "as_market", "checkpoint_within_notice", "cost_lower_bound",
-    "init_engine_state", "init_market_state", "mm1n_pi", "prob_A_le_S",
-    "run_market_sim", "run_market_sweep", "run_sim", "run_sweep",
-    "summarize", "summarize_market", "theorem1_cost", "theorem2_cost",
-    "theorem5_cost", "theorem5_delta", "three_phase_admit_prob",
+    "PanicKernel", "PoolChoiceKernel", "Region", "RegionState",
+    "RegionTopology", "RegionView", "RegionWindowStats", "RoutingKernel",
+    "SingleSlotKernel", "SingleSlotPolicy", "SpotMarket", "SpotPool",
+    "ThreePhaseKernel", "ThreePhasePolicy", "TwoPointWait", "Uniform",
+    "WindowStats", "as_market", "as_topology", "checkpoint_within_notice",
+    "choose_region", "choose_region_u", "cost_lower_bound", "host_route",
+    "init_engine_state", "init_market_state", "init_region_state",
+    "mm1n_pi", "prob_A_le_S", "region_cost_lower_bound",
+    "region_knapsack_lp", "run_market_sim", "run_market_sweep",
+    "run_region_sim", "run_region_sweep", "run_sim", "run_sweep",
+    "summarize", "summarize_market", "summarize_region", "theorem1_cost",
+    "theorem1_region_cost", "theorem2_cost", "theorem5_cost",
+    "theorem5_delta", "three_phase_admit_prob",
 ]

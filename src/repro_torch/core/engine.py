@@ -1,8 +1,9 @@
 """The spot/on-demand event engine, run as a (grid × seeds) fleet.
 
-Two traversals of one merged-renewal event loop: the single queue
-(``run_sweep``/``run_sim``) and the P-pool spot market
-(``run_market_sweep``/``run_market_sim``, the second half of this module).
+Three traversals of one merged-renewal event loop: the single queue
+(``run_sweep``/``run_sim``), the P-pool spot market
+(``run_market_sweep``/``run_market_sim``) and N-region routing
+(``run_region_sweep``/``run_region_sim``, the last part of this module).
 In the single queue each lane holds a job clock, a spot-slot
 clock and a queue of ``rmax`` slots; every event is the earliest of a job
 arrival, a spot slot and a wait deadline (ties resolve spot > deadline >
@@ -46,7 +47,9 @@ from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
                                      hazard_clock, process_udim,
                                      sample_clock_vector,
                                      sample_hazard_clocks, thinning_pick)
-from repro_torch.core.market import PanicKernel, PoolState, as_market
+from repro_torch.core.market import (PanicKernel, PoolChoiceKernel,
+                                     PoolState, as_market)
+from repro_torch.core.regions import RegionView, RoutingKernel, as_topology
 from repro_torch.core.policies import SingleSlotKernel
 from repro_torch.core.waittime import INF
 from repro_torch.device import resolve_device
@@ -306,20 +309,26 @@ def summarize(stats: WindowStats) -> dict:
     }
 
 
-def _resolve(device, impl: str | None, rng: str, job, spot, name: str):
-    """Check the static run options; return the device."""
+def _refuse_gamma(name: str, procs) -> None:
+    """The named error for a Gamma process among ``procs``."""
+    for proc in procs:
+        if isinstance(proc, Gamma):
+            raise NotImplementedError(
+                f"{name}: a Gamma process needs jax.random.gamma's rejection "
+                "sampler for its initial clock, which is not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
+
+
+def _resolve(device, impl: str | None, rng: str, name: str, procs=()):
+    """Check the static run options (a Gamma process among ``procs`` is
+    refused); return the device."""
     if rng == "split":
         raise NotImplementedError(
             f"{name}: rng='split' (the per-event key ladder) is not ported "
             "yet (ROADMAP.md Queue 1 item 7); the port runs rng='slab'")
     if rng != "slab":
         raise ValueError(f"{name}: unknown rng {rng!r} (expected 'slab')")
-    for proc in (job, spot):
-        if isinstance(proc, Gamma):
-            raise NotImplementedError(
-                f"{name}: a Gamma process needs jax.random.gamma's rejection "
-                "sampler for its initial clock, which is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
+    _refuse_gamma(name, procs)
     device = resolve_device(device, name)
     if impl is None:
         return device
@@ -401,7 +410,7 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     split), as in the JAX package.
     """
     params = {} if params is None else params
-    device = _resolve(device, impl, rng, job, spot, "run_sim")
+    device = _resolve(device, impl, rng, "run_sim", (job, spot))
     _check_run_shape("run_sim", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
     if grid_shape != ():
@@ -442,7 +451,7 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     ``grid_shape + (n_seeds,)``.
     """
     params = {} if params is None else params
-    device = _resolve(device, impl, rng, job, spot, "run_sweep")
+    device = _resolve(device, impl, rng, "run_sweep", (job, spot))
     _check_run_shape("run_sweep", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
     keys = threefry.split(key.to(device), n_seeds)
@@ -773,9 +782,12 @@ def _market_layout(job: ArrivalProcess, market, kernel,
 
 
 def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
-    """:func:`lane_params` of the single-queue kernel a market kernel
-    admits through (``PoolChoiceKernel``'s base, or a legacy kernel)."""
-    return lane_params(getattr(kernel, "base", kernel), params, k_cost)
+    """:func:`lane_params` of the single-queue kernel a market or region
+    kernel admits through (the base of a ``RoutingKernel`` and of a
+    ``PoolChoiceKernel``, or a legacy kernel)."""
+    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel)):
+        kernel = kernel.base
+    return lane_params(kernel, params, k_cost)
 
 
 def summarize_market(stats: MarketWindowStats) -> dict:
@@ -850,9 +862,10 @@ def _broadcast_market_params(market, overrides: dict,
                                     overrides, grid_shape)
 
 
-def _check_market_options(name: str, market, kernel, telemetry, env, work,
-                          shard: str = "none", mesh=None) -> None:
-    """Named errors for the market options the port does not serve yet."""
+def _check_options(name: str, procs, kernel, telemetry, env, work,
+                   shard: str = "none", mesh=None) -> None:
+    """Named errors for the market and region options the port does not
+    serve yet; ``procs`` are the run's arrival processes."""
     for axis, value, item in (("telemetry", telemetry, 10), ("env", env, 10),
                               ("work", work, 10)):
         if value is not None:
@@ -863,17 +876,19 @@ def _check_market_options(name: str, market, kernel, telemetry, env, work,
         raise NotImplementedError(
             f"{name}: shard={shard!r}/mesh= (lane sharding) is not ported "
             "yet (ROADMAP.md Queue 1 item 12)")
-    if isinstance(kernel, PanicKernel):
+    base = kernel.base if isinstance(kernel, RoutingKernel) else kernel
+    if isinstance(base, PanicKernel):
         raise NotImplementedError(
             f"{name}: PanicKernel repairs choices against pools that the "
             "environment timeline blacks out; env= is not ported yet "
             "(ROADMAP.md Queue 1 item 10)")
-    for pool in market.pools:
-        if isinstance(pool.arrival, Gamma):
-            raise NotImplementedError(
-                f"{name}: a Gamma spot pool needs jax.random.gamma's "
-                "rejection sampler for its initial clock, which is not "
-                "ported yet (ROADMAP.md Queue 1 item 7)")
+    _refuse_gamma(name, procs)
+
+
+def _check_market_options(name: str, market, kernel, telemetry, env, work,
+                          shard: str = "none", mesh=None) -> None:
+    _check_options(name, [p.arrival for p in market.pools], kernel,
+                   telemetry, env, work, shard, mesh)
 
 
 def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
@@ -891,9 +906,21 @@ def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
     return stats
 
 
-def _market_tensors(mp: dict, device) -> dict:
-    return {name: torch.from_numpy(np.array(v, np.float32)).to(device)
-            for name, v in mp.items()}
+def _one_lane(params: dict, device) -> dict:
+    """A single run's params as one lane: every leaf as it is given (a
+    ``(P,)`` pool_logits or ``(R,)`` region_logits too) with a lane axis
+    in front."""
+    return {n: _one_lane(v, device) if isinstance(v, dict) else
+            torch.from_numpy(np.array(v, np.float32)).to(device)[None]
+            for n, v in params.items()}
+
+
+def _config_tensors(cfg: dict, device) -> dict:
+    """A pools or regions config dict as tensors: int32 ``rmax``, float32
+    the rest."""
+    return {name: torch.from_numpy(np.array(
+        v, np.int32 if name == "rmax" else np.float32)).to(device)
+        for name, v in cfg.items()}
 
 
 def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
@@ -914,21 +941,15 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sim", market, kernel, telemetry, env,
                           work)
-    device = _resolve(device, impl, rng, job, market.pools[0].arrival,
-                      "run_market_sim")
+    device = _resolve(device, impl, rng, "run_market_sim", (job,))
     _check_run_shape("run_market_sim", n_events, burn_in)
     if np.ndim(k) != 0:
         raise ValueError(f"run_market_sim: k must be a scalar, got shape "
                          f"{np.shape(k)}")
 
-    def one_lane(p):  # leaves as given (a (P,) pool_logits too), one lane
-        return {n: one_lane(v) if isinstance(v, dict) else
-                torch.from_numpy(np.array(v, np.float32)).to(device)[None]
-                for n, v in p.items()}
-
-    params_f = one_lane(params)
+    params_f = _one_lane(params, device)
     k_f = torch.full((1,), np.float32(k), device=device)
-    mp = _market_tensors(_broadcast_market_params(market, {}, ()), device)
+    mp = _config_tensors(_broadcast_market_params(market, {}, ()), device)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     stats = _run_market_lanes(job, market, kernel, rmax, market.preemptible,
@@ -969,8 +990,7 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sweep", market, kernel, telemetry, env,
                           work, shard, mesh)
-    device = _resolve(device, impl, rng, job, market.pools[0].arrival,
-                      "run_market_sweep")
+    device = _resolve(device, impl, rng, "run_market_sweep", (job,))
     _check_run_shape("run_market_sweep", n_events, burn_in)
     _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
                          hazards=hazards, notices=notices,
@@ -984,7 +1004,7 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
         params, np.broadcast_to(k, np.broadcast_shapes(k.shape,
                                                        *override_shapes)),
         device)
-    mp = _market_tensors(_broadcast_market_params(market, overrides,
+    mp = _config_tensors(_broadcast_market_params(market, overrides,
                                                   grid_shape), device)
     preempt_on = market.preemptible or hazards is not None
     keys = threefry.split(key.to(device), n_seeds)
@@ -995,5 +1015,531 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     stats = _run_market_lanes(job, market, kernel, rmax, preempt_on, plan,
                               burn_in, params_l, mp_l, k_l, keys_l)
     out = summarize_market(stats)
+    return {name: v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
+            for name, v in out.items()}
+
+
+# ===========================================================================
+# N-region routing: per-region job and spot clocks, one superposed
+# preemption clock, a packed slot array with a static slot->region map
+# ===========================================================================
+#
+# The region loop widens the market: the job clock becomes an (R,) vector
+# too (a job arrives in the region whose clock fires, its *home*), and the
+# single queue becomes R partitions of rmax_r slots packed as one (Σ rmax_r)
+# array whose slot->region map is static (slots [offset_r, offset_r +
+# rmax_r) belong to region r).  A kernel's ``route_u`` hook picks the job's
+# target region; the admission law then runs against the target's queue
+# length and the job joins the first free slot of the target's partition
+# (a full partition rejects to on-demand even while another has room).  A
+# region's spot slot serves the FIFO-oldest job of its partition; a
+# revocation (the superposed clock, its region picked by thinning) hits the
+# FIFO-oldest job of the revoked region's partition.  Ties resolve spot >
+# preempt > deadline > job, ties between regions to the lowest index.  A
+# one-region topology without a ``route`` hook reduces bitwise to the
+# single queue (unit price, no hazard) or the 1-pool market.
+
+
+class RegionWindowStats(NamedTuple):
+    """Per-window region accumulators, one per lane: the ten
+    :class:`WindowStats` fields, the market's ``resumed``/``spot_cost``,
+    ``routed_home`` and five ``(lanes, R)`` counters.  ``region_jobs``
+    counts arrivals by home region, ``region_routed`` admissions by target
+    region."""
+
+    jobs_arrived: torch.Tensor
+    jobs_completed: torch.Tensor
+    spot_served: torch.Tensor
+    ondemand: torch.Tensor
+    cost_sum: torch.Tensor
+    delay_sum: torch.Tensor
+    time_elapsed: torch.Tensor
+    empty_time: torch.Tensor
+    spot_arrivals: torch.Tensor
+    spot_found_empty: torch.Tensor
+    resumed: torch.Tensor  # i32 revoked legs that checkpointed and re-queued
+    spot_cost: torch.Tensor  # f32 paid to region spot, partial legs included
+    routed_home: torch.Tensor  # i32 admissions whose target is the home
+    region_served: torch.Tensor  # (lanes, R) i32 completions per region
+    region_spot_arrivals: torch.Tensor  # (lanes, R) i32 slots per region
+    region_preempted: torch.Tensor  # (lanes, R) i32 revocations per region
+    region_jobs: torch.Tensor  # (lanes, R) i32 arrivals per home region
+    region_routed: torch.Tensor  # (lanes, R) i32 admissions per target
+
+    @staticmethod
+    def zeros(lanes: int, n_regions: int, device) -> "RegionWindowStats":
+        z = torch.zeros(lanes, dtype=torch.float32, device=device)
+        zi = torch.zeros(lanes, dtype=torch.int32, device=device)
+        zr = torch.zeros(lanes, n_regions, dtype=torch.int32, device=device)
+        return RegionWindowStats(zi, zi, zi, zi, z, z, z, z, zi, zi, zi, z,
+                                 zi, zr, zr, zr, zr, zr)
+
+
+_REGION_FIELDS = frozenset({"region_served", "region_spot_arrivals",
+                            "region_preempted", "region_jobs",
+                            "region_routed"})
+#: region statistics that count events (bitwise across executors)
+REGION_INT_STATS = INT_STATS + ("resumed", "routed_home", "preemptions",
+                                "spot_arrivals", "spot_found_empty") \
+    + tuple(sorted(_REGION_FIELDS))
+
+
+class RegionState(NamedTuple):
+    """Per-lane region state; leaves lead with the lane axis (S = Σ
+    rmax_r)."""
+
+    key: torch.Tensor  # (lanes, 2) threefry key words
+    next_job: torch.Tensor  # (lanes, R) per-region job clocks
+    next_spot: torch.Tensor  # (lanes, R) per-region spot-slot clocks
+    next_preempt: torch.Tensor  # the superposed preemption clock (INF = never)
+    ages: torch.Tensor  # (lanes, S) packed slots
+    budgets: torch.Tensor  # (lanes, S)
+    occ: torch.Tensor  # (lanes, S) bool
+    order: torch.Tensor  # (lanes, S) int32 join sequence number
+    next_seq: torch.Tensor  # int32
+    qlen: torch.Tensor  # (lanes, R) int32 queued jobs per region
+
+
+def _slot_region_iota(topo, iota_s: torch.Tensor) -> torch.Tensor:
+    """The static slot->region map: the number of partition offsets at or
+    below each slot."""
+    reg = torch.zeros_like(iota_s)
+    for off in topo.slot_offsets()[1:]:
+        reg = reg + (iota_s >= int(off)).to(iota_s.dtype)
+    return reg
+
+
+def init_region_state(key: torch.Tensor, topo, rp: dict,
+                      preempt_on: bool) -> RegionState:
+    """Initial state of each ``(lanes, 2)`` key under the per-lane
+    regions-config ``rp`` (``(lanes, R)`` leaves).  As the JAX package's
+    ``init_region_state(..., scalar_preempt=True)``: the job, spot and lane
+    keys are the three subkeys of a split; the regions' job and spot clocks
+    come from ``fold_in(key, tag)`` (the key itself for one region), and
+    the superposed preemption clock is the least of the per-region hazard
+    draws under ``fold_in(spot key, 2**31 - 1)``."""
+    ks3 = threefry.split(key, 3)
+    kj, ks = ks3[:, 0], ks3[:, 1]
+    lanes, device = key.shape[0], key.device
+    s = topo.total_slots
+    if preempt_on:
+        next_preempt = sample_hazard_clocks(
+            topo.tags, threefry.fold_in(ks, 2**31 - 1),
+            rp["hazard"]).min(dim=-1).values
+    else:
+        next_preempt = torch.full((lanes,), INF, dtype=torch.float32,
+                                  device=device)
+    return RegionState(
+        key=ks3[:, 2],
+        next_job=sample_clock_vector(tuple(r.job for r in topo.regions),
+                                     topo.tags, kj, rp["job_scale"]),
+        next_spot=sample_clock_vector(tuple(r.spot for r in topo.regions),
+                                      topo.tags, ks, rp["spot_scale"]),
+        next_preempt=next_preempt,
+        ages=torch.zeros(lanes, s, dtype=torch.float32, device=device),
+        budgets=torch.full((lanes, s), INF, dtype=torch.float32,
+                           device=device),
+        occ=torch.zeros(lanes, s, dtype=torch.bool, device=device),
+        order=torch.zeros(lanes, s, dtype=torch.int32, device=device),
+        next_seq=torch.zeros(lanes, dtype=torch.int32, device=device),
+        qlen=torch.zeros(lanes, topo.n_regions, dtype=torch.int32,
+                         device=device),
+    )
+
+
+def _kernel_region_admit_slab(kernel, params, qlen_t, view: RegionView,
+                              layout: SlabLayout, x):
+    """(admit?, budget) against the target's queue length: a market
+    kernel's ``admit_market_u`` sees the regions as its pools (its pool
+    choice is ignored: the route decides), a single-queue kernel's
+    ``admit_u`` runs as it is."""
+    u = layout.uniforms(x, layout.admit)
+    if layout.market_admit:
+        ps = PoolState(price=view.price, hazard=view.hazard,
+                       notice=view.notice, rate=view.rate,
+                       qlen_pool=view.qlen_region)
+        admit, budget, _pool = kernel.admit_market_u(params, qlen_t, ps, u)
+        return admit, budget
+    return kernel.admit_u(params, qlen_t, u)
+
+
+def _kernel_route_slab(kernel, params, qlens, view: RegionView,
+                       layout: SlabLayout, x):
+    return kernel.route_u(params, qlens, view,
+                          layout.uniforms(x, layout.route))
+
+
+def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
+                  carry: RegionState, stats: RegionWindowStats, params: dict,
+                  rp: dict, k_cost: torch.Tensor, x: torch.Tensor
+                  ) -> tuple[RegionState, RegionWindowStats]:
+    """One merged event (job arrival in some region / region spot slot /
+    region preemption / wait deadline) for every lane; ``x`` is this
+    event's slab row.  The JAX package's ``_region_event`` on the slab
+    stream, without its telemetry, environment and work branches."""
+    device = carry.ages.device
+    iota_s = torch.arange(topo.total_slots, device=device)
+    iota_r = torch.arange(topo.n_regions, device=device)
+    slot_region = _slot_region_iota(topo, iota_s)
+    price, hazard = rp["price"], rp["hazard"]
+
+    budgets_masked = torch.where(carry.occ, carry.budgets, INF)
+    deadline, defect_slot = torch.min(budgets_masked, dim=1)
+    min_job, home = torch.min(carry.next_job, dim=1)
+    min_spot, spot_region = torch.min(carry.next_spot, dim=1)
+    home = home.to(torch.int32)
+    if preempt_on:
+        min_pre = carry.next_preempt
+        pre_region = thinning_pick(hazard,
+                                   layout.uniforms(x, layout.preempt)[:, 1])
+        dt = torch.minimum(torch.minimum(min_job, min_spot),
+                           torch.minimum(deadline, min_pre))
+        is_spot = min_spot <= torch.minimum(min_job,
+                                            torch.minimum(deadline, min_pre))
+        is_pre = (~is_spot) & (min_pre <= torch.minimum(min_job, deadline))
+        is_deadline = (~is_spot) & (~is_pre) & (deadline <= min_job)
+        is_job = (~is_spot) & (~is_pre) & (~is_deadline)
+    else:
+        dt = torch.minimum(torch.minimum(min_job, min_spot), deadline)
+        is_spot = min_spot <= torch.minimum(min_job, deadline)
+        is_pre = torch.zeros_like(is_spot)
+        is_deadline = (~is_spot) & (deadline <= min_job)
+        is_job = (~is_spot) & (~is_deadline)
+
+    ages = carry.ages + dt[:, None]
+    budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
+
+    # ---- job arrival in region `home`: route, then the admission law ----
+    view = RegionView(
+        home=home, price=price, hazard=hazard, notice=rp["notice"],
+        rate=rp["rate"] / rp["spot_scale"],
+        job_rate=rp["job_rate"] / rp["job_scale"],
+        qlen_region=carry.qlen,
+        free_slots=torch.clamp_min(rp["rmax"] - carry.qlen, 0))
+    if hasattr(kernel, "route"):
+        target = _kernel_route_slab(kernel, params, carry.qlen, view, layout,
+                                    x).to(torch.int32)
+    else:
+        target = home
+    qlen_t = _pick(carry.qlen, target)
+    rmax_t = _pick(rp["rmax"], target)
+    admit_raw, budget = _kernel_region_admit_slab(kernel, params, qlen_t,
+                                                  view, layout, x)
+    admit = is_job & admit_raw & (qlen_t < rmax_t)
+    od_now = is_job & (~admit)
+    target_mask = slot_region == target[:, None]
+    join_slot = torch.argmin(torch.where(target_mask,
+                                         carry.occ.to(torch.int32), 2), dim=1)
+
+    # ---- region spot slot: serve the FIFO-oldest job queued there ----
+    eligible_s = carry.occ & (slot_region == spot_region[:, None])
+    serve_slot = torch.argmin(torch.where(eligible_s, carry.order,
+                                          _ORDER_MAX), dim=1)
+    has_elig = eligible_s.any(dim=1)
+    served = is_spot & has_elig
+    wait_served = torch.where(iota_s == serve_slot[:, None], ages,
+                              0.0).sum(1)
+    price_s = _pick(price, spot_region)
+
+    # ---- region preemption: revoke the FIFO-oldest job queued there ----
+    no = torch.zeros_like(is_spot)
+    if preempt_on:
+        eligible_p = carry.occ & (slot_region == pre_region[:, None])
+        pre_slot = torch.argmin(torch.where(eligible_p, carry.order,
+                                            _ORDER_MAX), dim=1)
+        pre_hit = is_pre & eligible_p.any(dim=1)
+        age_pre = torch.where(iota_s == pre_slot[:, None], ages, 0.0).sum(1)
+        # re-admission sees the region's queue without the revoked job
+        qlen_wo = torch.clamp_min(_pick(carry.qlen, pre_region) - 1, 0)
+        resume_raw = _kernel_on_preempt_slab(
+            kernel, params, age_pre, _pick(rp["notice"], pre_region),
+            qlen_wo, layout, x)
+        resume = pre_hit & resume_raw
+        defect_pre = pre_hit & (~resume)
+        price_p = _pick(price, pre_region)
+    else:
+        pre_region = pre_slot = torch.zeros_like(spot_region)
+        pre_hit = resume = defect_pre = no
+        age_pre = price_p = torch.zeros_like(dt)
+
+    # ---- deadline: the minimal-budget job defects to on-demand ----
+    defected = is_deadline
+    age_defect = torch.where(iota_s == defect_slot[:, None], ages,
+                             0.0).sum(1)
+
+    leave = served | defected | defect_pre
+    leave_slot = torch.where(served, serve_slot,
+                             torch.where(defected, defect_slot, pre_slot))
+    leave_region = slot_region[leave_slot]
+    join_mask = admit[:, None] & (iota_s == join_slot[:, None])
+    leave_mask = leave[:, None] & (iota_s == leave_slot[:, None])
+    resume_mask = resume[:, None] & (iota_s == pre_slot[:, None])
+    budget = torch.as_tensor(budget, dtype=torch.float32, device=device)
+    budget = budget[:, None] if budget.dim() else budget
+    ages = torch.where(join_mask | resume_mask, 0.0, ages)
+    budgets = torch.where(join_mask, budget,
+                          torch.where(resume_mask, INF, budgets))
+    occ = (carry.occ | join_mask) & (~leave_mask)
+    order = torch.where(join_mask | resume_mask, carry.next_seq[:, None],
+                        carry.order)
+
+    fire_j = is_job[:, None] & (iota_r == home[:, None])
+    fire_s = is_spot[:, None] & (iota_r == spot_region[:, None])
+    # every region's draw transforms the same columns (only the firing
+    # region's is kept)
+    u_job = layout.uniforms(x, layout.job)
+    u_spot = layout.uniforms(x, layout.spot)
+    job_draws = torch.stack([r.job.sample_u(u_job) for r in topo.regions],
+                            dim=-1) * rp["job_scale"]
+    spot_draws = torch.stack([r.spot.sample_u(u_spot)
+                              for r in topo.regions], dim=-1) \
+        * rp["spot_scale"]
+    next_job = torch.where(fire_j, job_draws, carry.next_job - dt[:, None])
+    next_spot = torch.where(fire_s, spot_draws,
+                            carry.next_spot - dt[:, None])
+    if preempt_on:
+        # the superposed clock is drawn afresh whenever any region fires
+        next_preempt = torch.where(
+            is_pre, hazard_clock(hazard,
+                                 layout.uniforms(x, layout.preempt)[:, 0]),
+            carry.next_preempt - dt)
+    else:
+        next_preempt = carry.next_preempt
+
+    i32 = lambda b: b.to(torch.int32)  # noqa: E731
+    to_target = admit[:, None] & (iota_r == target[:, None])
+    new_carry = RegionState(
+        key=carry.key,  # advanced once per window by the slab generator
+        next_job=next_job,
+        next_spot=next_spot,
+        next_preempt=next_preempt,
+        ages=ages,
+        budgets=budgets,
+        occ=occ,
+        order=order,
+        next_seq=carry.next_seq + i32(admit | resume),
+        qlen=carry.qlen + i32(to_target)
+        - i32(leave[:, None] & (iota_r == leave_region[:, None])),
+    )
+    od_any = od_now | defected | defect_pre
+    new_stats = RegionWindowStats(
+        jobs_arrived=stats.jobs_arrived + i32(is_job),
+        jobs_completed=stats.jobs_completed + i32(od_any | served | resume),
+        spot_served=stats.spot_served + i32(served),
+        ondemand=stats.ondemand + i32(od_any),
+        cost_sum=stats.cost_sum + torch.where(served, price_s, 0.0)
+        + torch.where(od_any, k_cost, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        delay_sum=stats.delay_sum + torch.where(served, wait_served, 0.0)
+        + torch.where(defected, age_defect, 0.0)
+        + torch.where(pre_hit, age_pre, 0.0),
+        time_elapsed=stats.time_elapsed + dt,
+        empty_time=stats.empty_time
+        + torch.where(carry.qlen.sum(dim=1) == 0, dt, 0.0),
+        spot_arrivals=stats.spot_arrivals + i32(is_spot),
+        spot_found_empty=stats.spot_found_empty + i32(is_spot & (~has_elig)),
+        resumed=stats.resumed + i32(resume),
+        spot_cost=stats.spot_cost + torch.where(served, price_s, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        routed_home=stats.routed_home + i32(admit & (target == home)),
+        region_served=stats.region_served + i32(fire_s & served[:, None]),
+        region_spot_arrivals=stats.region_spot_arrivals + i32(fire_s),
+        region_preempted=stats.region_preempted
+        + i32(pre_hit[:, None] & (iota_r == pre_region[:, None])),
+        region_jobs=stats.region_jobs + i32(fire_j),
+        region_routed=stats.region_routed + i32(to_target),
+    )
+    return new_carry, new_stats
+
+
+def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
+    """Slab column map for the region loop: the job and spot spans are the
+    largest ``u_dim`` across the regions (every region transforms the same
+    uniforms)."""
+    layout = build_slab_layout(
+        kernel, job_udim=max(process_udim(r.job) for r in topo.regions),
+        spot_udim=max(process_udim(r.spot) for r in topo.regions),
+        n=topo.n_regions, preempt_on=preempt_on,
+        has_route=hasattr(kernel, "route"), market=True)
+    if "key" in (layout.admit_mode, layout.on_preempt_mode,
+                 layout.route_mode):
+        raise NotImplementedError(
+            f"{kernel!r} has no slab hook for its admission, revocation or "
+            "routing (*_u with slab_cols); kernels without one need the "
+            "split stream, which is not ported yet (ROADMAP.md Queue 1 "
+            "item 7)")
+    return layout
+
+
+def summarize_region(stats: RegionWindowStats) -> dict:
+    """:func:`summarize`'s dict plus the region's: preemptions, resumed
+    legs, spot spend, per-job averages over final completions, the routing
+    flow (``routed_home``, ``cross_region_frac``: the share of admissions
+    sent away from home) and per-region arrays (a trailing region axis).
+    Scalar fields reduce the last (window) axis, region fields the one
+    before it."""
+    out = summarize(WindowStats(*stats[:len(WindowStats._fields)]))
+
+    def red(name):
+        x = getattr(stats, name)
+        axis = -2 if name in _REGION_FIELDS else -1
+        return np.asarray(x.cpu(), np.float64).sum(axis=axis)
+
+    routed_home = red("routed_home")
+    region_served = red("region_served")
+    region_arrivals = red("region_spot_arrivals")
+    region_preempted = red("region_preempted")
+    region_routed = red("region_routed")
+    final = np.maximum(red("spot_served") + red("ondemand"), 1.0)
+    admitted = region_routed.sum(axis=-1)
+    cross = np.where(admitted > 0,
+                     1.0 - routed_home / np.maximum(admitted, 1.0), 0.0)
+    out.update({
+        "preemptions": region_preempted.sum(axis=-1),
+        "resumed": red("resumed"),
+        "spot_cost": red("spot_cost"),
+        "avg_cost_job": red("cost_sum") / final,
+        "avg_delay_job": red("delay_sum") / final,
+        "routed_home": routed_home,
+        "cross_region_frac": cross,
+        "region_served": region_served,
+        "region_spot_arrivals": region_arrivals,
+        "region_preempted": region_preempted,
+        "region_jobs": red("region_jobs"),
+        "region_routed": region_routed,
+        "region_utilization": region_served / np.maximum(region_arrivals,
+                                                         1.0),
+    })
+    return out
+
+
+def _run_region_lanes(topo, kernel, preempt_on, plan, burn_in, params, rp,
+                      k_cost, keys) -> RegionWindowStats:
+    """Flat region lanes through the executor of their device; returns
+    (lanes, windows[, R]) stats without the burn-in window."""
+    from repro_torch.kernels.sweep import region_events
+
+    state0 = init_region_state(keys, topo, rp, preempt_on)
+    _, stats = region_events(topo, kernel, preempt_on, state0,
+                             market_lane_params(kernel, params, k_cost), rp,
+                             k_cost, plan)
+    if burn_in:
+        stats = RegionWindowStats(*(x[:, 1:] for x in stats))
+    return stats
+
+
+def _check_region_run(name: str, topo, kernel, telemetry, env, work, shard,
+                      mesh, device, impl, rng, n_events, burn_in):
+    """The options checks of the two region entry points; returns the
+    device."""
+    _check_options(name, [p for r in topo.regions for p in (r.job, r.spot)],
+                   kernel, telemetry, env, work, shard, mesh)
+    device = _resolve(device, impl, rng, name)
+    _check_run_shape(name, n_events, burn_in)
+    return device
+
+
+def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
+                   n_events: int, key: torch.Tensor, burn_in: int = 0,
+                   chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
+                   impl: str | None = None, rng: str = "slab",
+                   telemetry=None, env=None, work=None, device=None) -> dict:
+    """Run one routing policy on one topology; long-run stats (floats, and
+    ``(R,)`` arrays for the region fields).
+
+    A one-lane :func:`run_region_sweep` whose lane key is ``key`` itself,
+    under the topology's own regions config; ``params`` leaves are taken
+    as they are (a ``(R,)`` ``region_logits`` is one lane's logits).
+    A degenerate topology with a kernel without ``route`` reproduces
+    :func:`run_sim` bitwise.  ``device``, ``impl`` and ``rng`` as in
+    :func:`run_sim`.
+    """
+    topology = as_topology(topology)
+    params = {} if params is None else params
+    device = _check_region_run("run_region_sim", topology, kernel, telemetry,
+                               env, work, "none", None, device, impl, rng,
+                               n_events, burn_in)
+    if np.ndim(k) != 0:
+        raise ValueError(f"run_region_sim: k must be a scalar, got shape "
+                         f"{np.shape(k)}")
+
+    rp = _config_tensors(_broadcast_config_params(
+        topology.n_regions, topology.params(), {}, ()), device)
+    chunk = n_events if chunk_events is None else min(chunk_events, n_events)
+    plan = _window_plan(n_events, chunk, burn_in)
+    stats = _run_region_lanes(
+        topology, kernel, topology.preemptible, plan, burn_in,
+        _one_lane(params, device), rp,
+        torch.full((1,), np.float32(k), device=device),
+        key.to(device)[None])
+    out = summarize_region(RegionWindowStats(*(x[0] for x in stats)))
+    return {name: float(v) if np.ndim(v) == 0 else v
+            for name, v in out.items()}
+
+
+def run_region_sweep(topology, kernel, params=None, *, k=10.0,
+                     vector_params=None, prices=None, hazards=None,
+                     notices=None, spot_scales=None, job_scales=None,
+                     n_events: int, key: torch.Tensor, n_seeds: int = 1,
+                     burn_in: int = 0,
+                     chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
+                     impl: str | None = None, rng: str = "slab",
+                     telemetry=None, env=None, work=None,
+                     shard: str = "none", mesh=None, device=None) -> dict:
+    """Run a (params × k × regions-config × seeds) region grid in one
+    executor call.
+
+    ``params`` leaves and ``k`` broadcast to a grid as in
+    :func:`run_sweep`.  ``vector_params`` holds kernel params whose last
+    axis is carried into every grid point: an ``(m,)`` leaf fixes one
+    vector, a ``grid_shape + (m,)`` leaf sweeps it (``{"region_logits":
+    logits}`` for the weighted rule).  ``prices``/``hazards``/``notices``/
+    ``spot_scales``/``job_scales`` override the topology's regions config
+    per grid point: a scalar fills every region, an ``(R,)`` vector fixes
+    one config, a ``grid_shape + (R,)`` array sweeps it.  A ``hazards``
+    override turns the preemption path on.  ``device``, ``impl`` and
+    ``rng`` as in :func:`run_sweep`: a GPU fleet runs the hand-written
+    region kernel, a CPU fleet its plain version.  ``telemetry``, ``env``,
+    ``work`` and ``shard`` are not ported and raise.
+
+    Returns :func:`summarize_region`'s dict: scalar statistics shaped
+    ``grid_shape + (n_seeds,)``, region statistics ``grid_shape +
+    (n_seeds, R)``.
+    """
+    topology = as_topology(topology)
+    n = topology.n_regions
+    params = {} if params is None else params
+    device = _check_region_run("run_region_sweep", topology, kernel,
+                               telemetry, env, work, shard, mesh, device,
+                               impl, rng, n_events, burn_in)
+    _check_loc_overrides("run_region_sweep", n, "region", prices=prices,
+                         hazards=hazards, notices=notices,
+                         spot_scales=spot_scales, job_scales=job_scales)
+    overrides = {"price": prices, "hazard": hazards, "notice": notices,
+                 "spot_scale": spot_scales, "job_scale": job_scales}
+    vparams = {name: np.asarray(v, np.float32)
+               for name, v in (vector_params or {}).items()}
+    carried = [np.shape(v)[:-1] for v in overrides.values()
+               if v is not None and np.ndim(v) > 1]
+    carried += [v.shape[:-1] for v in vparams.values()]
+    k = np.asarray(k, np.float32)
+    params_f, k_f, grid_shape = _lane_tensors(
+        params, np.broadcast_to(k, np.broadcast_shapes(k.shape, *carried)),
+        device)
+    for name, v in vparams.items():
+        v = np.broadcast_to(v, grid_shape + v.shape[-1:])
+        params_f[name] = torch.from_numpy(
+            v.reshape(-1, v.shape[-1]).copy()).to(device)
+    rp = _config_tensors(_broadcast_config_params(
+        n, topology.params(), overrides, grid_shape), device)
+    preempt_on = topology.preemptible or hazards is not None
+    keys = threefry.split(key.to(device), n_seeds)
+    params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
+    rp_l = _flat_lane_args(rp, k_f, keys)[0]
+    chunk = n_events if chunk_events is None else min(chunk_events, n_events)
+    plan = _window_plan(n_events, chunk, burn_in)
+    stats = _run_region_lanes(topology, kernel, preempt_on, plan, burn_in,
+                              params_l, rp_l, k_l, keys_l)
+    out = summarize_region(stats)
     return {name: v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
             for name, v in out.items()}

@@ -1,12 +1,14 @@
 // Batched-event kernels for the spot/on-demand event loops, written by
 // hand for Hopper (sm_90a): sweep_kernel runs the single queue,
-// market_kernel (below) the P-pool spot market.
+// market_kernel (below) the P-pool spot market, region_kernel (last)
+// N-region routing.
 //
 // Replaces repro/kernels/sweep/sweep.py::batched_event_windows, the Pallas
-// kernel behind the JAX package's impl="pallas" executor, for two of the
+// kernel behind the JAX package's impl="pallas" executor, for three of the
 // event bodies it runs on the slab stream: the single queue
-// (repro/core/engine.py::_engine_event) and the market
-// (repro/core/engine.py::_market_event).  Their plain PyTorch versions are
+// (repro/core/engine.py::_engine_event), the market
+// (repro/core/engine.py::_market_event) and the regions
+// (repro/core/engine.py::_region_event).  Their plain PyTorch versions are
 // in ../ref.py; the ctypes wrappers in ../sweep.py.
 //
 // What bounds it: integer and FP32 instruction issue, not bytes.  A
@@ -1106,6 +1108,586 @@ cudaError_t market_launch_g(const MArgs& a, int group, int spt,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// N-region routing (repro/core/engine.py::_region_event on the slab stream;
+// plain version ../ref.py::region_event_windows_ref, wrapper
+// ../sweep.py::region_event_windows)
+// ---------------------------------------------------------------------------
+// The market's design one level up: a lane on G threads, its slot state in
+// registers across windows, the slab drawn a pass ahead into shared memory
+// and every draw the event chain needs sampled there first.  What the
+// region loop adds a lane-event: R job clocks beside the R spot clocks
+// (registers, the same on every thread of the group), each merged by an
+// argmin whose ties go to the lowest region; a static, ragged slot
+// partition (region r owns slots [offset_r, offset_r + rmax_r) of the
+// packed array; the R + 1 offsets are a run constant in the lane's shared
+// table), so that the two masked FIFO reductions and the join take the
+// region's slot bits, two offsets and a few integer operations a thread,
+// where the market reads a tag a slot; routing before admission (cheapest
+// and fastest fixed a lane, least_loaded an argmin over the per-region
+// queue lengths, uniform and weighted drawn in the sample pass); admission
+// against the target region's queue length and capacity, into the first
+// free slot of its partition; the per-region queue lengths kept by
+// increments; five per-region counters on the thread that owns the region
+// (region q on thread q % G).  Every region's job (and spot) draw
+// transforms the same slab columns, scaled by its job (spot) scale, all in
+// the sample pass.  R is a bound of the run (at most kMaxRegions) with
+// unrolled, guarded loops, as the market's P, so the library holds the same
+// seven (G, SPT) builds.
+constexpr int kMaxRegions = 8;
+// floats an event's samples take: wait budget, route (int bits), revoked
+// region (int bits), preemption clock, R job draws, R spot draws
+constexpr int kREv = 4 + 2 * kMaxRegions;
+constexpr int kRSampleStride = kMarketPass * kREv + 1;
+// a lane's region table: price, job scale, spot scale, the hazards'
+// running sums and logits (kMaxRegions each), then the R + 1 partition
+// offsets (int bits)
+constexpr int kRTab = 5 * kMaxRegions + kMaxRegions + 1;
+
+struct RArgs {
+  // initial state, per lane (clocks and queue lengths lanes x R, slot
+  // arrays lanes x S, S the sum of the regions' rmax)
+  const float* next_job0;
+  const float* next_spot0;
+  const float* next_pre0;
+  const float* ages0;
+  const float* budgets0;
+  const uint8_t* occ0;
+  const int32_t* order0;
+  const int32_t* next_seq0;
+  const int32_t* qlen0;
+  const uint32_t* win_keys;  // lanes x windows x 2
+  const int32_t* plan;
+  const float* k_cost;  // per lane
+  const float* pa;      // per lane: r, or the wait family's first param
+  const float* pb;      // per lane: the wait family's second param
+  const float* ckpt;    // per lane: checkpoint time (notice-aware kernels)
+  // the regions config, lanes x R each (logits only for the weighted rule)
+  const float* price;
+  const float* hazard;
+  const float* notice;
+  const float* rate;
+  const float* spot_scale;
+  const float* job_scale;
+  const float* logits;
+  // final state
+  float* next_job;
+  float* next_spot;
+  float* next_pre;
+  float* ages;
+  float* budgets;
+  uint8_t* occ;
+  int32_t* order;
+  int32_t* next_seq;
+  int32_t* qlen;
+  int32_t* istats;  // 8 x lanes x windows
+  float* fstats;    // 5 x lanes x windows
+  int32_t* rstats;  // 5 x lanes x windows x R
+  int lanes, n_slots, n_windows, n_cols, n_regions;
+  int admit_code, wait_code, route_code, resume_code, preempt_on;
+  int any_exp_job, any_exp_spot;
+  int job_col, spot_col, admit_col, route_col, pre_col, onpre_col;
+  int offset[kMaxRegions + 1];
+  int job_code[kMaxRegions], job_n[kMaxRegions];
+  int spot_code[kMaxRegions], spot_n[kMaxRegions];
+  float job_c[kMaxRegions][4], spot_c[kMaxRegions][4];
+};
+
+// v[i] of a region vector held in registers (i the same on every thread)
+template <typename T>
+__device__ __forceinline__ T region_value(const T (&v)[kMaxRegions], int i) {
+  T out = v[0];
+#pragma unroll
+  for (int r = 1; r < kMaxRegions; ++r)
+    if (r == i) out = v[r];
+  return out;
+}
+
+// this thread's slot bits (bit j: slot s0 + j) in region r's partition
+template <int SPT>
+__device__ __forceinline__ unsigned region_bits(const int* off, int r,
+                                                int s0) {
+  const int lo = min(max(off[r] - s0, 0), SPT);
+  const int hi = min(max(off[r + 1] - s0, 0), SPT);
+  return ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// the samples of the pass's n events (kREv floats each in x_s) from their
+// slab rows in u_s; thread t takes events t, t + G, ...
+template <int G>
+__device__ __forceinline__ void region_sample_pass(
+    float* x_s, const float* u_s, const float* tab, int n, int nc,
+    const RArgs& a, float pa, float pb, int t) {
+  const int R = a.n_regions;
+  for (int e = t; e < n; e += G) {
+    const float* u = u_s + e * nc;
+    float* x = x_s + e * kREv;
+    const int off[1] = {e * nc};
+    float out[1] = {kInf};
+    if (a.admit_code == kSingleSlotAdmit)
+      sample_waits<1>(a.wait_code, pa, pb, u_s, off, a.admit_col, out);
+    x[0] = out[0];
+    int route = 0;
+    if (a.route_code == kUniformChoice) {
+      route = min(static_cast<int>(u[a.route_col] * static_cast<float>(R)),
+                  R - 1);
+    } else if (a.route_code == kWeighted) {
+      float best = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxRegions; ++r) {
+        if (r < R) {
+          const float g =
+              -logf(-logf(fmaxf(u[a.route_col + r], 1e-12f)));
+          const float v = tab[4 * kMaxRegions + r] + g;
+          if (r == 0 || v > best) {
+            best = v;
+            route = r;
+          }
+        }
+      }
+    }
+    x[1] = __int_as_float(route);
+    if (a.preempt_on) {
+      const float total = tab[3 * kMaxRegions + R - 1];
+      const float xu = u[a.pre_col + 1] * total;
+      int pick = 0;
+#pragma unroll
+      for (int r = 0; r < kMaxRegions - 1; ++r)
+        if (r < R - 1) pick += xu >= tab[3 * kMaxRegions + r];
+      x[2] = __int_as_float(min(pick, R - 1));
+      x[3] = total > 0.f ? exp_from_u(u[a.pre_col]) / fmaxf(total, 1e-30f)
+                         : kInf;
+    }
+    // every region transforms the same job (spot) columns
+    const float unit_job = a.any_exp_job ? exp_from_u(u[a.job_col]) : 0.f;
+    const float unit_spot = a.any_exp_spot ? exp_from_u(u[a.spot_col]) : 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxRegions; ++r) {
+      if (r < R) {
+        float d;
+        if (a.job_code[r] == kExponential) {
+          d = unit_job * a.job_c[r][0];
+        } else {
+          sample_arrivals<1>(a.job_code[r], a.job_c[r], a.job_n[r], u_s, off,
+                             a.job_col, out);
+          d = out[0];
+        }
+        x[4 + r] = d * tab[kMaxRegions + r];
+        if (a.spot_code[r] == kExponential) {
+          d = unit_spot * a.spot_c[r][0];
+        } else {
+          sample_arrivals<1>(a.spot_code[r], a.spot_c[r], a.spot_n[r], u_s,
+                             off, a.spot_col, out);
+          d = out[0];
+        }
+        x[4 + kMaxRegions + r] = d * tab[2 * kMaxRegions + r];
+      }
+    }
+  }
+}
+
+template <int G, int SPT>
+__global__ void region_kernel(const RArgs a) {
+  extern __shared__ float smem[];
+  const LaneGroup<G> grp(threadIdx.x & 31);
+  const int t = grp.t;
+  const int lane_in_block = threadIdx.x / G;
+  const int lanes_per_block = blockDim.x / G;
+  const int lane0 = blockIdx.x * lanes_per_block + lane_in_block;
+  // lanes past the fleet run a copy of the last lane and store nothing
+  const bool live = lane0 < a.lanes;
+  const int lane = live ? lane0 : a.lanes - 1;
+  const int S = a.n_slots, W = a.n_windows, L = a.lanes, nc = a.n_cols;
+  const int R = a.n_regions;
+  const int per_pass = min(kDraws / nc, kMarketPass);
+  float* u_s = smem + lane_in_block * kLaneStride;
+  float* x_s = smem + lanes_per_block * kLaneStride +
+               lane_in_block * kRSampleStride;
+  float* tab = smem + lanes_per_block * (kLaneStride + kRSampleStride) +
+               lane_in_block * kRTab;
+  int* off = reinterpret_cast<int*>(tab + 5 * kMaxRegions);
+  const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
+  const int s0 = t * SPT;
+
+  // the lane's region table, and what depends on it alone
+  const size_t lr = static_cast<size_t>(lane) * R;
+  for (int r = t; r < R; r += G) {
+    tab[r] = a.price[lr + r];
+    tab[kMaxRegions + r] = a.job_scale[lr + r];
+    tab[2 * kMaxRegions + r] = a.spot_scale[lr + r];
+    tab[4 * kMaxRegions + r] = a.logits ? a.logits[lr + r] : 0.f;
+  }
+  if (t == 0) {
+    float cum = a.hazard[lr];
+    tab[3 * kMaxRegions] = cum;
+    for (int r = 1; r < R; ++r) {
+      cum = cum + a.hazard[lr + r];
+      tab[3 * kMaxRegions + r] = cum;
+    }
+#pragma unroll
+    for (int r = 0; r <= kMaxRegions; ++r)
+      if (r <= R) off[r] = a.offset[r];
+  }
+  __syncwarp();
+  int fixed_route = 0;  // cheapest / fastest: first index on ties
+  unsigned within = 0;  // bit r: a checkpoint fits region r's notice
+  {
+    const float ck = a.ckpt[lane];
+    float best = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxRegions; ++r) {
+      if (r < R) {
+        if (a.route_code == kCheapest) {
+          const float v = tab[r];
+          if (r == 0 || v < best) { best = v; fixed_route = r; }
+        } else if (a.route_code == kFastest) {
+          const float v = a.rate[lr + r] / tab[2 * kMaxRegions + r];
+          if (r == 0 || v > best) { best = v; fixed_route = r; }
+        }
+        within |= static_cast<unsigned>(ck <= a.notice[lr + r]) << r;
+      }
+    }
+  }
+
+  float nj[kMaxRegions], ns[kMaxRegions];
+  int qr[kMaxRegions];  // queued jobs a region
+  int qtot = 0;         // ... and in all
+#pragma unroll
+  for (int r = 0; r < kMaxRegions; ++r) {
+    nj[r] = r < R ? a.next_job0[lr + r] : kInf;
+    ns[r] = r < R ? a.next_spot0[lr + r] : kInf;
+    qr[r] = r < R ? a.qlen0[lr + r] : 0;
+    qtot += qr[r];
+  }
+  float npre = a.next_pre0[lane];
+  int next_seq = a.next_seq0[lane];
+  float ages[SPT], budgets[SPT];
+  int order[SPT];
+  unsigned occ = 0;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    ages[j] = 0.f;
+    budgets[j] = kInf;
+    order[j] = 0;
+    if (s0 + j < S) {
+      const size_t o = static_cast<size_t>(lane) * S + s0 + j;
+      ages[j] = a.ages0[o];
+      budgets[j] = a.budgets0[o];
+      occ |= static_cast<unsigned>(a.occ0[o] != 0) << j;
+      order[j] = a.order0[o];
+    }
+  }
+
+  for (int w = 0; w < W; ++w) {
+    const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
+    const uint32_t k0 = a.win_keys[kw], k1 = a.win_keys[kw + 1];
+    const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+    const int n_ev = a.plan[w];
+    int jobs_arrived = 0, jobs_completed = 0, spot_served = 0, ondemand = 0;
+    int spot_arrivals = 0, spot_found_empty = 0, resumed = 0;
+    int routed_home = 0;
+    float cost_sum = 0.f, delay_sum = 0.f, time_elapsed = 0.f;
+    float empty_time = 0.f, spot_cost = 0.f;
+    // regions q = t and t + G of this thread: served, slots, revocations,
+    // arrivals by home, admissions by target
+    int r_served[2] = {0, 0}, r_slots[2] = {0, 0}, r_pre[2] = {0, 0};
+    int r_jobs[2] = {0, 0}, r_routed[2] = {0, 0};
+
+    for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
+      const int n_pass = min(per_pass, n_ev - e0);
+      __syncwarp();
+      draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
+                   k2, t);
+      __syncwarp();
+      region_sample_pass<G>(x_s, u_s, tab, n_pass, nc, a, pa, pb, t);
+      __syncwarp();
+
+      for (int e = 0; e < n_pass; ++e) {
+        const float* u = u_s + e * nc;
+        const float* x = x_s + e * kREv;
+
+        // the home region (the earliest job clock) and the firing spot
+        // region, the lowest on ties; the revoked region; the route
+        float min_job = nj[0], min_spot = ns[0];
+        int home = 0, spot_r = 0;
+#pragma unroll
+        for (int r = 1; r < kMaxRegions; ++r) {
+          if (r < R) {
+            if (nj[r] < min_job) { min_job = nj[r]; home = r; }
+            if (ns[r] < min_spot) { min_spot = ns[r]; spot_r = r; }
+          }
+        }
+        const int pre_r = a.preempt_on ? __float_as_int(x[2]) : 0;
+        int target = home;
+        if (a.route_code == kCheapest || a.route_code == kFastest) {
+          target = fixed_route;
+        } else if (a.route_code == kLeastLoaded) {
+          int best = qr[0];
+          target = 0;
+#pragma unroll
+          for (int r = 1; r < kMaxRegions; ++r)
+            if (r < R && qr[r] < best) { best = qr[r]; target = r; }
+        } else if (a.route_code != kPoolZero) {  // uniform, weighted
+          target = __float_as_int(x[1]);
+        }
+
+        // pre-event slot reductions: deadline, the oldest job of the spot
+        // region, the oldest of the revoked region, the target's first
+        // free slot
+        const unsigned s_bits = occ & region_bits<SPT>(off, spot_r, s0);
+        const unsigned p_bits = occ & region_bits<SPT>(off, pre_r, s0);
+        const unsigned free_bits = ~occ & region_bits<SPT>(off, target, s0);
+        int bkey[SPT], skey[SPT], pkey[SPT];
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          bkey[j] = __float_as_int((occ >> j) & 1u ? budgets[j] : kInf);
+          skey[j] = (s_bits >> j) & 1u ? order[j] : kOrderMax;
+          pkey[j] = (p_bits >> j) & 1u ? order[j] : kOrderMax;
+        }
+        int bmin = bkey[0], smin = skey[0], pmin = pkey[0];
+#pragma unroll
+        for (int j = 1; j < SPT; ++j) {
+          bmin = min(bmin, bkey[j]);
+          smin = min(smin, skey[j]);
+          pmin = min(pmin, pkey[j]);
+        }
+        bmin = grp.reduce_min(bmin);
+        smin = grp.reduce_min(smin);
+        const int di = first_equal<G, SPT>(grp, bkey, bmin);
+        const int si = first_equal<G, SPT>(grp, skey, smin);
+        const bool has_elig = grp.first(s_bits != 0) < G;
+        int pi = 0;
+        bool has_pre = false;
+        if (a.preempt_on) {
+          pmin = grp.reduce_min(pmin);
+          pi = first_equal<G, SPT>(grp, pkey, pmin);
+          has_pre = grp.first(p_bits != 0) < G;
+        }
+        const int owner = grp.first(free_bits != 0);
+        const int fj = free_bits ? __ffs(free_bits) - 1 : 0;
+        const int fi = owner * SPT + grp.from(fj, owner & (G - 1));
+        const float deadline = __int_as_float(bmin);
+
+        // ties resolve spot > preempt > deadline > job
+        float dt;
+        bool is_spot, is_pre = false, is_deadline;
+        if (a.preempt_on) {
+          dt = fminf(fminf(min_job, min_spot), fminf(deadline, npre));
+          is_spot = min_spot <= fminf(min_job, fminf(deadline, npre));
+          is_pre = !is_spot && npre <= fminf(min_job, deadline);
+          is_deadline = !is_spot && !is_pre && deadline <= min_job;
+        } else {
+          dt = fminf(fminf(min_job, min_spot), deadline);
+          is_spot = min_spot <= fminf(min_job, deadline);
+          is_deadline = !is_spot && deadline <= min_job;
+        }
+        const bool is_job = !is_spot && !is_pre && !is_deadline;
+
+        // admission against the target region's queue and capacity
+        const int qlen_t = region_value(qr, target);
+        const int rmax_t = off[target + 1] - off[target];
+        const float budget = x[0];
+        const bool admit_raw =
+            a.admit_code == kThreePhaseAdmit
+                ? u[a.admit_col] < three_phase_p(pa, qlen_t)
+                : qlen_t == 0 && budget > 0.f;
+        const bool admit = is_job && admit_raw && qlen_t < rmax_t;
+        const bool od_now = is_job && !admit;
+        const bool served = is_spot && has_elig;
+        const float price_s = tab[spot_r];
+
+        // revocation: checkpoint and re-queue, or defect
+        const bool pre_hit = is_pre && has_pre;
+        bool resume = false;
+        if (a.resume_code == kNoticeAware) {
+          const int qlen_wo = max(region_value(qr, pre_r) - 1, 0);
+          resume = pre_hit && ((within >> pre_r) & 1u) &&
+                   u[a.onpre_col] < three_phase_p(pa, qlen_wo);
+        }
+        const bool defect_pre = pre_hit && !resume;
+        const bool defected = is_deadline;
+        const bool leave = served || defected || defect_pre;
+        const int leave_slot = served ? si : (defected ? di : pi);
+        int leave_r = served ? spot_r : pre_r;  // the region it leaves
+        if (defected) {
+          leave_r = 0;
+#pragma unroll
+          for (int r = 1; r < kMaxRegions; ++r)
+            if (r < R) leave_r += di >= off[r];
+        }
+
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          ages[j] = ages[j] + dt;
+          budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+        }
+        const float wait_served = slot_value<G, SPT>(grp, ages, si);
+        const float age_defect = slot_value<G, SPT>(grp, ages, di);
+        float age_pre = 0.f, price_p = 0.f;
+        if (a.preempt_on) {
+          age_pre = slot_value<G, SPT>(grp, ages, pi);
+          price_p = tab[pre_r];
+        }
+        const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
+        const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
+#pragma unroll
+        for (int j = 0; j < SPT; ++j) {
+          if (j == join_j) {
+            ages[j] = 0.f;
+            budgets[j] = budget;
+            order[j] = next_seq;
+          } else if (j == resume_j) {
+            ages[j] = 0.f;
+            budgets[j] = kInf;
+            order[j] = next_seq;
+          }
+        }
+        if (join_j >= 0) occ |= 1u << join_j;
+        if (leave && leave_slot / SPT == t)
+          occ &= ~(1u << (leave_slot & (SPT - 1)));
+
+        const bool od_any = od_now || defected || defect_pre;
+        jobs_arrived += is_job;
+        jobs_completed += od_any || served || resume;
+        spot_served += served;
+        ondemand += od_any;
+        cost_sum = cost_sum + (served ? price_s : 0.f);
+        cost_sum = cost_sum + (od_any ? kc : 0.f);
+        delay_sum = delay_sum + (served ? wait_served : 0.f);
+        delay_sum = delay_sum + (defected ? age_defect : 0.f);
+        spot_cost = spot_cost + (served ? price_s : 0.f);
+        if (a.preempt_on) {  // without it these add +0.0
+          cost_sum = cost_sum + (pre_hit ? price_p : 0.f);
+          delay_sum = delay_sum + (pre_hit ? age_pre : 0.f);
+          spot_cost = spot_cost + (pre_hit ? price_p : 0.f);
+        }
+        time_elapsed = time_elapsed + dt;
+        empty_time = empty_time + (qtot == 0 ? dt : 0.f);
+        spot_arrivals += is_spot;
+        spot_found_empty += is_spot && !has_elig;
+        resumed += resume;
+        routed_home += admit && target == home;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q = t + i * G;
+          r_slots[i] += is_spot && spot_r == q;
+          r_served[i] += served && spot_r == q;
+          r_pre[i] += pre_hit && pre_r == q;
+          r_jobs[i] += is_job && home == q;
+          r_routed[i] += admit && target == q;
+        }
+
+#pragma unroll
+        for (int r = 0; r < kMaxRegions; ++r) {
+          if (r < R) {
+            nj[r] = is_job && r == home ? x[4 + r] : nj[r] - dt;
+            ns[r] = is_spot && r == spot_r ? x[4 + kMaxRegions + r]
+                                           : ns[r] - dt;
+            qr[r] += static_cast<int>(admit && r == target) -
+                     static_cast<int>(leave && r == leave_r);
+          }
+        }
+        if (a.preempt_on) npre = is_pre ? x[3] : npre - dt;
+        next_seq += admit || resume;
+        qtot += static_cast<int>(admit) - static_cast<int>(leave);
+      }
+    }
+
+    if (live) {
+      const size_t o = static_cast<size_t>(lane) * W + w, n = size_t(L) * W;
+      if (t == 0) {
+        a.istats[0 * n + o] = jobs_arrived;
+        a.istats[1 * n + o] = jobs_completed;
+        a.istats[2 * n + o] = spot_served;
+        a.istats[3 * n + o] = ondemand;
+        a.istats[4 * n + o] = spot_arrivals;
+        a.istats[5 * n + o] = spot_found_empty;
+        a.istats[6 * n + o] = resumed;
+        a.istats[7 * n + o] = routed_home;
+        a.fstats[0 * n + o] = cost_sum;
+        a.fstats[1 * n + o] = delay_sum;
+        a.fstats[2 * n + o] = time_elapsed;
+        a.fstats[3 * n + o] = empty_time;
+        a.fstats[4 * n + o] = spot_cost;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = t + i * G;
+        if (q < R) {
+          const size_t ro = o * R + q, rn = n * R;
+          a.rstats[0 * rn + ro] = r_served[i];
+          a.rstats[1 * rn + ro] = r_slots[i];
+          a.rstats[2 * rn + ro] = r_pre[i];
+          a.rstats[3 * rn + ro] = r_jobs[i];
+          a.rstats[4 * rn + ro] = r_routed[i];
+        }
+      }
+    }
+
+    rebase_order<G, SPT>(grp, occ, order, next_seq, s0, S);
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    if (s0 + j < S) {
+      const size_t o = static_cast<size_t>(lane) * S + s0 + j;
+      a.ages[o] = ages[j];
+      a.budgets[o] = budgets[j];
+      a.occ[o] = (occ >> j) & 1u;
+      a.order[o] = order[j];
+    }
+  }
+  if (t == 0) {
+    a.next_pre[lane] = npre;
+    a.next_seq[lane] = next_seq;
+#pragma unroll
+    for (int r = 0; r < kMaxRegions; ++r) {
+      if (r < R) {
+        a.next_job[lr + r] = nj[r];
+        a.next_spot[lr + r] = ns[r];
+        a.qlen[lr + r] = qr[r];
+      }
+    }
+  }
+}
+
+template <int G, int SPT>
+cudaError_t region_launch_gs(const RArgs& a, int warps_per_block,
+                             cudaStream_t s) {
+  const int lanes_per_block = warps_per_block * 32 / G;
+  const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
+  const dim3 block(warps_per_block * 32);
+  const size_t smem = sizeof(float) * lanes_per_block *
+                      (kLaneStride + kRSampleStride + kRTab);
+  cudaError_t err = cudaFuncSetAttribute(
+      region_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  region_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the (G, SPT) pairs sweep.py::group_size picks, and no other
+cudaError_t region_launch_g(const RArgs& a, int group, int spt,
+                            int warps_per_block, cudaStream_t s) {
+  if (group == 4) {
+    switch (spt) {
+      case 1: return region_launch_gs<4, 1>(a, warps_per_block, s);
+      case 2: return region_launch_gs<4, 2>(a, warps_per_block, s);
+      case 4: return region_launch_gs<4, 4>(a, warps_per_block, s);
+      case 8: return region_launch_gs<4, 8>(a, warps_per_block, s);
+    }
+  } else if (spt == 8) {
+    switch (group) {
+      case 8: return region_launch_gs<8, 8>(a, warps_per_block, s);
+      case 16: return region_launch_gs<16, 8>(a, warps_per_block, s);
+      case 32: return region_launch_gs<32, 8>(a, warps_per_block, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
@@ -1247,5 +1829,90 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
       group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(market_launch_g(a, group, spt, warps_per_block,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// ptrs: the 34 pointers of RArgs in order (logits may be 0); icfg: lanes,
+// n_slots, n_windows, n_cols, n_regions, admit_code, wait_code,
+// route_code, resume_code, preempt_on, any_exp_job, any_exp_spot,
+// job_col, spot_col, admit_col, route_col, pre_col, onpre_col, G, SPT,
+// warps a block, then offset[9], job_code[8], job_n[8], spot_code[8] and
+// spot_n[8]; fcfg: job_c[8][4], spot_c[8][4].  Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is
+// not built).
+extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
+                             const float* fcfg, void* stream) {
+  RArgs a;
+  int i = 0;
+  a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_spot0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_pre0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.ages0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.budgets0 = reinterpret_cast<const float*>(ptrs[i++]);
+  a.occ0 = reinterpret_cast<const uint8_t*>(ptrs[i++]);
+  a.order0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.next_seq0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.qlen0 = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.win_keys = reinterpret_cast<const uint32_t*>(ptrs[i++]);
+  a.plan = reinterpret_cast<const int32_t*>(ptrs[i++]);
+  a.k_cost = reinterpret_cast<const float*>(ptrs[i++]);
+  a.pa = reinterpret_cast<const float*>(ptrs[i++]);
+  a.pb = reinterpret_cast<const float*>(ptrs[i++]);
+  a.ckpt = reinterpret_cast<const float*>(ptrs[i++]);
+  a.price = reinterpret_cast<const float*>(ptrs[i++]);
+  a.hazard = reinterpret_cast<const float*>(ptrs[i++]);
+  a.notice = reinterpret_cast<const float*>(ptrs[i++]);
+  a.rate = reinterpret_cast<const float*>(ptrs[i++]);
+  a.spot_scale = reinterpret_cast<const float*>(ptrs[i++]);
+  a.job_scale = reinterpret_cast<const float*>(ptrs[i++]);
+  a.logits = reinterpret_cast<const float*>(ptrs[i++]);
+  a.next_job = reinterpret_cast<float*>(ptrs[i++]);
+  a.next_spot = reinterpret_cast<float*>(ptrs[i++]);
+  a.next_pre = reinterpret_cast<float*>(ptrs[i++]);
+  a.ages = reinterpret_cast<float*>(ptrs[i++]);
+  a.budgets = reinterpret_cast<float*>(ptrs[i++]);
+  a.occ = reinterpret_cast<uint8_t*>(ptrs[i++]);
+  a.order = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.next_seq = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.qlen = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.istats = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.fstats = reinterpret_cast<float*>(ptrs[i++]);
+  a.rstats = reinterpret_cast<int32_t*>(ptrs[i++]);
+  i = 0;
+  a.lanes = icfg[i++];
+  a.n_slots = icfg[i++];
+  a.n_windows = icfg[i++];
+  a.n_cols = icfg[i++];
+  a.n_regions = icfg[i++];
+  a.admit_code = icfg[i++];
+  a.wait_code = icfg[i++];
+  a.route_code = icfg[i++];
+  a.resume_code = icfg[i++];
+  a.preempt_on = icfg[i++];
+  a.any_exp_job = icfg[i++];
+  a.any_exp_spot = icfg[i++];
+  a.job_col = icfg[i++];
+  a.spot_col = icfg[i++];
+  a.admit_col = icfg[i++];
+  a.route_col = icfg[i++];
+  a.pre_col = icfg[i++];
+  a.onpre_col = icfg[i++];
+  const int group = icfg[i++], spt = icfg[i++], warps_per_block = icfg[i++];
+  for (int r = 0; r <= kMaxRegions; ++r) a.offset[r] = icfg[i++];
+  for (int r = 0; r < kMaxRegions; ++r) {
+    a.job_code[r] = icfg[i + r];
+    a.job_n[r] = icfg[i + kMaxRegions + r];
+    a.spot_code[r] = icfg[i + 2 * kMaxRegions + r];
+    a.spot_n[r] = icfg[i + 3 * kMaxRegions + r];
+    for (int c = 0; c < 4; ++c) {
+      a.job_c[r][c] = fcfg[4 * r + c];
+      a.spot_c[r][c] = fcfg[4 * kMaxRegions + 4 * r + c];
+    }
+  }
+  if (a.n_cols < 1 || a.n_cols > kDraws || a.n_regions < 1 ||
+      a.n_regions > kMaxRegions || a.offset[a.n_regions] != a.n_slots ||
+      warps_per_block < 1 || warps_per_block > 32 || group * spt < a.n_slots)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(region_launch_g(a, group, spt, warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }

@@ -7,9 +7,11 @@ on the CPU goes to the kernel's plain PyTorch version (``ref.py``).
 from __future__ import annotations
 
 from repro_torch.kernels.sweep.ref import (batched_event_windows_ref,
-                                           market_event_windows_ref)
+                                           market_event_windows_ref,
+                                           region_event_windows_ref)
 from repro_torch.kernels.sweep.sweep import (batched_event_windows,
-                                             market_event_windows)
+                                             market_event_windows,
+                                             region_event_windows)
 
 
 def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan):
@@ -30,3 +32,12 @@ def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,
                                         k_cost, plan)
     return market_event_windows(job, market, kernel, rmax, preempt_on, state,
                                 params, mp, k_cost, plan)
+
+
+def region_events(topo, kernel, preempt_on, state, params, rp, k_cost, plan):
+    """Run stacked region event windows; see ``region_event_windows``."""
+    if state.key.device.type == "cpu":
+        return region_event_windows_ref(topo, kernel, preempt_on, state,
+                                        params, rp, k_cost, plan)
+    return region_event_windows(topo, kernel, preempt_on, state, params, rp,
+                                k_cost, plan)

@@ -1,7 +1,8 @@
 """ctypes wrappers of the hand-written CUDA batched-event kernels (csrc/sweep.cu).
 
-Two traversals of one kernel family: :func:`batched_event_windows` runs the
-single queue, :func:`market_event_windows` the P-pool spot market.  Each
+Three traversals of one kernel family: :func:`batched_event_windows` runs
+the single queue, :func:`market_event_windows` the P-pool spot market,
+:func:`region_event_windows` N-region routing.  Each
 runs a fleet of lanes through a static plan of
 event windows (burn-in, chunks, tail), each lane on a group of G threads
 (:func:`group_size` picks G from rmax), with the lane state in registers
@@ -26,9 +27,12 @@ from repro_torch.core.arrivals import (BathtubGCP, Deterministic, Exponential,
                                        Gamma, Uniform)
 from repro_torch.core.clocks import kernel_slab_cols, window_slab_keys
 from repro_torch.core.engine import (EngineState, MarketState,
-                                     MarketWindowStats, WindowStats,
-                                     _engine_layout, _market_layout)
+                                     MarketWindowStats, RegionState,
+                                     RegionWindowStats, WindowStats,
+                                     _engine_layout, _market_layout,
+                                     _region_layout)
 from repro_torch.core.market import NoticeAwareKernel, PoolChoiceKernel
+from repro_torch.core.regions import RoutingKernel
 from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
 from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
                                        InfiniteWait, TwoPointWait)
@@ -42,6 +46,9 @@ LIBRARY = KernelLibrary(
 MAX_RMAX = 256
 #: slab columns an event can take (a draw pass stages 64 words a lane)
 MAX_COLS = 32
+#: pools a market lane and regions a region lane can hold (the kernel's
+#: kMaxPools and kMaxRegions)
+MAX_POOLS = MAX_REGIONS = 8
 #: the choice of G, from a probe of G against time on an H100 (PERF.md) at
 #: the two rmax the main paths run: G at rmax 1 (4 beat 1, 2 and 8), and
 #: the slots a thread G grows to keep at larger rmax (G 8 at rmax 64 beat
@@ -57,6 +64,8 @@ def _library() -> ctypes.CDLL:
     lib.sweep_launch.restype = ctypes.c_int
     lib.market_launch.argtypes = [ctypes.c_void_p] * 4
     lib.market_launch.restype = ctypes.c_int
+    lib.region_launch.argtypes = [ctypes.c_void_p] * 4
+    lib.region_launch.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]
     lib.sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -76,6 +85,19 @@ def _arrival(proc) -> tuple[int, list[float], int]:
     if isinstance(proc, BathtubGCP):
         return 4, [proc.A, proc.tau1, proc.tau2, proc.b], 3
     raise NotImplementedError(f"the sweep kernel has no sampler for {proc!r}")
+
+
+def _arrivals(procs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(codes, columns, (MAX_POOLS, 4) float32 constants) of up to
+    MAX_POOLS arrival processes (a market's pools, a topology's regions)."""
+    codes = np.zeros(MAX_POOLS, np.int32)
+    ns = np.zeros(MAX_POOLS, np.int32)
+    consts = np.zeros((MAX_POOLS, 4), np.float32)
+    for r, proc in enumerate(procs):
+        code, c, n = _arrival(proc)
+        codes[r], ns[r] = code, n
+        consts[r, :len(c)] = c
+    return codes, ns, consts
 
 
 _WAIT_CODES = {InfiniteWait: (0, ()), TwoPointWait: (1, ("p", "value")),
@@ -241,9 +263,6 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
 #: launches of the kernel since the count was last set to 0
 batched_event_windows.launches = 0
 
-
-#: pools a market lane can hold (the kernel's kMaxPools)
-MAX_POOLS = 8
 _CHOICE_CODES = {"cheapest": 1, "fastest": 2, "least_loaded": 3,
                  "uniform": 4, "weighted": 5}
 
@@ -319,7 +338,7 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
         logits = (logits[:, None] if logits.dim() == 1 else logits) \
             .expand(lanes, n_pools).contiguous()
     job_code, job_c, job_n = _arrival(job)
-    pools = [_arrival(p.arrival) for p in market.pools]
+    codes, ns, consts = _arrivals(p.arrival for p in market.pools)
 
     slab_keys, final_key = window_slab_keys(state.key, len(plan))
     win_keys = _as_int32_words(slab_keys).contiguous()
@@ -373,17 +392,13 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                     + [x.data_ptr() for x in out[1:]]
                     + [istats.data_ptr(), fstats.data_ptr(),
                        pstats.data_ptr()], np.int64)
-    codes = np.zeros(MAX_POOLS, np.int32)
-    ns = np.zeros(MAX_POOLS, np.int32)
     fcfg = np.zeros(4 + 4 * MAX_POOLS, np.float32)
     fcfg[:len(job_c)] = job_c
-    for p, (code, c, n) in enumerate(pools):
-        codes[p], ns[p] = code, n
-        fcfg[4 + 4 * p:4 + 4 * p + len(c)] = c
+    fcfg[4:] = consts.reshape(-1)
     on_preempt = layout.on_preempt[0] if layout.on_preempt else 0
     icfg = np.array([lanes, rmax, w, layout.n_cols, n_pools, job_code, job_n,
                      admit, wait, choice, resume, int(preempt_on),
-                     int(any(code == 0 for code, _, _ in pools)),
+                     int(0 in codes[:n_pools]),
                      layout.job[0], layout.spot[0], layout.admit[0],
                      _choice_col(kernel, layout, n_pools),
                      layout.preempt[0] if preempt_on else 0, on_preempt,
@@ -412,3 +427,149 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
 
 #: launches of the market kernel since the count was last set to 0
 market_event_windows.launches = 0
+
+
+
+class TooManyRegionsError(ValueError):
+    """A topology of more regions than the region kernel holds
+    (MAX_REGIONS)."""
+
+
+def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
+                         params: dict, rp: dict, k_cost: torch.Tensor,
+                         plan: tuple[int, ...]
+                         ) -> tuple[RegionState, RegionWindowStats]:
+    """Run every region lane through the windows of ``plan`` in one launch.
+
+    Same contract as
+    :func:`repro_torch.kernels.sweep.ref.region_event_windows_ref`:
+    ``state`` holds ``(lanes, ...)`` CUDA tensors (the packed slot arrays
+    ``(lanes, Σ rmax_r)``), ``params`` the kernel's per-lane float32
+    params, ``rp`` the per-lane regions config (``(lanes, R)`` price,
+    hazard, notice, rate, spot_scale, job_scale), ``k_cost`` the per-lane
+    on-demand price.  A lane runs on ``group_size(Σ rmax_r)`` threads.
+    Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and
+    ``(lanes, W, R)`` for the region fields.  Raises if the kernel cannot
+    be built or launched, or for more than ``MAX_REGIONS`` regions; it
+    never falls back.
+    """
+    layout = _region_layout(topo, kernel, preempt_on)
+    n_regions, n_slots = topo.n_regions, topo.total_slots
+    lanes, device = state.key.shape[0], state.key.device
+    if n_regions > MAX_REGIONS:
+        raise TooManyRegionsError(f"region kernel: {n_regions} regions "
+                                  f"exceed {MAX_REGIONS}")
+    if lanes == 0 or n_slots > MAX_RMAX:
+        raise ValueError(f"region kernel: need lanes >= 1 and at most "
+                         f"{MAX_RMAX} slots, got {lanes} lanes, "
+                         f"{n_slots} slots")
+    if layout.n_cols > MAX_COLS:
+        raise ValueError(f"region kernel: a slab row of {layout.n_cols} "
+                         f"columns exceeds {MAX_COLS}")
+    if max(plan) * layout.n_cols >= 2**32:
+        raise ValueError("region kernel: a window's slab index must fit in "
+                         "32 bits")
+    group = group_size(n_slots)
+    routed = isinstance(kernel, RoutingKernel)
+    route = _CHOICE_CODES.get(kernel.choice, 0) if routed else 0
+    admit, wait, _, resume, pa, pb, ckpt = _market_policy(
+        kernel.base if routed else kernel, params, lanes, device)
+    logits = None
+    if route == _CHOICE_CODES["weighted"]:
+        logits = params["region_logits"]
+        logits = (logits[:, None] if logits.dim() == 1 else logits) \
+            .expand(lanes, n_regions).contiguous()
+    job_codes, job_ns, job_c = _arrivals(r.job for r in topo.regions)
+    spot_codes, spot_ns, spot_c = _arrivals(r.spot for r in topo.regions)
+
+    slab_keys, final_key = window_slab_keys(state.key, len(plan))
+    win_keys = _as_int32_words(slab_keys).contiguous()
+    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
+    w = len(plan)
+    f32, i32 = torch.float32, torch.int32
+    lr, ls = (lanes, n_regions), (lanes, n_slots)
+    inputs = [("next_job", state.next_job, f32, lr),
+              ("next_spot", state.next_spot, f32, lr),
+              ("next_preempt", state.next_preempt, f32, (lanes,)),
+              ("ages", state.ages, f32, ls),
+              ("budgets", state.budgets, f32, ls),
+              ("occ", state.occ, torch.bool, ls),
+              ("order", state.order, i32, ls),
+              ("next_seq", state.next_seq, i32, (lanes,)),
+              ("qlen", state.qlen, i32, lr),
+              ("window keys", win_keys, i32, (lanes, w, 2)),
+              ("plan", plan_t, i32, (w,)),
+              ("k_cost", k_cost, f32, (lanes,)),
+              ("policy param a", pa, f32, (lanes,)),
+              ("policy param b", pb, f32, (lanes,)),
+              ("checkpoint time", ckpt, f32, (lanes,))] + [
+                  (name, rp[name], f32, lr)
+                  for name in ("price", "hazard", "notice", "rate",
+                               "spot_scale", "job_scale")]
+    if logits is not None:
+        inputs.append(("region_logits", logits, f32, lr))
+    for name, x, dtype, shape in inputs:
+        _check(name, x, dtype, shape)
+
+    out = RegionState(
+        key=final_key,
+        next_job=torch.empty(lr, dtype=f32, device=device),
+        next_spot=torch.empty(lr, dtype=f32, device=device),
+        next_preempt=torch.empty(lanes, dtype=f32, device=device),
+        ages=torch.empty(ls, dtype=f32, device=device),
+        budgets=torch.empty(ls, dtype=f32, device=device),
+        occ=torch.empty(ls, dtype=torch.bool, device=device),
+        order=torch.empty(ls, dtype=i32, device=device),
+        next_seq=torch.empty(lanes, dtype=i32, device=device),
+        qlen=torch.empty(lr, dtype=i32, device=device))
+    istats = torch.empty(8, lanes, w, dtype=i32, device=device)
+    fstats = torch.empty(5, lanes, w, dtype=f32, device=device)
+    rstats = torch.empty(5, lanes, w, n_regions, dtype=i32, device=device)
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    in_ptrs = [x.data_ptr() for _, x, _, _ in inputs[:21]]
+    ptrs = np.array(in_ptrs + [0 if logits is None else logits.data_ptr()]
+                    + [x.data_ptr() for x in out[1:]]
+                    + [istats.data_ptr(), fstats.data_ptr(),
+                       rstats.data_ptr()], np.int64)
+    offsets = np.zeros(MAX_REGIONS + 1, np.int32)
+    offsets[:n_regions] = topo.slot_offsets()
+    offsets[n_regions] = n_slots
+    icfg = np.array([lanes, n_slots, w, layout.n_cols, n_regions, admit,
+                     wait, route, resume, int(preempt_on),
+                     int(0 in job_codes[:n_regions]),
+                     int(0 in spot_codes[:n_regions]),
+                     layout.job[0], layout.spot[0], layout.admit[0],
+                     layout.route[0] if layout.route else 0,
+                     layout.preempt[0] if preempt_on else 0,
+                     layout.on_preempt[0] if layout.on_preempt else 0,
+                     group, slots_per_thread(n_slots, group),
+                     warps_per_block(lanes, group, sms)]
+                    + offsets.tolist() + job_codes.tolist()
+                    + job_ns.tolist() + spot_codes.tolist()
+                    + spot_ns.tolist(), np.int32)
+    fcfg = np.concatenate([job_c.reshape(-1), spot_c.reshape(-1)])
+
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.region_launch(ptrs.ctypes.data, icfg.ctypes.data,
+                               fcfg.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError(f"region kernel launch failed: "
+                           f"{lib.sweep_error_string(rc).decode()}")
+    region_event_windows.launches += 1
+    stats = RegionWindowStats(
+        jobs_arrived=istats[0], jobs_completed=istats[1],
+        spot_served=istats[2], ondemand=istats[3], cost_sum=fstats[0],
+        delay_sum=fstats[1], time_elapsed=fstats[2], empty_time=fstats[3],
+        spot_arrivals=istats[4], spot_found_empty=istats[5],
+        resumed=istats[6], spot_cost=fstats[4], routed_home=istats[7],
+        region_served=rstats[0], region_spot_arrivals=rstats[1],
+        region_preempted=rstats[2], region_jobs=rstats[3],
+        region_routed=rstats[4])
+    return out, stats
+
+
+#: launches of the region kernel since the count was last set to 0
+region_event_windows.launches = 0

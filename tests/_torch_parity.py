@@ -76,3 +76,42 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# XLA's log1p for the port (tests/test_torch_market.py,
+# tests/test_torch_regions.py): XLA's and PyTorch's CPU log1p each round
+# within one ulp, so whole runs are held bitwise, floats included, by
+# handing the port XLA's own -log1p(-u) for every uniform the slab and the
+# key samplers can produce (2^24 and 2^23 values, tabulated once a module)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def xla_log1p_tables():
+    import jax
+    import jax.numpy as jnp
+
+    neg_log1p = jax.jit(lambda u: -jnp.log1p(-u))
+    slab = np.arange(2**24, dtype=np.float32) * np.float32(2.0**-24)
+    key = ((np.arange(2**23, dtype=np.uint32) | 0x3F800000).view(np.float32)
+           - np.float32(1.0))
+    return (torch.from_numpy(np.array(neg_log1p(slab))),
+            torch.from_numpy(np.array(neg_log1p(key))))
+
+
+@pytest.fixture
+def xla_log1p(monkeypatch, xla_log1p_tables):
+    from repro_torch.core import arrivals, clocks, threefry, waittime
+
+    slab, key = xla_log1p_tables
+
+    def exp_from_u(u):  # u is a slab uniform: a multiple of 2^-24
+        idx = (u.double() * 2**24).long()
+        assert torch.equal(idx.double() * 2.0**-24, u.double())
+        return slab[idx]
+
+    def exponential(k, shape=()):  # the key sampler's 23-bit uniforms
+        return key[threefry.bits32(k, shape) >> 9]
+
+    for mod in (clocks, arrivals, waittime):
+        monkeypatch.setattr(mod, "exp_from_u", exp_from_u)
+    monkeypatch.setattr(threefry, "exponential", exponential)

@@ -9,9 +9,10 @@ a machine that has only PyTorch; there, from the repository root:
 
 (``--noconftest``: tests/conftest.py imports JAX.)
 
-Tolerance of the sweep kernel, both traversals (the single queue and the
-P-pool market): integer statistics and the final join orders, occupancy,
-pool tags, counters and keys bitwise; float32 sums and clocks to rtol 1e-5
+Tolerance of the sweep kernel, all three traversals (the single queue, the
+P-pool market and N-region routing): integer statistics and the final join
+orders, occupancy, pool tags, queue lengths, counters and keys bitwise;
+float32 sums and clocks to rtol 1e-5
 (see tests/_torch_parity.py). A Gamma job's first clock is drawn
 exponential: the port has no Gamma initial sampler yet; every later draw
 is Gamma's.  Each lane-group layout case runs on the G threads a lane
@@ -51,7 +52,9 @@ from repro_torch.kernels.ssd import tc_tolerance as ssd_tc_tolerance
 from repro_torch.kernels.sweep import (batched_event_windows,
                                        batched_event_windows_ref,
                                        market_event_windows,
-                                       market_event_windows_ref)
+                                       market_event_windows_ref,
+                                       region_event_windows,
+                                       region_event_windows_ref)
 from repro_torch.kernels.sweep import sweep as sweep_mod
 
 LAM, MU = 1 / 12, 1 / 24
@@ -335,6 +338,103 @@ def test_cuda_market_launch_count_and_checks(cuda_device):
     assert market_event_windows.launches == before + 1
     with pytest.raises(ValueError, match="float32"):
         market_event_windows(*args[:8], args[8].double(), args[9])
+
+
+#: the region traversal's cases: (name, topology, kernel, params) on the
+#: JAX tests' ragged 16/8/4/16 partition (44 slots, G 8)
+def _topology(rows):
+    return T.RegionTopology(regions=tuple(
+        T.Region(T.Exponential(j), T.Exponential(sp), price=c, hazard=h,
+                 notice=w, rmax=m) for j, sp, c, h, w, m in rows))
+
+
+_REGIONS = _topology([(LAM / 4, 1 / 30, 0.5, 0.02, 0.5, 16),
+                      (LAM / 2, 1 / 40, 0.3, 0.05, 0.01, 8),
+                      (LAM / 8, 1 / 60, 0.2, 0.0, 0.0, 4),
+                      (LAM / 8, 1 / 90, 0.1, 0.10, 2.0, 16)])
+REGION_CASES = [
+    ("ragged_least_loaded", _REGIONS, T.RoutingKernel(_NOTICE,
+                                                      "least_loaded"),
+     {"r": np.linspace(0.5, 7.0, 15)}),
+    ("ragged_weighted", _REGIONS, T.RoutingKernel(T.ThreePhaseKernel(),
+                                                  "weighted"),
+     {"r": np.linspace(0.5, 7.0, 15),
+      "region_logits": np.linspace(-1, 1, 15)}),
+    ("ragged_single_slot_uniform", _REGIONS,
+     T.RoutingKernel(T.SingleSlotKernel(wait=T.DeterministicWait(3.0)),
+                     "uniform"), {}),
+]
+
+
+def _region_run(device, topo, kernel, params, lanes=45):
+    """``lanes`` lanes through windows of 333 events after a 111-event
+    burn-in, straight into the region kernel."""
+    plan = engine._window_plan(666, 333, 111)
+    k = torch.full((lanes,), 10.0, device=device)
+    rp = engine._config_tensors({
+        name: np.tile(v, (lanes, 1)) for name, v in topo.params().items()},
+        device)
+    p = engine.market_lane_params(kernel, {
+        name: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
+        for name, v in params.items()}, k)
+    pre = topo.preemptible
+    s0 = engine.init_region_state(
+        threefry.split(threefry.key(11, device), lanes), topo, rp, pre)
+    args = (topo, kernel, pre, s0, p, rp, k, plan)
+    return args, region_event_windows(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,topo,kernel,params", REGION_CASES,
+                         ids=[c[0] for c in REGION_CASES])
+def test_cuda_region_kernel_matches_plain_version(cuda_device, name, topo,
+                                                  kernel, params):
+    args, (fin_k, ker) = _region_run(cuda_device, topo, kernel, params)
+    fin_r, ref = region_event_windows_ref(*args)
+    torch.cuda.synchronize()
+    assert_close({f: v.cpu().numpy() for f, v in ref._asdict().items()}, ker,
+                 engine.REGION_INT_STATS, name)
+    assert_close({f: v.cpu().numpy() for f, v in fin_r._asdict().items()},
+                 fin_k, (), name)
+
+
+@pytest.mark.cuda
+def test_cuda_region_degenerate_is_the_one_pool_market_kernel(cuda_device):
+    """One region with price, hazard and notice under a notice-aware
+    kernel: the region kernel equals the 1-pool market kernel on the same
+    lanes, bitwise, ``pool_*`` as ``region_*``."""
+    spot = T.Exponential(1 / 40)
+    topo = T.RegionTopology.single(T.Exponential(LAM), spot, price=0.4,
+                                   hazard=0.05, notice=1.0, rmax=16)
+    market = T.SpotMarket.single(spot, price=0.4, hazard=0.05, notice=1.0)
+    args, (fin_r, r) = _region_run(cuda_device, topo, _NOTICE,
+                                   {"r": np.linspace(0.5, 7.0, 9)})
+    s0, lanes = args[3], args[6].shape[0]
+    mp = {name: torch.as_tensor(np.tile(v, (lanes, 1)), device=cuda_device)
+          for name, v in market.params().items()}
+    m0 = engine.MarketState(
+        key=s0.key, next_job=s0.next_job[:, 0], next_spot=s0.next_spot,
+        next_preempt=s0.next_preempt, ages=s0.ages, budgets=s0.budgets,
+        occ=s0.occ, pool=torch.zeros_like(s0.order), order=s0.order,
+        next_seq=s0.next_seq, qlen=s0.qlen[:, 0])
+    fin_m, m = market_event_windows(T.Exponential(LAM), market, _NOTICE, 16,
+                                    True, m0, args[4], mp, args[6], args[7])
+    torch.cuda.synchronize()
+    assert int(m.pool_preempted.sum()) > 0 and int(m.resumed.sum()) > 0
+    for field in engine.MarketWindowStats._fields:
+        assert torch.equal(getattr(r, field.replace("pool_", "region_")),
+                           getattr(m, field)), field
+    assert torch.equal(fin_r.qlen[:, 0], fin_m.qlen)
+
+
+@pytest.mark.cuda
+def test_cuda_region_launch_count_and_checks(cuda_device):
+    before = region_event_windows.launches
+    args, _ = _region_run(cuda_device, _REGIONS, REGION_CASES[0][2],
+                          {"r": [2.0]}, lanes=4)
+    assert region_event_windows.launches == before + 1
+    with pytest.raises(ValueError, match="float32"):
+        region_event_windows(*args[:6], args[6].double(), args[7])
 
 
 def _normals(device, dtype, seed, *shapes):

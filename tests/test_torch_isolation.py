@@ -31,6 +31,20 @@ out = run_market_sweep(Exponential(1 / 12), market, NoticeAwareKernel(0.05),
 assert out["pool_served"].shape == (2, 2, 2)
 assert np.isfinite(out["avg_cost_job"]).all()
 assert OnlineAdmissionController(delta=1.0).choose_pool(market, [0, 0]) == 1
+from repro_torch.core import (Region, RegionTopology, RoutingKernel,
+                              run_region_sweep)
+topology = RegionTopology(regions=(
+    Region(Exponential(1 / 24), Exponential(1 / 48), price=0.5, hazard=0.05,
+           notice=0.5, rmax=4),
+    Region(Exponential(1 / 24), Exponential(1 / 48), price=0.2, rmax=2)))
+out = run_region_sweep(topology,
+                       RoutingKernel(NoticeAwareKernel(0.05), "least_loaded"),
+                       {{"r": np.array([1.0, 2.5])}}, n_events=200,
+                       n_seeds=2, key=repro_torch.key(0), device="cpu")
+assert out["region_routed"].shape == (2, 2, 2)
+assert np.isfinite(out["avg_cost_job"]).all()
+assert OnlineAdmissionController(delta=1.0).choose_region(
+    topology, [0, 0], rule="cheapest") == 1
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import RTOL, ulps
+from _torch_parity import (RTOL, ulps, xla_log1p,  # noqa: F401
+                           xla_log1p_tables)
 import repro.core as R
 from repro.cluster.orchestrator import OnlineAdmissionController as JControl
 from repro.core import clocks as jclocks
@@ -34,8 +35,7 @@ from repro.core import market as jmarket
 from repro.core.waittime import DeterministicWait as JDet
 import repro_torch.core as T
 from repro_torch.cluster.orchestrator import OnlineAdmissionController
-from repro_torch.core import (arrivals, clocks, engine, market, threefry,
-                              waittime)
+from repro_torch.core import clocks, engine, market, threefry
 from repro_torch.core.lp import market_knapsack_lp
 from repro_torch.core.waittime import DeterministicWait
 from repro_torch.kernels.sweep import market_event_windows
@@ -83,36 +83,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-# ---------------------------------------------------------------------------
-# XLA's log1p for the port, so that whole runs can be held bitwise
-# ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def xla_log1p_tables():
-    neg_log1p = jax.jit(lambda u: -jnp.log1p(-u))
-    slab = np.arange(2**24, dtype=np.float32) * np.float32(2.0**-24)
-    key = ((np.arange(2**23, dtype=np.uint32) | 0x3F800000).view(np.float32)
-           - np.float32(1.0))
-    return (torch.from_numpy(np.array(neg_log1p(slab))),
-            torch.from_numpy(np.array(neg_log1p(key))))
-
-
-@pytest.fixture
-def xla_log1p(monkeypatch, xla_log1p_tables):
-    slab, key = xla_log1p_tables
-
-    def exp_from_u(u):  # u is a slab uniform: a multiple of 2^-24
-        idx = (u.double() * 2**24).long()
-        assert torch.equal(idx.double() * 2.0**-24, u.double())
-        return slab[idx]
-
-    def exponential(k, shape=()):  # the key sampler's 23-bit uniforms
-        return key[threefry.bits32(k, shape) >> 9]
-
-    for mod in (clocks, arrivals, waittime):
-        monkeypatch.setattr(mod, "exp_from_u", exp_from_u)
-    monkeypatch.setattr(threefry, "exponential", exponential)
 
 
 # ---------------------------------------------------------------------------
