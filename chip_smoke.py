@@ -2,17 +2,20 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits nonzero):
+Phases (each prints its lines and then ``phase <name>: <s> s``, its wall
+seconds; the run ends with its total; any failure raises and exits
+nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the six CUDA kernel libraries from
+2. build the seven CUDA kernel libraries from
    ``src/repro_torch/kernels/*/csrc`` (sweep with its three traversals,
-   the single queue, the market and the regions, flash attention on the
+   the single queue, the market and the regions, twice: without the
+   telemetry fold and with it, ``sweep_tel``; flash attention on the
    tensor cores and on the CUDA cores, decode attention, SSD on the tensor
    cores and on the CUDA cores), one ``nvcc`` each, all started together,
    with ptxas's registers, shared memory and spills (the two tensor-core
-   kernels and the seven region builds must spill nothing, and ptxas must
-   not serialise flash's wgmma);
+   kernels and the fourteen region builds must spill nothing, and ptxas
+   must not serialise flash's wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
@@ -182,17 +185,43 @@ Phases (each prints one line; any failure raises and exits nonzero):
    ``region_jobs``, ``routed_home`` ≤ admitted ≤ ``jobs_arrived``, and
    ``avg_cost_job`` above the preemption-priced pooled LP floor
    (``core/lp.py::region_knapsack_lp``) at its realised delay, within
-   5e-3·k; revocations, resumes and cross-region admissions above 0.
+   5e-3·k; revocations, resumes and cross-region admissions above 0;
+19. the sweep kernel's three traversals with telemetry
+   (``repro_torch.obs.Telemetry``) against their plain versions on the
+   card: the single queue's three_phase and single_slot, the market's
+   heterogeneous_notice and eight_pools_mixed, the regions' least_loaded
+   and eight_regions parity configurations at their depths, each with
+   ``Telemetry(trace_cap=32)`` or a narrow ``Telemetry(n_bins=16,
+   wait_lo=0.1, wait_hi=100, trace_cap=8)`` whose ring wraps: every
+   field bitwise, floats and rings included, and the base stats bitwise
+   the same kernel's run without telemetry;
+20. the four main-path fleets at full width with ``Telemetry()``: the
+   kernel alone off and on in turns (off, on, on, off; the on/off ratio,
+   and the bound with the fold's operations and bytes), the base stats
+   bitwise the off run's; each entry point (``run_sweep`` for both
+   single-queue fleets, ``run_market_sweep``, ``run_region_sweep``) with
+   the launch count set to 0 just before and read just after (one
+   launch), equal to the summary of the kernel's own call;
+   tests/test_obs.py's ledgers and their region analogues at every lane;
+   the single-slot fleet's P99 wait within a bin of its deterministic
+   wait; the kernel against its plain version with ``Telemetry()`` on the
+   main-path inputs over the first 512 events (every field bitwise, both
+   timed); then at cut depth (4,608 events) with a ring as wide as the
+   windows, every lane's P50/P90/P99 wait sketch within γ − 1 of the
+   ring's exact quantiles, and lane 0's Perfetto trace well-formed.
 
 The next-to-last line is a JSON object describing the five ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
 with each route's time and launches; the sweep's three traversals as
-three entries); the last is ``{"ok": true, "device": {...}}``.
+three entries, each with its telemetry time, bound, on/off ratio and
+launches); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -220,7 +249,7 @@ from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
                                      init_market_state, init_region_state,
                                      lane_params, market_lane_params,
                                      run_market_sweep, run_region_sweep,
-                                     run_sweep, summarize_market,
+                                     run_sweep, summarize, summarize_market,
                                      summarize_region)
 from repro_torch.core.lp import (market_knapsack_lp,  # noqa: E402
                                  region_knapsack_lp)
@@ -269,6 +298,9 @@ from repro_torch.layers.norms import rms_norm  # noqa: E402
 from repro_torch.layers.ssm import mamba_block  # noqa: E402
 from repro_torch.models.base import cross_entropy_chunked  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.obs import (Telemetry, device_trace_records,  # noqa: E402
+                             summarize_telemetry, to_perfetto)
+from repro_torch.obs.stats import drop_windows  # noqa: E402
 from repro_torch.serving.engine import (BatchedServer,  # noqa: E402
                                         SpotServingFrontend)
 
@@ -703,52 +735,71 @@ def phase_main_path(entry: dict) -> None:
 
 #: ptxas's report of each sweep instantiation, (G, slots a thread) -> line
 SWEEP_PTXAS: dict[tuple[int, int], str] = {}
+#: ... of each telemetry instantiation (sweep.TEL_LIBRARY), by kernel name
+TEL_PTXAS: dict[str, dict[tuple[int, int], str]] = {}
 
 
 def sweep_ptxas(report: str, kernel: str = "sweep_kernel"
                 ) -> dict[tuple[int, int], str]:
     """(G, SPT) -> ptxas's registers and spills line of that instantiation
-    of ``kernel`` (``sweep_kernel<G, SPT>`` or ``market_kernel<G, SPT>``,
-    mangled ``ILiGELiSPTE``)."""
+    of ``kernel`` (``sweep_kernel<G, SPT, TEL>``, ``market_kernel`` or
+    ``region_kernel``, mangled ``ILiGELiSPTELbTELE``; a library holds one
+    TEL)."""
     out, key = {}, None
+    pattern = re.compile(rf"{kernel}ILi(\d+)ELi(\d+)E")
     for line in report.splitlines():
         if "Compiling entry" in line:
-            key = None
-            if f"{kernel}ILi" in line:
-                g, spt = line.split(f"{kernel}ILi", 1)[1].split("EE", 1)[0] \
-                    .split("ELi")
-                key = (int(g), int(spt))
+            m = pattern.search(line)
+            key = (int(m.group(1)), int(m.group(2))) if m else None
         elif key and ("Used" in line or "spill" in line):
             out[key] = (out.get(key, "") + " "
                         + line.split(":", 1)[-1].strip()).strip()
     return out
 
 
+def tel_slice_bytes(n_bins: int, events_a_pass: int) -> int:
+    """Shared memory a lane's telemetry slice takes in csrc/sweep.cu
+    (``tel_stride`` int32 words: two histograms, two location counts of
+    kMaxLocs, four words for each event a pass stages: kDraws 64 in the
+    single queue, kMarketPass 16 in the market and regions)."""
+    return 4 * ((2 * n_bins + 2 * sweep.MAX_POOLS + 4 * events_a_pass) | 1)
+
+
+def no_spill(line: str) -> bool:
+    return "0 bytes spill stores, 0 bytes spill loads" in line
+
+
 def phase_build() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    results = _build.build(sweep.LIBRARY, flash_mod.TC_LIBRARY,
-                           flash_mod.LIBRARY, decode_mod.LIBRARY,
-                           ssd_mod.TC_LIBRARY, ssd_mod.LIBRARY, verbose=True)
+    results = _build.build(sweep.LIBRARY, sweep.TEL_LIBRARY,
+                           flash_mod.TC_LIBRARY, flash_mod.LIBRARY,
+                           decode_mod.LIBRARY, ssd_mod.TC_LIBRARY,
+                           ssd_mod.LIBRARY, verbose=True)
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
-        if res.library == sweep.LIBRARY:
+        if res.library in (sweep.LIBRARY, sweep.TEL_LIBRARY):
             # one instantiation a (G, slots a thread) the wrapper can pick
-            SWEEP_PTXAS.update(sweep_ptxas(res.ptxas))
-            MARKET_PTXAS.update(sweep_ptxas(res.ptxas, "market_kernel"))
-            REGION_PTXAS.update(sweep_ptxas(res.ptxas, "region_kernel"))
-            for name, table in (("sweep_kernel", SWEEP_PTXAS),
-                                ("market_kernel", MARKET_PTXAS),
-                                ("region_kernel", REGION_PTXAS)):
+            tel = res.library == sweep.TEL_LIBRARY
+            tables = {name: sweep_ptxas(res.ptxas, name)
+                      for name in ("sweep_kernel", "market_kernel",
+                                   "region_kernel")}
+            if tel:
+                TEL_PTXAS.update(tables)
+            else:
+                SWEEP_PTXAS.update(tables["sweep_kernel"])
+                MARKET_PTXAS.update(tables["market_kernel"])
+                REGION_PTXAS.update(tables["region_kernel"])
+            for name, table in tables.items():
                 for key, line in sorted(table.items()):
-                    print(f"  {name}<G {key[0]}, SPT {key[1]}>: {line}",
-                          flush=True)
-            # the region builds must not spill
-            for key, line in REGION_PTXAS.items():
-                if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    print(f"  {name}<G {key[0]}, SPT {key[1]}, TEL "
+                          f"{str(tel).lower()}>: {line}", flush=True)
+            # the region builds must not spill, with telemetry or without
+            for key, line in tables["region_kernel"].items():
+                if not no_spill(line):
                     raise AssertionError(f"region_kernel<G {key[0]}, SPT "
-                                         f"{key[1]}>: {line}")
+                                         f"{key[1]}, TEL {tel}>: {line}")
             continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
@@ -774,7 +825,9 @@ def phase_build() -> None:
           f"1), {decode_mod.smem_bytes(torch.float32, 1, HEAD_DIM)}"
           f" B (f32); SSD on the tensor cores {ssd_mod.tc_smem_bytes(SSD_Q)} "
           f"B, on the CUDA cores {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); "
-          f"the sweep none", flush=True)
+          f"the sweep's telemetry slice a lane at 64 bins "
+          f"{tel_slice_bytes(64, 64)} B (single queue), "
+          f"{tel_slice_bytes(64, 16)} B (market, regions)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2749,7 +2802,437 @@ def phase_region_main_path(region: dict, kernel_summary: dict) -> None:
           f"least {worst:.3e}·k (limit -5e-3·k)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the three traversals with the fold (sweep.TEL_LIBRARY)
+# ---------------------------------------------------------------------------
+#: the main path's telemetry, and the parity phase's two: a ring of 32
+#: records a window, and a narrow sketch whose ring of 8 wraps
+TEL_MAIN = Telemetry()
+TEL_RING = Telemetry(trace_cap=32)
+TEL_NARROW = Telemetry(n_bins=16, wait_lo=0.1, wait_hi=100.0, trace_cap=8)
+#: the cut-depth fleets' ring: as wide as their widest window
+TEL_WIDE = Telemetry(trace_cap=max(WIDTH_PLAN))
+#: the depth at which each traversal with telemetry is held to, and timed
+#: beside, its plain version on the main-path inputs: the cut-depth plan's
+#: first window (the plain version's time grows with the events; the
+#: earlier phases hold and time 4,608 without telemetry)
+TEL_CUT_PLAN = WIDTH_PLAN[:1]
+
+
+def tel_ops_per_lane_event(loop: str, ring: bool) -> tuple[int, int]:
+    """(INT32, FP32) operations the telemetry fold adds to a lane-event,
+    counted from ``repro_torch.obs.stats.telemetry_update`` as the kernel
+    does it.  Each of the two bins: 5 FP32 (max, log counted as one,
+    subtract, multiply, floor) and 6 INT32 (convert, +1, two clamps, the
+    address, the leader's atomic add); the event type: 3 INT32 selects;
+    the four type counts and five counters: 9 INT32 adds in registers; a
+    location count: 1 INT32 (an address and an atomic add on the rare
+    defect or resume, counted as one); the validity masks: 2 INT32 (single
+    queue) or 4; the location: 3 INT32 selects (market, regions); the
+    wait sample: 1 FP32 select (single queue) or 2; the cost: 1 FP32
+    select, or 3 and 2 adds.  A ring (``trace_cap > 0``) adds 8 INT32: the
+    modulo, the slot address, five stores, the count."""
+    if loop == "single":
+        n_int, n_fp = 2 * 6 + 3 + 9 + 1 + 2, 2 * 5 + 1 + 1
+    else:
+        n_int, n_fp = 2 * 6 + 3 + 9 + 1 + 4 + 3, 2 * 5 + 2 + 5
+    return n_int + (8 if ring else 0), n_fp
+
+
+def tel_bytes_moved(lanes: int, plan, tel: Telemetry, n_locs: int) -> int:
+    """Bytes the fold adds: a window's accumulators written once, and each
+    ring record a window keeps written once (20 B, and its count)."""
+    per_window = 4 * (2 * tel.n_bins + 4 + 5 + 2 * n_locs)
+    ring = (sum(min(n, tel.trace_cap) * 20 + 4 for n in plan)
+            if tel.trace_cap else 0)
+    return lanes * (len(plan) * per_window + ring)
+
+
+def tel_bound_ms(loop: str, lanes: int, plan, tel: Telemetry | None,
+                 rmax: int = 64) -> tuple[float, str]:
+    """:func:`bound_ms` of a main-path fleet's traversal (``loop``: single,
+    market or region), with the fold's operations and bytes where ``tel``
+    is given."""
+    w = len(plan)
+    if loop == "single":
+        n_cols = _engine_layout(JOB, SPOT, ThreePhaseKernel()).n_cols
+        ops, n_bytes = ops_per_lane_event(rmax, n_cols), bytes_moved(
+            lanes, rmax, w)
+        n_locs = 1
+    elif loop == "market":
+        n_cols = _market_layout(JOB, BENCH_MARKET, MARKET_KERNEL, True).n_cols
+        ops = market_ops_per_lane_event(64, n_cols, BENCH_MARKET.n_pools)
+        n_bytes = market_bytes_moved(lanes, 64, BENCH_MARKET.n_pools, w)
+        n_locs = BENCH_MARKET.n_pools
+    else:
+        slots, n_locs = BENCH_TOPOLOGY.total_slots, BENCH_TOPOLOGY.n_regions
+        n_cols = _region_layout(BENCH_TOPOLOGY, REGION_KERNEL, True).n_cols
+        ops = region_ops_per_lane_event(slots, n_cols, n_locs,
+                                        sweep.group_size(slots))
+        n_bytes = region_bytes_moved(lanes, slots, n_locs, w)
+    if tel is not None:
+        ops = tuple(a + b for a, b in zip(
+            ops, tel_ops_per_lane_event(loop, bool(tel.trace_cap))))
+        n_bytes += tel_bytes_moved(lanes, plan, tel, n_locs)
+    return bound_ms(lanes, plan, ops, n_bytes)
+
+
+def hold_base(name: str, a, b, what: str = "base, telemetry off vs on"
+              ) -> None:
+    """Every field of two stats blocks bitwise (``None`` fields on both)."""
+    for field in a._fields:
+        x, y = getattr(a, field), getattr(b, field)
+        if x is None and y is None:
+            continue
+        if x is None or y is None or not torch.equal(x, y):
+            bad = (None if x is None or y is None
+                   else (x != y).nonzero()[0].tolist())
+            raise AssertionError(f"telemetry {name}: {field} ({what}) "
+                                 f"differs at lane/window {bad}")
+
+
+def hold_tel(name: str, ref, ker, off) -> None:
+    """Kernel against plain version with telemetry: every field of both
+    blocks bitwise, floats and rings included; and the kernel's base stats
+    bitwise its own run without telemetry (``off``)."""
+    (base_r, tel_r), (base_k, tel_k) = ref, ker
+    hold_base(name, base_r, base_k, "base, plain vs kernel")
+    hold_base(name, tel_r, tel_k, "telemetry, plain vs kernel")
+    hold_base(name, off, base_k)
+
+
+def tel_line(tel: Telemetry, ts) -> str:
+    """What a telemetry run saw, for the phase's lines."""
+    events = ts.events.sum(dim=(0, 1)).tolist()
+    ring = ""
+    if tel.trace_cap:
+        n = ts.ring_n
+        ring = (f"; ring {tel.trace_cap}: {int(n.sum())} records, "
+                f"{int((n - tel.trace_cap).clamp_min(0).sum())} dropped")
+    return (f"Telemetry(n_bins={tel.n_bins}, trace_cap={tel.trace_cap}): "
+            f"events by type {events}, {int(ts.wait_hist.sum())} waits, "
+            f"{int(ts.cost_hist.sum())} costs binned{ring}")
+
+
+def phase_telemetry_parity() -> None:
+    """Each traversal with telemetry against its plain version on the card,
+    on a named subset of its parity configurations at their depths: the
+    single queue's three_phase (rmax 8) and single_slot (6,000 events,
+    2,048-event windows after 512), the market's heterogeneous_notice and
+    eight_pools_mixed (MARKET_PLAN), the regions' least_loaded and
+    eight_regions (REGION_PLAN), each with one of the two telemetries:
+    every field bitwise, and the base stats bitwise the kernel's own run
+    without telemetry."""
+    plan = _window_plan(6_000, 2_048, 512)
+    for (name, job, spot, kernel, rmax, params, lanes), tel in (
+            (PARITY_CASES[0], TEL_RING), (PARITY_CASES[2], TEL_NARROW)):
+        state0, p, k = fleet(job, spot, kernel, rmax, params, lanes, 7)
+        args = (job, spot, kernel, rmax, state0, p, k, plan)
+        _, ref = batched_event_windows_ref(*args, tel)
+        _, ker = sweep.batched_event_windows(*args, tel)
+        _, off = sweep.batched_event_windows(*args)
+        torch.cuda.synchronize()
+        hold_tel(f"single {name}", ref, ker, off)
+        print(f"telemetry parity single queue {name}: {lanes} lanes, rmax "
+              f"{rmax}, plan {plan}, {tel_line(tel, ker[1])}: every field "
+              f"bitwise, the base stats bitwise the run without telemetry",
+              flush=True)
+    rng = np.random.default_rng(18)
+    for (name, market, kernel, rmax, params, cfg), tel in (
+            (MARKET_CASES[1], TEL_RING), (MARKET_CASES[8], TEL_NARROW)):
+        p, mp = case_inputs(market.params(), params, cfg, MARKET_LANES, rng,
+                            "spot_scale")
+        state0, p, mp, k, pre = market_fleet(market, kernel, rmax, p,
+                                             MARKET_LANES, 7, mp)
+        args = (JOB, market, kernel, rmax, pre, state0, p, mp, k,
+                MARKET_PLAN)
+        _, ref = market_event_windows_ref(*args, tel)
+        _, ker = sweep.market_event_windows(*args, tel)
+        _, off = sweep.market_event_windows(*args)
+        torch.cuda.synchronize()
+        hold_tel(f"market {name}", ref, ker, off)
+        print(f"telemetry parity market {name}: P {market.n_pools}, "
+              f"{MARKET_LANES} lanes, rmax {rmax}, plan {MARKET_PLAN}, "
+              f"{tel_line(tel, ker[1])}: every field bitwise, the base stats "
+              f"bitwise the run without telemetry", flush=True)
+    rng = np.random.default_rng(19)
+    for (name, topo, kernel, params, cfg), tel in (
+            (REGION_CASES[3], TEL_RING), (REGION_CASES[9], TEL_NARROW)):
+        p, rp = case_inputs(topo.params(), params, cfg, REGION_LANES, rng,
+                            "job_scale")
+        args = region_fleet(topo, kernel, p, REGION_LANES, 7, rp)
+        _, ref = region_event_windows_ref(*args, REGION_PLAN, tel)
+        _, ker = sweep.region_event_windows(*args, REGION_PLAN, tel)
+        _, off = sweep.region_event_windows(*args, REGION_PLAN)
+        torch.cuda.synchronize()
+        hold_tel(f"region {name}", ref, ker, off)
+        print(f"telemetry parity regions {name}: R {topo.n_regions}, slots "
+              f"{topo.total_slots}, {REGION_LANES} lanes, plan "
+              f"{REGION_PLAN}, {tel_line(tel, ker[1])}: every field "
+              f"bitwise, the base stats bitwise the run without telemetry",
+              flush=True)
+
+
+def tel_fleets():
+    """The main-path fleets: (key, loop, the kernel's call on its full-size
+    inputs given a telemetry, the entry point's call given a telemetry,
+    the launch counter's owner, the summary function)."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    key = threefry.key(MAIN_SEED)
+    kw = dict(k=K_GRID[None, :], n_events=N_EVENTS, key=key,
+              n_seeds=N_SEEDS, burn_in=BURN_IN)
+    out = []
+    for name, kernel, params, rmax in MAIN_PATHS:
+        state0, p, k = main_inputs(kernel, params, rmax)
+        out.append((name, "single", rmax, functools.partial(
+            lambda tel, a: sweep.batched_event_windows(*a, tel),
+            a=(JOB, SPOT, kernel, rmax, state0, p, k, plan)),
+            functools.partial(lambda tel, kernel, params, rmax: run_sweep(
+                JOB, SPOT, kernel, params, rmax=rmax, telemetry=tel, **kw),
+                kernel=kernel, params=params, rmax=rmax),
+            sweep.batched_event_windows, summarize))
+    margs = market_main_inputs()
+    out.append(("market", "market", 64, functools.partial(
+        lambda tel: sweep.market_event_windows(*margs, plan, tel)),
+        lambda tel: run_market_sweep(JOB, BENCH_MARKET, MARKET_KERNEL,
+                                     {"r": R_GRID[:, None]}, rmax=64,
+                                     telemetry=tel, **kw),
+        sweep.market_event_windows, summarize_market))
+    rargs = region_main_inputs()
+    out.append(("region", "region", 64, functools.partial(
+        lambda tel: sweep.region_event_windows(*rargs, plan, tel)),
+        lambda tel: run_region_sweep(BENCH_TOPOLOGY, REGION_KERNEL,
+                                     {"r": R_GRID[:, None]}, telemetry=tel,
+                                     **kw),
+        sweep.region_event_windows, summarize_region))
+    return plan, out
+
+
+def tel_ledgers(loop: str, out: dict) -> dict[str, bool]:
+    """tests/test_obs.py's ledgers and their region analogues, at every
+    lane of an entry point's result."""
+    ev = out["events"]
+    checks = {
+        "events = n_events": np.all(ev.sum(-1) == N_EVENTS),
+        "spot_starts = spot_served": np.array_equal(out["spot_starts"],
+                                                    out["spot_served"]),
+        "loc_defects = deadline_defects": np.array_equal(
+            out["loc_defects"].sum(-1), out["deadline_defects"]),
+        "job events = jobs_arrived": np.array_equal(ev[..., 0],
+                                                    out["jobs_arrived"])}
+    if loop == "single":
+        checks.update({
+            "no preemption": np.all(ev[..., 2] == 0)
+            and np.all(out["preempts_fired"] == 0),
+            "rejects + deadline_defects = ondemand": np.array_equal(
+                out["rejects"] + out["deadline_defects"], out["ondemand"]),
+            "waits = served + defects": np.array_equal(
+                out["wait_hist"].sum(-1),
+                out["spot_served"] + out["deadline_defects"])})
+        return checks
+    locs = "pool" if loop == "market" else "region"
+    checks.update({
+        "preempts_fired >= preemptions": np.all(
+            out["preempts_fired"] >= out["preemptions"]),
+        "preempt events = preempts_fired": np.array_equal(
+            ev[..., 2], out["preempts_fired"]),
+        "notices_honored = resumed = loc_resumed": np.array_equal(
+            out["notices_honored"], out["resumed"]) and np.array_equal(
+            out["loc_resumed"].sum(-1), out["resumed"]),
+        f"spot events = sum of {locs}_spot_arrivals": np.array_equal(
+            ev[..., 1], out[f"{locs}_spot_arrivals"].sum(-1)),
+        "rejects + deadline_defects + revoked defects = ondemand":
+            np.array_equal(out["rejects"] + out["deadline_defects"]
+                           + out["preemptions"] - out["resumed"],
+                           out["ondemand"]),
+        "waits = served + defects + revocations": np.array_equal(
+            out["wait_hist"].sum(-1), out["spot_served"]
+            + out["deadline_defects"] + out["preemptions"])})
+    if loop == "region":
+        checks["job events = sum of region_jobs"] = np.array_equal(
+            ev[..., 0], out["region_jobs"].sum(-1))
+    return checks
+
+
+def hold_sketch(name: str, ts, time_windows, tel: Telemetry) -> float:
+    """Every lane's P50/P90/P99 wait sketch within γ − 1 (give or take
+    ``wait_lo``) of the exact quantiles replayed from a ring that never
+    wrapped (sorted on the card); lane 0's ring exported by
+    ``to_perfetto`` as a well-formed trace.  Returns the largest relative
+    distance of a sketch from the exact value."""
+    cap = tel.trace_cap
+    if int(ts.ring_n.max()) > cap:
+        raise AssertionError(f"sketch {name}: the ring wrapped")
+    keep = ((torch.arange(cap, device=ts.ring_n.device) < ts.ring_n[..., None])
+            & (ts.ring_val >= 0))
+    lanes = keep.shape[0]
+    vals = torch.where(keep, ts.ring_val, torch.inf).reshape(lanes, -1)
+    vals = vals.sort(dim=1).values
+    count = keep.reshape(lanes, -1).sum(1)
+    out = summarize_telemetry(dataclasses.replace(tel, trace_cap=0), ts)
+    re, worst = tel.rel_error(), 0.0
+    for q, key in ((0.50, "p50_wait"), (0.90, "p90_wait"),
+                   (0.99, "p99_wait")):
+        idx = torch.clamp_min(torch.ceil(q * count).long() - 1, 0)
+        exact = vals[torch.arange(lanes, device=vals.device), idx] \
+            .double().cpu().numpy()
+        n = count.cpu().numpy()
+        est = out[key]
+        ok = (n == 0) | ((exact / (1 + re) - tel.wait_lo <= est)
+                         & (est <= exact * (1 + re) + tel.wait_lo))
+        if not ok.all():
+            bad = int(np.flatnonzero(~ok)[0])
+            raise AssertionError(f"sketch {name}: lane {bad} {key} "
+                                 f"{est[bad]:.5g}, exact {exact[bad]:.5g}")
+        sel = (n > 0) & (exact > tel.wait_lo)
+        worst = max(worst, float(np.max(np.abs(est[sel] / exact[sel] - 1),
+                                         initial=0.0)))
+    lane0 = {field[len("ring_"):]: getattr(ts, field)[:1].cpu().numpy()
+             for field in ("ring_t", "ring_type", "ring_loc", "ring_qlen",
+                           "ring_val", "ring_n")}
+    records = device_trace_records(lane0, time_windows[:1].cpu().numpy())
+    doc = json.loads(json.dumps(to_perfetto(records, label=name)))
+    inst = [e for e in doc["traceEvents"] if e["ph"] == "i"]
+    ts_ = [e["ts"] for e in inst]
+    if (len(inst) != int(lane0["n"].sum()) or ts_ != sorted(ts_)
+            or {e["ph"] for e in doc["traceEvents"]} != {"M", "i", "C"}):
+        raise AssertionError(f"sketch {name}: a malformed Perfetto trace")
+    return worst
+
+
+def phase_telemetry_main_path(entries: dict[str, dict]) -> None:
+    """The main-path fleets at full width with ``Telemetry()``: the kernel
+    alone with telemetry off and on in turns (off, on, on, off), its base
+    stats bitwise the off run's; each entry point with the launch count set
+    to 0 just before and read just after (one launch), its result equal to
+    the summary of the kernel's own call, the ledgers at every lane, the
+    single-slot fleet's P99 wait within a bin of its deterministic wait;
+    then at cut depth, a ring as wide as the windows: every lane's sketch
+    within γ − 1 of the ring's exact quantiles, and a Perfetto trace."""
+    plan, fleets = tel_fleets()
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    for name, loop, rmax, kernel_call, entry_call, owner, summary in fleets:
+        entry = entries[loop]
+        times = {None: [], TEL_MAIN: []}
+        for tel in (None, TEL_MAIN, TEL_MAIN, None):
+            ms, (_, stats) = cuda_ms(lambda: kernel_call(tel))
+            times[tel].append(ms)
+            if tel is None:
+                off = stats
+            else:
+                on = stats
+        hold_base(f"{name} full width", off, on[0])
+        off_ms, on_ms = (float(np.mean(times[t])) for t in (None, TEL_MAIN))
+        b_ms, b_by = tel_bound_ms(loop, lanes, plan, TEL_MAIN, rmax)
+        suffix = "" if name in ("three_phase", "market", "region") \
+            else f"_{name}"
+        entry.update({f"telemetry{suffix}_ms": on_ms,
+                      f"telemetry{suffix}_off_ms": off_ms,
+                      f"telemetry{suffix}_bound_ms": b_ms,
+                      f"telemetry{suffix}_ratio": on_ms / off_ms})
+        print(f"telemetry main-size kernel {name}: {lanes} lanes × "
+              f"{sum(plan)} events, off {times[None][0]:.1f} / "
+              f"{times[None][1]:.1f} ms, on {times[TEL_MAIN][0]:.1f} / "
+              f"{times[TEL_MAIN][1]:.1f} ms: on/off {on_ms / off_ms:.4f}; "
+              f"bound with the fold {b_ms:.1f} ms ({b_by}: "
+              f"{100 * b_ms / on_ms:.1f}%); base stats bitwise the off run",
+              flush=True)
+
+        owner.launches = 0
+        t0 = time.perf_counter()
+        out = entry_call(TEL_MAIN)
+        wall = time.perf_counter() - t0
+        launches = owner.launches
+        entry["telemetry_launches"] = entry.get("telemetry_launches", 0) \
+            + launches
+        if launches != 1:
+            raise AssertionError(f"telemetry {name}: the entry point "
+                                 f"launched the kernel {launches} times")
+        base, ts = on
+        want = summary((type(base)(*(x[:, 1:] for x in base)),
+                        drop_windows(ts, 1)), TEL_MAIN)
+        for field, v in want.items():
+            if not np.array_equal(out[field], v.reshape(out[field].shape)):
+                raise AssertionError(f"telemetry {name}: {field} differs "
+                                     f"from the kernel's own call")
+        checks = tel_ledgers(loop, out)
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"telemetry {name}: {what} fails")
+        extra = ""
+        if name == "single_slot":
+            w = np.broadcast_to(WAITS[:, None, None], out["p99_wait"].shape)
+            gamma = 1 + TEL_MAIN.rel_error()
+            pos = w > 0
+            limit = w * gamma * (1 + 1e-5) + TEL_MAIN.wait_lo
+            if not np.all(out["p99_wait"][pos] <= limit[pos]):
+                raise AssertionError("telemetry single_slot: a P99 wait "
+                                     "above its deterministic wait's bin")
+            extra = (f"; P99 wait within a bin of the deterministic wait at "
+                     f"every lane (at most "
+                     f"{np.max(out['p99_wait'][pos] / w[pos]):.4f}·w, limit "
+                     f"γ = {gamma:.4f})")
+        print(f"telemetry main path {name}: entry point {wall:.3f} s wall, "
+              f"kernel launches {launches}, equal to the kernel's own call; "
+              f"P50/P90/P99 wait (mean over lanes) "
+              f"{out['p50_wait'].mean():.4f} / {out['p90_wait'].mean():.4f}"
+              f" / {out['p99_wait'].mean():.4f} h; {', '.join(checks)} at "
+              f"every lane{extra}", flush=True)
+
+    # TEL_CUT_PLAN: kernel and plain version with Telemetry(), bitwise; cut
+    # depth: the kernel with a ring as wide as the widest window, for the
+    # sketches
+    _, kernel, params, rmax = MAIN_PATHS[0]
+    for name, loop, args, kernel_fn, plain_fn in (
+            ("three_phase", "single",
+             (JOB, SPOT, kernel, rmax, *main_inputs(kernel, params, rmax)),
+             sweep.batched_event_windows, batched_event_windows_ref),
+            ("market", "market", market_main_inputs(),
+             sweep.market_event_windows, market_event_windows_ref),
+            ("region", "region", region_main_inputs(),
+             sweep.region_event_windows, region_event_windows_ref)):
+        kernel_fn(*args, TEL_CUT_PLAN, TEL_MAIN)  # warm-up
+        cut_ms, (_, ker) = cuda_ms(
+            lambda: kernel_fn(*args, TEL_CUT_PLAN, TEL_MAIN), 3)
+        plain_ms, (_, ref) = cuda_ms(
+            lambda: plain_fn(*args, TEL_CUT_PLAN, TEL_MAIN))
+        hold_base(f"{name} cut depth", ref[0], ker[0],
+                  "base, plain vs kernel")
+        hold_base(f"{name} cut depth", ref[1], ker[1],
+                  "telemetry, plain vs kernel")
+        b_ms, _ = tel_bound_ms(loop, lanes, TEL_CUT_PLAN, TEL_MAIN, rmax)
+        _, (base, ts) = kernel_fn(*args, WIDTH_PLAN, TEL_WIDE)
+        worst = hold_sketch(name, ts, base.time_elapsed, TEL_WIDE)
+        entries[loop].update(telemetry_cut_ms=cut_ms,
+                             telemetry_cut_bound_ms=b_ms,
+                             telemetry_plain_ms=plain_ms,
+                             sketch_worst_rel=worst)
+        print(f"telemetry cut depth {name}: {lanes} lanes, plan "
+              f"{TEL_CUT_PLAN}, Telemetry(): kernel {cut_ms:.3f} ms (bound "
+              f"{b_ms:.4f} ms), plain {plain_ms:.1f} ms, every field "
+              f"bitwise; plan {WIDTH_PLAN} with a ring of "
+              f"{TEL_WIDE.trace_cap}: every lane's P50/P90/P99 wait within "
+              f"γ − 1 = {TEL_WIDE.rel_error():.4f} of the ring's exact "
+              f"quantiles (largest distance {worst:.4f}); lane 0's Perfetto "
+              f"trace well-formed", flush=True)
+
+
+#: (phase, wall seconds) of this run, in order
+PHASE_SECONDS: list[tuple[str, float]] = []
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)``, print its wall seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    seconds = time.perf_counter() - t0
+    PHASE_SECONDS.append((phase.__name__, seconds))
+    print(f"phase {phase.__name__}: {seconds:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2763,17 +3246,17 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    timed(phase_build)
 
     entry = {"name": "sweep_batched_event_windows", "route": "cuda",
              "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
              "replaces": "src/repro/kernels/sweep/sweep.py:124",
              "library_ms": None}
-    phase_parity()
-    phase_layouts()
-    phase_width(entry)
-    phase_main_kernel(entry)
-    phase_main_path(entry)
+    timed(phase_parity)
+    timed(phase_layouts)
+    timed(phase_width, entry)
+    timed(phase_main_kernel, entry)
+    timed(phase_main_path, entry)
 
     flash = {"name": "flash_attention_bh", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2787,47 +3270,56 @@ def main() -> int:
                         "decode_attention.cu",
               "replaces": "src/repro/kernels/decode_attention/"
                           "decode_attention.py:69"}
-    phase_attention_parity(flash, decode)
-    model = phase_serving(flash, decode)
-    flash.update(phase_serving_correctness(model))
-    flash.update(phase_profile(model))
+    timed(phase_attention_parity, flash, decode)
+    model = timed(phase_serving, flash, decode)
+    flash.update(timed(phase_serving_correctness, model))
+    flash.update(timed(phase_profile, model))
     del model
     torch.cuda.empty_cache()
-    phase_float32_prefill(flash)
+    timed(phase_float32_prefill, flash)
     torch.cuda.empty_cache()
-    phase_attention_timings(flash, decode)
+    timed(phase_attention_timings, flash, decode)
     torch.cuda.empty_cache()
 
     ssd = {"name": "ssd_cuda", "route": "cuda",
            "source": "src/repro_torch/kernels/ssd/csrc/ssd_tc.cu",
            "simt_source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
            "replaces": "src/repro/kernels/ssd/ssd.py:79"}
-    phase_ssd_parity(ssd)
-    phase_mamba_scoring(ssd)
-    phase_mamba_serving(ssd)
+    timed(phase_ssd_parity, ssd)
+    timed(phase_mamba_scoring, ssd)
+    timed(phase_mamba_serving, ssd)
     torch.cuda.empty_cache()
-    phase_ssd_timings(ssd)
+    timed(phase_ssd_timings, ssd)
 
     market = {"name": "sweep_market_event_windows", "route": "cuda",
               "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
               "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
                           "src/repro/core/engine.py:1633 _market_event)",
               "library_ms": None}
-    phase_market_parity()
-    phase_market_degenerate()
-    phase_market_width(market)
-    phase_market_main_path(market, phase_market_main_kernel(market))
+    timed(phase_market_parity)
+    timed(phase_market_degenerate)
+    timed(phase_market_width, market)
+    timed(phase_market_main_path, market,
+          timed(phase_market_main_kernel, market))
 
     region = {"name": "sweep_region_event_windows", "route": "cuda",
               "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
               "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
                           "src/repro/core/engine.py:2836 _region_event)",
               "library_ms": None}
-    phase_region_parity()
-    phase_region_degenerate()
-    phase_region_width(region)
-    phase_region_main_path(region, phase_region_main_kernel(region))
+    timed(phase_region_parity)
+    timed(phase_region_degenerate)
+    timed(phase_region_width, region)
+    timed(phase_region_main_path, region,
+          timed(phase_region_main_kernel, region))
 
+    timed(phase_telemetry_parity)
+    timed(phase_telemetry_main_path,
+          {"single": entry, "market": market, "region": region})
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, "
+          f"{sum(s for _, s in PHASE_SECONDS):.1f} s in its "
+          f"{len(PHASE_SECONDS)} phases", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {

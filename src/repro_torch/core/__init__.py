@@ -18,7 +18,10 @@ The single-queue slice of :mod:`repro.core`:
                            batched-event kernel, :mod:`repro_torch.kernels.sweep`;
                            ``run_market_sweep`` the P-pool market through
                            its market traversal, ``run_region_sweep``
-                           N-region routing through its region traversal)
+                           N-region routing through its region traversal;
+                           ``telemetry=Telemetry(...)`` on all of them adds
+                           the :mod:`repro_torch.obs` sketches, counters and
+                           trace rings)
 """
 from repro_torch.core.analytic import (
     mm1n_pi,
@@ -93,6 +96,7 @@ from repro_torch.core.waittime import (
     InfiniteWait,
     TwoPointWait,
 )
+from repro_torch.obs.stats import Telemetry
 
 __all__ = [
     "ArrivalProcess", "BathtubGCP", "DEFAULT_CHUNK_EVENTS", "Deterministic",
@@ -102,7 +106,8 @@ __all__ = [
     "PanicKernel", "PoolChoiceKernel", "Region", "RegionState",
     "RegionTopology", "RegionView", "RegionWindowStats", "RoutingKernel",
     "SingleSlotKernel", "SingleSlotPolicy", "SpotMarket", "SpotPool",
-    "ThreePhaseKernel", "ThreePhasePolicy", "TwoPointWait", "Uniform",
+    "Telemetry", "ThreePhaseKernel", "ThreePhasePolicy", "TwoPointWait",
+    "Uniform",
     "WindowStats", "as_market", "as_topology", "checkpoint_within_notice",
     "choose_region", "choose_region_u", "cost_lower_bound", "host_route",
     "init_engine_state", "init_market_state", "init_region_state",

@@ -53,6 +53,9 @@ from repro_torch.core.regions import RegionView, RoutingKernel, as_topology
 from repro_torch.core.policies import SingleSlotKernel
 from repro_torch.core.waittime import INF
 from repro_torch.device import resolve_device
+from repro_torch.obs.stats import (Telemetry, drop_windows, lane,
+                                   summarize_telemetry, telemetry_update)
+from repro_torch.obs.timing import annotate
 _ORDER_MAX = 2**31 - 1
 
 #: float32 window sums are re-zeroed every 2**16 events and assembled in
@@ -123,9 +126,14 @@ def init_engine_state(key: torch.Tensor, job: ArrivalProcess,
 def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
                   rmax: int, layout: SlabLayout, carry: EngineState,
                   stats: WindowStats, params: dict, k_cost: torch.Tensor,
-                  x: torch.Tensor) -> tuple[EngineState, WindowStats]:
+                  x: torch.Tensor, tel: Telemetry | None = None
+                  ) -> tuple[EngineState, WindowStats]:
     """One merged event (job arrival / spot slot / wait deadline) for every
-    lane; ``x`` is this event's ``(lanes, n_cols)`` slab row."""
+    lane; ``x`` is this event's ``(lanes, n_cols)`` slab row.  With ``tel``
+    the stats are a ``(base, telemetry)`` pair and the event is also
+    folded into the telemetry block (the JAX body's fold)."""
+    if tel is not None:
+        stats, tstats = stats
     iota = torch.arange(rmax, device=carry.ages.device)
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
@@ -203,7 +211,19 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
         spot_found_empty=stats.spot_found_empty
         + (is_spot & (~has_job)).to(torch.int32),
     )
-    return new_carry, new_stats
+    if tel is None:
+        return new_carry, new_stats
+    no = torch.zeros_like(is_spot)
+    tstats = telemetry_update(
+        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+        is_spot=is_spot, is_pre=no, is_deadline=is_deadline, served=served,
+        resume=no, defected=defected, od_now=od_now,
+        wait_sample=torch.where(served, wait_served, age_defect),
+        wait_valid=served | defected,
+        cost_inc=torch.where(served, np.float32(1.0), k_cost),
+        cost_valid=served | od_now | defected,
+        loc=torch.zeros_like(new_carry.qlen), n_locs=1, qlen=new_carry.qlen)
+    return new_carry, (new_stats, tstats)
 
 
 def _rebase_order(state: EngineState) -> EngineState:
@@ -280,13 +300,32 @@ def _flat_lane_args(params: dict, k_cost: torch.Tensor, keys: torch.Tensor):
     return rep(params), rep(k_cost), keys.repeat(g, 1)
 
 
-def summarize(stats: WindowStats) -> dict:
+def _merge_telemetry(out: dict, telemetry: Telemetry, tstats,
+                     time_elapsed: torch.Tensor) -> dict:
+    """Append the telemetry summary (new keys only) and, with a trace, the
+    per-window durations that place each window's ring on one clock."""
+    tout = summarize_telemetry(telemetry, tstats)
+    if "trace" in tout:
+        tout["trace"]["time_windows"] = np.asarray(time_elapsed.cpu(),
+                                                   np.float64)
+    out.update(tout)
+    return out
+
+
+def summarize(stats: WindowStats,
+              telemetry: Telemetry | None = None) -> dict:
     """Reduce (…, n_windows) sums in float64; derive long-run stats.
 
     Leading batch axes pass through: every value in the returned dict is a
-    numpy array of the batch shape (0-d for a single run).  Raises
-    :class:`NonFiniteStatsError` when a reduced statistic is NaN/inf.
+    numpy array of the batch shape (0-d for a single run).  With
+    ``telemetry``, ``stats`` is the ``(base, telemetry)`` pair and the dict
+    gains :func:`repro_torch.obs.summarize_telemetry`'s keys (the base keys
+    unchanged).  Raises :class:`NonFiniteStatsError` when a reduced
+    statistic is NaN/inf.
     """
+    tstats = None
+    if telemetry is not None:
+        stats, tstats = stats
     s = WindowStats(*(np.asarray(x.cpu(), np.float64).sum(axis=-1)
                       for x in stats))
     _check_finite_stats(s)
@@ -294,7 +333,7 @@ def summarize(stats: WindowStats) -> dict:
     arrived = np.maximum(s.jobs_arrived, 1.0)
     time = np.maximum(s.time_elapsed, 1e-12)
     spot_arr = np.maximum(s.spot_arrivals, 1.0)
-    return {
+    out = {
         "jobs_arrived": s.jobs_arrived,
         "jobs_completed": s.jobs_completed,
         "spot_served": s.spot_served,
@@ -307,6 +346,48 @@ def summarize(stats: WindowStats) -> dict:
         "spot_utilization": (s.spot_arrivals - s.spot_found_empty) / spot_arr,
         "arrival_rate": arrived / time,
     }
+    if telemetry is not None:
+        _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
+    return out
+
+
+def _scalar_or_array(v):
+    """A single run's value: a 0-d value as a float, an array as it is,
+    the trace dict as it is."""
+    if isinstance(v, dict) or np.ndim(v):
+        return v
+    return float(v)
+
+
+def _reshape_sweep(out: dict, grid_shape: tuple, n_seeds: int) -> dict:
+    """Flat ``(lanes, ...)`` summary values as ``grid_shape + (n_seeds,) +
+    trailing``: scalar, per-pool/region, histogram and trace fields."""
+    def shaped(v):
+        return v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
+
+    return {name: ({key: shaped(x) for key, x in v.items()}
+                   if isinstance(v, dict) else shaped(v))
+            for name, v in out.items()}
+
+
+def _without_burn_in(stats, burn_in: int, tel: Telemetry | None):
+    """Stats (or the ``(base, telemetry)`` pair) of ``(lanes, windows,
+    ...)`` without the burn-in window."""
+    if not burn_in:
+        return stats
+    if tel is not None:
+        base, tstats = stats
+        return (_without_burn_in(base, burn_in, None),
+                drop_windows(tstats, 1))
+    return type(stats)(*(x[:, 1:] for x in stats))
+
+
+def _lane0(stats, tel: Telemetry | None):
+    """The first lane's stats (or pair), the lane axis dropped."""
+    if tel is not None:
+        base, tstats = stats
+        return _lane0(base, None), lane(tstats, 0)
+    return type(stats)(*(x[0] for x in stats))
 
 
 def _refuse_gamma(name: str, procs) -> None:
@@ -356,19 +437,18 @@ def _check_run_shape(name: str, n_events: int, burn_in: int) -> None:
 
 
 def _run_lanes(job, spot, kernel, rmax, plan, burn_in, params, k_cost,
-               keys) -> WindowStats:
+               keys, tel: Telemetry | None = None):
     """Flat lanes through the executor of their device; returns (lanes,
-    windows) stats without the burn-in window."""
+    windows) stats (a ``(base, telemetry)`` pair with ``tel``) without the
+    burn-in window."""
     # imported here: the kernels package builds on this module's state types
     from repro_torch.kernels.sweep import batched_events
 
     state0 = init_engine_state(keys, job, spot, rmax)
     _, stats = batched_events(job, spot, kernel, rmax, state0,
                               lane_params(kernel, params, k_cost), k_cost,
-                              plan)
-    if burn_in:
-        stats = WindowStats(*(x[:, 1:] for x in stats))
-    return stats
+                              plan, tel)
+    return _without_burn_in(stats, burn_in, tel)
 
 
 def _lane_tensors(params: dict, k, device):
@@ -403,13 +483,18 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
             rmax: int = 64, burn_in: int = 0,
             chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
             impl: str | None = None, rng: str = "slab",
+            telemetry: Telemetry | None = None, env=None, work=None,
             device=None) -> dict:
     """Run one policy at one parameter point; return long-run scalar stats.
 
     A one-lane :func:`run_sweep` whose lane key is ``key`` itself (no seed
-    split), as in the JAX package.
+    split), as in the JAX package.  ``telemetry`` (a
+    :class:`repro_torch.obs.Telemetry`) adds the P50/P90/P99 wait and cost
+    sketches, the event counters and, with ``trace_cap``, the event rings
+    (``"trace"``); ``env`` and ``work`` are not ported and raise.
     """
     params = {} if params is None else params
+    _check_options("run_sim", (job, spot), kernel, telemetry, env, work)
     device = _resolve(device, impl, rng, "run_sim", (job, spot))
     _check_run_shape("run_sim", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -418,11 +503,12 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
                          f"{grid_shape}")
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_f, k_f,
-                       key.to(device)[None])
-    return {name: float(v)
-            for name, v in summarize(WindowStats(*(x[0] for x in stats))
-                                     ).items()}
+    with annotate(f"repro_torch.run_sim[{device.type}]"):
+        stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_f,
+                           k_f, key.to(device)[None], telemetry)
+    return {name: _scalar_or_array(v)
+            for name, v in summarize(_lane0(stats, telemetry),
+                                     telemetry).items()}
 
 
 def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
@@ -430,7 +516,8 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
               rmax: int = 64, burn_in: int = 0,
               chunk_events: int | None = DEFAULT_CHUNK_EVENTS,
               impl: str | None = None, rng: str = "slab",
-              device=None) -> dict:
+              telemetry: Telemetry | None = None, env=None, work=None,
+              shard: str = "none", mesh=None, device=None) -> dict:
     """Run a whole policy grid × seed fleet in one executor call.
 
     ``params`` is a dict (nested for ``{"wait": {...}}``) whose leaves,
@@ -445,12 +532,18 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     CPU.  ``impl`` may name the executor the device implies (``"cuda"`` on
     a GPU, ``"ref"`` on the CPU) and raises for any other.  ``rng`` defaults to
     ``"slab"``, the only stream ported so far (the JAX package defaults to
-    ``"split"``).
+    ``"split"``).  ``telemetry`` (a :class:`repro_torch.obs.Telemetry`)
+    adds the telemetry summary at every grid point, through the same
+    kernel launch; ``env``, ``work`` and ``shard``/``mesh`` are not ported
+    and raise.
 
     Returns :func:`summarize`'s dict with every value shaped
-    ``grid_shape + (n_seeds,)``.
+    ``grid_shape + (n_seeds,)`` (plus a trailing bin, type or location
+    axis for the telemetry vectors, and ``(windows, cap)`` for the trace).
     """
     params = {} if params is None else params
+    _check_options("run_sweep", (job, spot), kernel, telemetry, env, work,
+                   shard, mesh)
     device = _resolve(device, impl, rng, "run_sweep", (job, spot))
     _check_run_shape("run_sweep", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -458,10 +551,10 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_l, k_l,
-                       keys_l)
-    out = summarize(stats)
-    return {name: v.reshape(grid_shape + (n_seeds,)) for name, v in out.items()}
+    with annotate(f"repro_torch.run_sweep[{device.type}]"):
+        stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_l,
+                           k_l, keys_l, telemetry)
+    return _reshape_sweep(summarize(stats, telemetry), grid_shape, n_seeds)
 
 
 # ===========================================================================
@@ -606,12 +699,16 @@ def _pick(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
                   preempt_on: bool, layout: SlabLayout, carry: MarketState,
                   stats: MarketWindowStats, params: dict, mp: dict,
-                  k_cost: torch.Tensor, x: torch.Tensor
+                  k_cost: torch.Tensor, x: torch.Tensor,
+                  tel: Telemetry | None = None
                   ) -> tuple[MarketState, MarketWindowStats]:
     """One merged event (job arrival / pool spot slot / pool preemption /
     wait deadline) for every lane; ``x`` is this event's slab row.  The
-    JAX package's ``_market_event`` on the slab stream, without its
-    telemetry, environment and work branches."""
+    JAX package's ``_market_event`` on the slab stream with its telemetry
+    fold (``tel``: the stats are a ``(base, telemetry)`` pair), without
+    its environment and work branches."""
+    if tel is not None:
+        stats, tstats = stats
     device = carry.ages.device
     iota = torch.arange(rmax, device=device)
     iota_p = torch.arange(market.n_pools, device=device)
@@ -760,7 +857,27 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         pool_preempted=stats.pool_preempted
         + i32(pre_hit[:, None] & (iota_p == pre_pool[:, None])),
     )
-    return new_carry, new_stats
+    if tel is None:
+        return new_carry, new_stats
+    # a job event's loc is the pool it chose, a deadline's the defecting
+    # job's pool
+    loc = torch.where(is_spot, spot_pool, torch.where(
+        is_pre, pre_pool, torch.where(is_deadline,
+                                      _pick(carry.pool, defect_slot),
+                                      pool_choice)))
+    tstats = telemetry_update(
+        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+        is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
+        served=served, resume=resume, defected=defected, od_now=od_now,
+        wait_sample=torch.where(served, wait_served,
+                                torch.where(defected, age_defect, age_pre)),
+        wait_valid=served | defected | pre_hit,
+        cost_inc=torch.where(served, price_s, 0.0)
+        + torch.where(od_any, k_cost, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        cost_valid=served | od_now | defected | pre_hit,
+        loc=loc, n_locs=market.n_pools, qlen=new_carry.qlen)
+    return new_carry, (new_stats, tstats)
 
 
 def _market_layout(job: ArrivalProcess, market, kernel,
@@ -790,12 +907,17 @@ def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
     return lane_params(kernel, params, k_cost)
 
 
-def summarize_market(stats: MarketWindowStats) -> dict:
+def summarize_market(stats: MarketWindowStats,
+                     telemetry: Telemetry | None = None) -> dict:
     """:func:`summarize`'s dict plus the market's: preemptions, resumed
     legs, spot spend, per-job averages over final completions (spot
     service or on-demand: a resumed leg is not one), and per-pool arrays
     (a trailing pool axis).  Scalar fields reduce the last (window) axis,
-    pool fields the one before it."""
+    pool fields the one before it.  With ``telemetry``, ``stats`` is the
+    ``(base, telemetry)`` pair and the telemetry keys are appended."""
+    tstats = None
+    if telemetry is not None:
+        stats, tstats = stats
     out = summarize(WindowStats(*stats[:len(WindowStats._fields)]))
 
     def red(name):
@@ -818,6 +940,8 @@ def summarize_market(stats: MarketWindowStats) -> dict:
         "pool_preempted": pool_preempted,
         "pool_utilization": pool_served / np.maximum(pool_arrivals, 1.0),
     })
+    if telemetry is not None:
+        _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
     return out
 
 
@@ -864,14 +988,21 @@ def _broadcast_market_params(market, overrides: dict,
 
 def _check_options(name: str, procs, kernel, telemetry, env, work,
                    shard: str = "none", mesh=None) -> None:
-    """Named errors for the market and region options the port does not
-    serve yet; ``procs`` are the run's arrival processes."""
-    for axis, value, item in (("telemetry", telemetry, 10), ("env", env, 10),
-                              ("work", work, 10)):
+    """The ``telemetry=`` type, and named errors for the options the port
+    does not serve yet; ``procs`` are the run's arrival processes."""
+    if telemetry is not None and not isinstance(telemetry, Telemetry):
+        raise TypeError(f"{name}: telemetry must be a "
+                        f"repro_torch.obs.Telemetry or None, got "
+                        f"{telemetry!r}")
+    for axis, value, what in (
+            ("env", env, "the environment timeline, with PanicKernel and "
+             "obs/shocks.py, ROADMAP.md \"Next slices\" item 5"),
+            ("work", work, "the work model, with CantBeLateKernel and "
+             "obs/survival.py, ROADMAP.md \"Next slices\" item 6")):
         if value is not None:
             raise NotImplementedError(
-                f"{name}: {axis}= is not ported yet (ROADMAP.md Queue 1 item "
-                f"{item}); the port runs telemetry=env=work=None")
+                f"{name}: {axis}= ({what}) is not ported yet; the port "
+                f"runs env=work=None")
     if shard != "none" or mesh is not None:
         raise NotImplementedError(
             f"{name}: shard={shard!r}/mesh= (lane sharding) is not ported "
@@ -881,7 +1012,7 @@ def _check_options(name: str, procs, kernel, telemetry, env, work,
         raise NotImplementedError(
             f"{name}: PanicKernel repairs choices against pools that the "
             "environment timeline blacks out; env= is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md \"Next slices\" item 5)")
     _refuse_gamma(name, procs)
 
 
@@ -892,18 +1023,18 @@ def _check_market_options(name: str, market, kernel, telemetry, env, work,
 
 
 def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
-                      params, mp, k_cost, keys) -> MarketWindowStats:
+                      params, mp, k_cost, keys,
+                      tel: Telemetry | None = None):
     """Flat market lanes through the executor of their device; returns
-    (lanes, windows[, P]) stats without the burn-in window."""
+    (lanes, windows[, P]) stats (a ``(base, telemetry)`` pair with
+    ``tel``) without the burn-in window."""
     from repro_torch.kernels.sweep import market_events
 
     state0 = init_market_state(keys, job, market, rmax, mp, preempt_on)
     _, stats = market_events(job, market, kernel, rmax, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), mp,
-                             k_cost, plan)
-    if burn_in:
-        stats = MarketWindowStats(*(x[:, 1:] for x in stats))
-    return stats
+                             k_cost, plan, tel)
+    return _without_burn_in(stats, burn_in, tel)
 
 
 def _one_lane(params: dict, device) -> dict:
@@ -935,7 +1066,8 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     A one-lane :func:`run_market_sweep` whose lane key is ``key`` itself,
     under the market's own pools config; ``params`` leaves are taken as
     they are (a ``(P,)`` ``pool_logits`` is one lane's logits).
-    ``device``, ``impl`` and ``rng`` as in :func:`run_sim`.
+    ``device``, ``impl``, ``rng`` and ``telemetry`` as in :func:`run_sim`
+    (the telemetry's locations are the pools).
     """
     market = as_market(market)
     params = {} if params is None else params
@@ -952,12 +1084,13 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     mp = _config_tensors(_broadcast_market_params(market, {}, ()), device)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_market_lanes(job, market, kernel, rmax, market.preemptible,
-                              plan, burn_in, params_f, mp, k_f,
-                              key.to(device)[None])
-    out = summarize_market(MarketWindowStats(*(x[0] for x in stats)))
-    return {name: float(v) if np.ndim(v) == 0 else v
-            for name, v in out.items()}
+    with annotate(f"repro_torch.run_market_sim[{device.type}]"):
+        stats = _run_market_lanes(job, market, kernel, rmax,
+                                  market.preemptible, plan, burn_in,
+                                  params_f, mp, k_f, key.to(device)[None],
+                                  telemetry)
+    out = summarize_market(_lane0(stats, telemetry), telemetry)
+    return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
 def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
@@ -976,10 +1109,10 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     override the market's pools config per grid point: a scalar fills every
     pool, a ``(P,)`` vector fixes one config, a ``grid_shape + (P,)`` array
     sweeps it.  A ``hazards`` override turns the preemption path on even
-    for a market without hazards.  ``device``, ``impl`` and ``rng`` as in
-    :func:`run_sweep`: a GPU fleet runs the hand-written market kernel, a
-    CPU fleet its plain version.  ``telemetry``, ``env``, ``work`` and
-    ``shard`` are not ported and raise.
+    for a market without hazards.  ``device``, ``impl``, ``rng`` and
+    ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
+    hand-written market kernel, a CPU fleet its plain version.  ``env``,
+    ``work`` and ``shard`` are not ported and raise.
 
     Returns :func:`summarize_market`'s dict: scalar statistics shaped
     ``grid_shape + (n_seeds,)``, pool statistics ``grid_shape + (n_seeds,
@@ -1012,11 +1145,12 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     mp_l = _flat_lane_args(mp, k_f, keys)[0]
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_market_lanes(job, market, kernel, rmax, preempt_on, plan,
-                              burn_in, params_l, mp_l, k_l, keys_l)
-    out = summarize_market(stats)
-    return {name: v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
-            for name, v in out.items()}
+    with annotate(f"repro_torch.run_market_sweep[{device.type}]"):
+        stats = _run_market_lanes(job, market, kernel, rmax, preempt_on,
+                                  plan, burn_in, params_l, mp_l, k_l, keys_l,
+                                  telemetry)
+    return _reshape_sweep(summarize_market(stats, telemetry), grid_shape,
+                          n_seeds)
 
 
 # ===========================================================================
@@ -1171,12 +1305,16 @@ def _kernel_route_slab(kernel, params, qlens, view: RegionView,
 
 def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
                   carry: RegionState, stats: RegionWindowStats, params: dict,
-                  rp: dict, k_cost: torch.Tensor, x: torch.Tensor
+                  rp: dict, k_cost: torch.Tensor, x: torch.Tensor,
+                  tel: Telemetry | None = None
                   ) -> tuple[RegionState, RegionWindowStats]:
     """One merged event (job arrival in some region / region spot slot /
     region preemption / wait deadline) for every lane; ``x`` is this
     event's slab row.  The JAX package's ``_region_event`` on the slab
-    stream, without its telemetry, environment and work branches."""
+    stream with its telemetry fold (``tel``: the stats are a ``(base,
+    telemetry)`` pair), without its environment and work branches."""
+    if tel is not None:
+        stats, tstats = stats
     device = carry.ages.device
     iota_s = torch.arange(topo.total_slots, device=device)
     iota_r = torch.arange(topo.n_regions, device=device)
@@ -1349,7 +1487,26 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
         region_jobs=stats.region_jobs + i32(fire_j),
         region_routed=stats.region_routed + i32(to_target),
     )
-    return new_carry, new_stats
+    if tel is None:
+        return new_carry, new_stats
+    # a job event's loc is its target region, a deadline's the region of
+    # the defecting job's slot
+    loc = torch.where(is_spot, spot_region, torch.where(
+        is_pre, pre_region, torch.where(is_deadline,
+                                        slot_region[defect_slot], target)))
+    tstats = telemetry_update(
+        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+        is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
+        served=served, resume=resume, defected=defected, od_now=od_now,
+        wait_sample=torch.where(served, wait_served,
+                                torch.where(defected, age_defect, age_pre)),
+        wait_valid=served | defected | pre_hit,
+        cost_inc=torch.where(served, price_s, 0.0)
+        + torch.where(od_any, k_cost, 0.0)
+        + torch.where(pre_hit, price_p, 0.0),
+        cost_valid=served | od_now | defected | pre_hit,
+        loc=loc, n_locs=topo.n_regions, qlen=new_carry.qlen.sum(dim=1))
+    return new_carry, (new_stats, tstats)
 
 
 def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
@@ -1371,13 +1528,18 @@ def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
     return layout
 
 
-def summarize_region(stats: RegionWindowStats) -> dict:
+def summarize_region(stats: RegionWindowStats,
+                     telemetry: Telemetry | None = None) -> dict:
     """:func:`summarize`'s dict plus the region's: preemptions, resumed
     legs, spot spend, per-job averages over final completions, the routing
     flow (``routed_home``, ``cross_region_frac``: the share of admissions
     sent away from home) and per-region arrays (a trailing region axis).
     Scalar fields reduce the last (window) axis, region fields the one
-    before it."""
+    before it.  With ``telemetry``, ``stats`` is the ``(base, telemetry)``
+    pair and the telemetry keys are appended."""
+    tstats = None
+    if telemetry is not None:
+        stats, tstats = stats
     out = summarize(WindowStats(*stats[:len(WindowStats._fields)]))
 
     def red(name):
@@ -1410,22 +1572,23 @@ def summarize_region(stats: RegionWindowStats) -> dict:
         "region_utilization": region_served / np.maximum(region_arrivals,
                                                          1.0),
     })
+    if telemetry is not None:
+        _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
     return out
 
 
 def _run_region_lanes(topo, kernel, preempt_on, plan, burn_in, params, rp,
-                      k_cost, keys) -> RegionWindowStats:
+                      k_cost, keys, tel: Telemetry | None = None):
     """Flat region lanes through the executor of their device; returns
-    (lanes, windows[, R]) stats without the burn-in window."""
+    (lanes, windows[, R]) stats (a ``(base, telemetry)`` pair with
+    ``tel``) without the burn-in window."""
     from repro_torch.kernels.sweep import region_events
 
     state0 = init_region_state(keys, topo, rp, preempt_on)
     _, stats = region_events(topo, kernel, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), rp,
-                             k_cost, plan)
-    if burn_in:
-        stats = RegionWindowStats(*(x[:, 1:] for x in stats))
-    return stats
+                             k_cost, plan, tel)
+    return _without_burn_in(stats, burn_in, tel)
 
 
 def _check_region_run(name: str, topo, kernel, telemetry, env, work, shard,
@@ -1451,8 +1614,9 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
     under the topology's own regions config; ``params`` leaves are taken
     as they are (a ``(R,)`` ``region_logits`` is one lane's logits).
     A degenerate topology with a kernel without ``route`` reproduces
-    :func:`run_sim` bitwise.  ``device``, ``impl`` and ``rng`` as in
-    :func:`run_sim`.
+    :func:`run_sim` bitwise.  ``device``, ``impl``, ``rng`` and
+    ``telemetry`` as in :func:`run_sim` (the telemetry's locations are the
+    regions).
     """
     topology = as_topology(topology)
     params = {} if params is None else params
@@ -1467,14 +1631,14 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
         topology.n_regions, topology.params(), {}, ()), device)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_region_lanes(
-        topology, kernel, topology.preemptible, plan, burn_in,
-        _one_lane(params, device), rp,
-        torch.full((1,), np.float32(k), device=device),
-        key.to(device)[None])
-    out = summarize_region(RegionWindowStats(*(x[0] for x in stats)))
-    return {name: float(v) if np.ndim(v) == 0 else v
-            for name, v in out.items()}
+    with annotate(f"repro_torch.run_region_sim[{device.type}]"):
+        stats = _run_region_lanes(
+            topology, kernel, topology.preemptible, plan, burn_in,
+            _one_lane(params, device), rp,
+            torch.full((1,), np.float32(k), device=device),
+            key.to(device)[None], telemetry)
+    out = summarize_region(_lane0(stats, telemetry), telemetry)
+    return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
 def run_region_sweep(topology, kernel, params=None, *, k=10.0,
@@ -1497,9 +1661,9 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     ``spot_scales``/``job_scales`` override the topology's regions config
     per grid point: a scalar fills every region, an ``(R,)`` vector fixes
     one config, a ``grid_shape + (R,)`` array sweeps it.  A ``hazards``
-    override turns the preemption path on.  ``device``, ``impl`` and
-    ``rng`` as in :func:`run_sweep`: a GPU fleet runs the hand-written
-    region kernel, a CPU fleet its plain version.  ``telemetry``, ``env``,
+    override turns the preemption path on.  ``device``, ``impl``, ``rng``
+    and ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
+    hand-written region kernel, a CPU fleet its plain version.  ``env``,
     ``work`` and ``shard`` are not ported and raise.
 
     Returns :func:`summarize_region`'s dict: scalar statistics shaped
@@ -1538,8 +1702,9 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     rp_l = _flat_lane_args(rp, k_f, keys)[0]
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
-    stats = _run_region_lanes(topology, kernel, preempt_on, plan, burn_in,
-                              params_l, rp_l, k_l, keys_l)
-    out = summarize_region(stats)
-    return {name: v.reshape(grid_shape + (n_seeds,) + v.shape[1:])
-            for name, v in out.items()}
+    with annotate(f"repro_torch.run_region_sweep[{device.type}]"):
+        stats = _run_region_lanes(topology, kernel, preempt_on, plan,
+                                  burn_in, params_l, rp_l, k_l, keys_l,
+                                  telemetry)
+    return _reshape_sweep(summarize_region(stats, telemetry), grid_shape,
+                          n_seeds)

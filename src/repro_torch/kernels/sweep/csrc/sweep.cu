@@ -58,8 +58,24 @@
 // operations do; the two multiply-adds the JAX package's compiled samplers
 // fuse (Uniform's low + u * width, the bathtub tail b - e * tau2) are
 // explicit fmaf.
+//
+// Telemetry (the telemetry= axis, repro/obs/stats.py::telemetry_update,
+// called from each of the three JAX event bodies) is a template flag TEL
+// of the three kernels: with it, each event is also folded into a lane's
+// quantile sketches, event counters and optional trace ring (see "The
+// telemetry fold" below).  This source is built twice: without
+// SWEEP_TELEMETRY the library holds the TEL=false instantiations, the
+// kernels as they run without the axis; with it, the TEL=true ones.  So
+// telemetry=None launches code that does not hold the fold, and the two
+// builds run side by side.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifdef SWEEP_TELEMETRY
+constexpr bool kTel = true;
+#else
+constexpr bool kTel = false;
+#endif
 
 namespace {
 
@@ -340,8 +356,188 @@ __device__ __forceinline__ void draw_pass(float* u_s, int nd, uint32_t c0,
   }
 }
 
-template <int G, int SPT>
-__global__ void sweep_kernel(const Args a) {
+// ---------------------------------------------------------------------------
+// The telemetry fold (repro/obs/stats.py::telemetry_update; plain version
+// repro_torch/obs/stats.py::telemetry_update, run by ../ref.py with tel=)
+// ---------------------------------------------------------------------------
+// The lane's group already agrees on each event: its type, the served,
+// defected or revoked slot and its wait, the cost paid.  The counters
+// (events by type, five more, the ring's true count) live in registers,
+// the same on every thread of the group, as the base sums do.  What needs
+// an index the event picks lives in the lane's slice of shared memory
+// (int32): the wait and cost histograms (n_bins each) and the defects and
+// resumes a location (kMaxLocs each, added by the group's first thread,
+// the leader, with an atomicAdd on the rare event that has one).  The
+// bins stay off the event chain, whose latency bounds the kernel: the
+// leader stages each event's (t, wait or -1, cost or -1, type | loc << 2
+// | qlen << 5) in the slice, and after the pass's events the G threads
+// bin the staged events together (thread t takes events t, t + G, ...),
+// by atomicAdds, and write the trace ring's records (cap > 0, a run-time
+// branch; slot n % cap of the (lanes, windows, cap) outputs, only the
+// records no later event of the pass overwrites, only for a lane of the
+// fleet).  At the window's end the G threads write the histograms and
+// location counts to the (lanes, windows, ...) outputs, neighbouring
+// threads on neighbouring words, the leader the counters, and all start
+// again from zero.  A bin is the JAX package's: floor((logf(max(x,
+// 1e-30)) - log lo) * inv) + 1, clamped, with the host's float32 log lo
+// and inv, logf (not __logf) and no contraction (--fmad=false), so the
+// kernel and the plain version bin alike.
+constexpr int kMaxBins = 256;
+constexpr int kMaxLocs = 8;
+enum EventType { kEvJob = 0, kEvSpot = 1, kEvPreempt = 2, kEvDeadline = 3 };
+
+struct TelArgs {
+  int32_t* wait_hist;    // lanes x windows x n_bins
+  int32_t* cost_hist;    // lanes x windows x n_bins
+  int32_t* events;       // lanes x windows x 4
+  int32_t* counters;     // 5 x lanes x windows: spot_starts, preempts_fired,
+                         // notices_honored, deadline_defects, rejects
+  int32_t* loc_defects;  // lanes x windows x n_locs
+  int32_t* loc_resumed;  // lanes x windows x n_locs
+  float* ring_t;         // lanes x windows x cap (cap > 0): time after
+  int32_t* ring_type;
+  int32_t* ring_loc;
+  int32_t* ring_qlen;
+  float* ring_val;       // the wait sample, -1 where the event has none
+  int32_t* ring_n;       // lanes x windows (cap > 0)
+  int n_bins, n_locs, cap;
+  float wait_log_lo, wait_inv, cost_log_lo, cost_inv;
+};
+
+// int32 words of a lane's slice: the two histograms, the two location
+// counts (together the accumulators, 2 n_bins + 2 kMaxLocs), then four a
+// staged event for the `pass` events a pass holds at most; odd, so the
+// lanes of a warp spread over the banks
+__host__ __device__ __forceinline__ int tel_stride(int n_bins, int pass) {
+  return (2 * n_bins + 2 * kMaxLocs + 4 * pass) | 1;
+}
+
+__device__ __forceinline__ int hist_bin(float x, float log_lo, float inv,
+                                        int n_bins) {
+  const float raw = (logf(fmaxf(x, 1e-30f)) - log_lo) * inv;
+  const int idx = static_cast<int>(floorf(raw)) + 1;
+  return min(max(idx, 0), n_bins - 1);
+}
+
+// what one merged event gives the fold (the same on every thread)
+struct TelEvent {
+  int type, loc, qlen;
+  bool served, preempt, resume, defected, rejected, wait_valid, cost_valid;
+  float t, wait, cost;
+};
+
+// a window's counters, in registers (the same on every thread of a group)
+struct TelCounts {
+  int events[4] = {0, 0, 0, 0};
+  int served = 0, preempt = 0, resume = 0, defected = 0, rejected = 0;
+  int n = 0;  // events, the ring's true count
+};
+
+// fold event `e` of the pass: every thread counts it; the leader adds its
+// location counts and stages the rest in the lane's slice `ts`
+__device__ __forceinline__ void tel_fold(const TelArgs& tl, int* ts, int e,
+                                         TelCounts& c, const TelEvent& ev,
+                                         bool leader) {
+  const int nb = tl.n_bins;
+  if (leader) {
+    if (ev.defected) atomicAdd(ts + 2 * nb + ev.loc, 1);
+    if (ev.resume) atomicAdd(ts + 2 * nb + kMaxLocs + ev.loc, 1);
+    float* r = reinterpret_cast<float*>(ts + 2 * nb + 2 * kMaxLocs) + 4 * e;
+    r[0] = ev.t;
+    r[1] = ev.wait_valid ? ev.wait : -1.f;
+    r[2] = ev.cost_valid ? ev.cost : -1.f;
+    r[3] = __int_as_float(ev.type | ev.loc << 2 | ev.qlen << 5);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c.events[i] += ev.type == i;
+  c.served += ev.served;
+  c.preempt += ev.preempt;
+  c.resume += ev.resume;
+  c.defected += ev.defected;
+  c.rejected += ev.rejected;
+  c.n += 1;
+}
+
+// after a pass of n events that began at event e0 of the window: the G
+// threads bin the staged events and write the ring's records; `ring` is
+// the offset of the lane's window in the ring outputs
+template <int G>
+__device__ __forceinline__ void tel_pass(const TelArgs& tl, int* ts, int n,
+                                         int e0, size_t ring, int t,
+                                         bool live) {
+  const int nb = tl.n_bins;
+  const float* stage =
+      reinterpret_cast<const float*>(ts + 2 * nb + 2 * kMaxLocs);
+  __syncwarp();  // the leader's staged events are visible
+  for (int e = t; e < n; e += G) {
+    const float* r = stage + 4 * e;
+    const float wait = r[1], cost = r[2];
+    if (wait >= 0.f)
+      atomicAdd(ts + hist_bin(wait, tl.wait_log_lo, tl.wait_inv, nb), 1);
+    if (cost >= 0.f)
+      atomicAdd(ts + nb + hist_bin(cost, tl.cost_log_lo, tl.cost_inv, nb),
+                1);
+    // a record survives the pass where no later event of it takes its slot
+    if (tl.cap > 0 && live && e + tl.cap >= n) {
+      const int packed = __float_as_int(r[3]);
+      const size_t o = ring + (e0 + e) % tl.cap;
+      tl.ring_t[o] = r[0];
+      tl.ring_type[o] = packed & 3;
+      tl.ring_loc[o] = (packed >> 2) & 7;
+      tl.ring_qlen[o] = packed >> 5;
+      tl.ring_val[o] = wait;
+    }
+  }
+}
+
+// the lane's slice, after `before` floats of the block's shared memory,
+// its accumulators zeroed (the next __syncwarp makes the zeros visible)
+template <int G>
+__device__ __forceinline__ int* tel_slice(float* smem, int before,
+                                          int lane_in_block, int n_bins,
+                                          int pass, int t) {
+  int* ts = reinterpret_cast<int*>(smem + before) +
+            lane_in_block * tel_stride(n_bins, pass);
+  for (int i = t; i < 2 * n_bins + 2 * kMaxLocs; i += G) ts[i] = 0;
+  return ts;
+}
+
+// the window's end: the G threads write the lane's accumulators and the
+// leader its counters to window `lw` (lane * windows + window) of the
+// outputs (n_lw = lanes * windows); then all start again from zero
+template <int G>
+__device__ __forceinline__ void tel_flush(const TelArgs& tl, int* ts,
+                                          TelCounts& c, size_t lw,
+                                          size_t n_lw, int t, bool live) {
+  const int nb = tl.n_bins, nl = tl.n_locs;
+  __syncwarp();  // the last pass's bins are in
+  if (live) {
+    for (int i = t; i < nb; i += G) {
+      tl.wait_hist[lw * nb + i] = ts[i];
+      tl.cost_hist[lw * nb + i] = ts[nb + i];
+    }
+    for (int i = t; i < nl; i += G) {
+      tl.loc_defects[lw * nl + i] = ts[2 * nb + i];
+      tl.loc_resumed[lw * nl + i] = ts[2 * nb + kMaxLocs + i];
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tl.events[lw * 4 + i] = c.events[i];
+      tl.counters[0 * n_lw + lw] = c.served;
+      tl.counters[1 * n_lw + lw] = c.preempt;
+      tl.counters[2 * n_lw + lw] = c.resume;
+      tl.counters[3 * n_lw + lw] = c.defected;
+      tl.counters[4 * n_lw + lw] = c.rejected;
+      if (tl.cap > 0) tl.ring_n[lw] = c.n;
+    }
+  }
+  __syncwarp();  // every word is read before it is zeroed
+  for (int i = t; i < 2 * nb + 2 * kMaxLocs; i += G) ts[i] = 0;
+  c = TelCounts{};
+}
+
+template <int G, int SPT, bool TEL>
+__global__ void sweep_kernel(const Args a, const TelArgs tl) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -360,6 +556,11 @@ __global__ void sweep_kernel(const Args a) {
                lane_in_block * kSampleStride;
   const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
   const int s0 = t * SPT;  // this thread's first slot
+  int* ts = nullptr;  // the lane's telemetry slice
+  TelCounts tc;       // ... and its counters
+  if constexpr (TEL)
+    ts = tel_slice<G>(smem, lanes_per_block * (kLaneStride + kSampleStride),
+                      lane_in_block, tl.n_bins, kDraws, t);
 
   float nj = a.next_job0[lane], ns = a.next_spot0[lane];
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
@@ -492,7 +693,28 @@ __global__ void sweep_kernel(const Args a) {
         ns = is_spot ? spot_draw : ns - dt;
         next_seq += admit;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
+
+        if constexpr (TEL) {
+          TelEvent ev;
+          ev.type = is_spot ? kEvSpot : (is_deadline ? kEvDeadline : kEvJob);
+          ev.loc = 0;
+          ev.qlen = qlen;
+          ev.served = served;
+          ev.preempt = false;
+          ev.resume = false;
+          ev.defected = defected;
+          ev.rejected = od_now;
+          ev.wait_valid = served || defected;
+          ev.wait = served ? wait_served : age_defect;
+          ev.cost_valid = served || od_now || defected;
+          ev.cost = served ? 1.f : kc;
+          ev.t = time_elapsed;
+          tel_fold(tl, ts, e, tc, ev, t == 0);
+        }
       }
+      if constexpr (TEL)
+        tel_pass<G>(tl, ts, n_pass, e0,
+                    (static_cast<size_t>(lane) * W + w) * tl.cap, t, live);
     }
 
     if (t == 0 && live) {
@@ -508,6 +730,9 @@ __global__ void sweep_kernel(const Args a) {
       a.fstats[2 * n + o] = time_elapsed;
       a.fstats[3 * n + o] = empty_time;
     }
+    if constexpr (TEL)
+      tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
+                   static_cast<size_t>(L) * W, t, live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -531,36 +756,45 @@ __global__ void sweep_kernel(const Args a) {
   }
 }
 
+// dynamic shared memory a block of `lanes_per_block` lanes adds for the
+// telemetry slices of `pass` staged events (none without the axis)
+size_t tel_smem(const TelArgs& tl, int lanes_per_block, int pass) {
+  return kTel ? sizeof(int) * lanes_per_block * tel_stride(tl.n_bins, pass)
+              : 0;
+}
+
 template <int G, int SPT>
-cudaError_t launch_gs(const Args& a, int warps_per_block, cudaStream_t s) {
+cudaError_t launch_gs(const Args& a, const TelArgs& tl, int warps_per_block,
+                      cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem =
-      sizeof(float) * lanes_per_block * (kLaneStride + kSampleStride);
+      sizeof(float) * lanes_per_block * (kLaneStride + kSampleStride) +
+      tel_smem(tl, lanes_per_block, kDraws);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<G, SPT, kTel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sweep_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  sweep_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t launch_g(const Args& a, int group, int spt, int warps_per_block,
-                     cudaStream_t s) {
+cudaError_t launch_g(const Args& a, const TelArgs& tl, int group, int spt,
+                     int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return launch_gs<4, 1>(a, warps_per_block, s);
-      case 2: return launch_gs<4, 2>(a, warps_per_block, s);
-      case 4: return launch_gs<4, 4>(a, warps_per_block, s);
-      case 8: return launch_gs<4, 8>(a, warps_per_block, s);
+      case 1: return launch_gs<4, 1>(a, tl, warps_per_block, s);
+      case 2: return launch_gs<4, 2>(a, tl, warps_per_block, s);
+      case 4: return launch_gs<4, 4>(a, tl, warps_per_block, s);
+      case 8: return launch_gs<4, 8>(a, tl, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return launch_gs<8, 8>(a, warps_per_block, s);
-      case 16: return launch_gs<16, 8>(a, warps_per_block, s);
-      case 32: return launch_gs<32, 8>(a, warps_per_block, s);
+      case 8: return launch_gs<8, 8>(a, tl, warps_per_block, s);
+      case 16: return launch_gs<16, 8>(a, tl, warps_per_block, s);
+      case 32: return launch_gs<32, 8>(a, tl, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -728,8 +962,8 @@ __device__ __forceinline__ void market_sample_pass(
   }
 }
 
-template <int G, int SPT>
-__global__ void market_kernel(const MArgs a) {
+template <int G, int SPT, bool TEL>
+__global__ void market_kernel(const MArgs a, const TelArgs tl) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -749,6 +983,12 @@ __global__ void market_kernel(const MArgs a) {
                lane_in_block * kTab;
   const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
   const int s0 = t * SPT;
+  int* ts = nullptr;  // the lane's telemetry slice
+  TelCounts tc;       // ... and its counters
+  if constexpr (TEL)
+    ts = tel_slice<G>(smem,
+                      lanes_per_block * (kLaneStride + kMSampleStride + kTab),
+                      lane_in_block, tl.n_bins, kMarketPass, t);
 
   // the lane's pool table, and what depends on it alone
   const size_t lp = static_cast<size_t>(lane) * P;
@@ -961,6 +1201,13 @@ __global__ void market_kernel(const MArgs a) {
           for (int p = 0; p < kMaxPools; ++p)
             qp[p] += (admit && p == choice) - (leave && p == leave_pool);
         }
+        int tel_loc = 0;  // the event's pool: a deadline's is the job's
+        if constexpr (TEL) {
+          const int dpool = slot_value<G, SPT>(grp, pool, di);  // all threads
+          tel_loc = is_spot ? spot_pool
+                            : (is_pre ? pre_pool
+                                      : (is_deadline ? dpool : choice));
+        }
         const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
         const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
 #pragma unroll
@@ -1015,7 +1262,32 @@ __global__ void market_kernel(const MArgs a) {
         if (a.preempt_on) npre = is_pre ? x[4] : npre - dt;
         next_seq += admit || resume;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
+
+        if constexpr (TEL) {
+          TelEvent ev;
+          ev.type = is_spot       ? kEvSpot
+                    : is_pre      ? kEvPreempt
+                    : is_deadline ? kEvDeadline
+                                  : kEvJob;
+          ev.loc = tel_loc;
+          ev.qlen = qlen;
+          ev.served = served;
+          ev.preempt = is_pre;
+          ev.resume = resume;
+          ev.defected = defected;
+          ev.rejected = od_now;
+          ev.wait_valid = served || defected || pre_hit;
+          ev.wait = served ? wait_served : (defected ? age_defect : age_pre);
+          ev.cost_valid = served || od_now || defected || pre_hit;
+          ev.cost = (served ? price_s : 0.f) + (od_any ? kc : 0.f);
+          ev.cost = ev.cost + (pre_hit ? price_p : 0.f);
+          ev.t = time_elapsed;
+          tel_fold(tl, ts, e, tc, ev, t == 0);
+        }
       }
+      if constexpr (TEL)
+        tel_pass<G>(tl, ts, n_pass, e0,
+                    (static_cast<size_t>(lane) * W + w) * tl.cap, t, live);
     }
 
     if (live) {
@@ -1045,6 +1317,9 @@ __global__ void market_kernel(const MArgs a) {
         }
       }
     }
+    if constexpr (TEL)
+      tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
+                   static_cast<size_t>(L) * W, t, live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -1073,36 +1348,37 @@ __global__ void market_kernel(const MArgs a) {
 }
 
 template <int G, int SPT>
-cudaError_t market_launch_gs(const MArgs& a, int warps_per_block,
-                             cudaStream_t s) {
+cudaError_t market_launch_gs(const MArgs& a, const TelArgs& tl,
+                             int warps_per_block, cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem = sizeof(float) * lanes_per_block *
-                      (kLaneStride + kMSampleStride + kTab);
+                          (kLaneStride + kMSampleStride + kTab) +
+                      tel_smem(tl, lanes_per_block, kMarketPass);
   cudaError_t err = cudaFuncSetAttribute(
-      market_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      market_kernel<G, SPT, kTel>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  market_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  market_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t market_launch_g(const MArgs& a, int group, int spt,
-                            int warps_per_block, cudaStream_t s) {
+cudaError_t market_launch_g(const MArgs& a, const TelArgs& tl, int group,
+                            int spt, int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return market_launch_gs<4, 1>(a, warps_per_block, s);
-      case 2: return market_launch_gs<4, 2>(a, warps_per_block, s);
-      case 4: return market_launch_gs<4, 4>(a, warps_per_block, s);
-      case 8: return market_launch_gs<4, 8>(a, warps_per_block, s);
+      case 1: return market_launch_gs<4, 1>(a, tl, warps_per_block, s);
+      case 2: return market_launch_gs<4, 2>(a, tl, warps_per_block, s);
+      case 4: return market_launch_gs<4, 4>(a, tl, warps_per_block, s);
+      case 8: return market_launch_gs<4, 8>(a, tl, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return market_launch_gs<8, 8>(a, warps_per_block, s);
-      case 16: return market_launch_gs<16, 8>(a, warps_per_block, s);
-      case 32: return market_launch_gs<32, 8>(a, warps_per_block, s);
+      case 8: return market_launch_gs<8, 8>(a, tl, warps_per_block, s);
+      case 16: return market_launch_gs<16, 8>(a, tl, warps_per_block, s);
+      case 32: return market_launch_gs<32, 8>(a, tl, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -1286,8 +1562,8 @@ __device__ __forceinline__ void region_sample_pass(
   }
 }
 
-template <int G, int SPT>
-__global__ void region_kernel(const RArgs a) {
+template <int G, int SPT, bool TEL>
+__global__ void region_kernel(const RArgs a, const TelArgs tl) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -1308,6 +1584,12 @@ __global__ void region_kernel(const RArgs a) {
   int* off = reinterpret_cast<int*>(tab + 5 * kMaxRegions);
   const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
   const int s0 = t * SPT;
+  int* ts = nullptr;  // the lane's telemetry slice
+  TelCounts tc;       // ... and its counters
+  if constexpr (TEL)
+    ts = tel_slice<G>(smem,
+                      lanes_per_block * (kLaneStride + kRSampleStride + kRTab),
+                      lane_in_block, tl.n_bins, kMarketPass, t);
 
   // the lane's region table, and what depends on it alone
   const size_t lr = static_cast<size_t>(lane) * R;
@@ -1590,7 +1872,35 @@ __global__ void region_kernel(const RArgs a) {
         if (a.preempt_on) npre = is_pre ? x[3] : npre - dt;
         next_seq += admit || resume;
         qtot += static_cast<int>(admit) - static_cast<int>(leave);
+
+        if constexpr (TEL) {
+          TelEvent ev;
+          ev.type = is_spot       ? kEvSpot
+                    : is_pre      ? kEvPreempt
+                    : is_deadline ? kEvDeadline
+                                  : kEvJob;
+          // a job event's region is its target, a deadline's the
+          // defecting job's (leave_r)
+          ev.loc = is_job ? target : (is_spot ? spot_r
+                                              : (is_pre ? pre_r : leave_r));
+          ev.qlen = qtot;
+          ev.served = served;
+          ev.preempt = is_pre;
+          ev.resume = resume;
+          ev.defected = defected;
+          ev.rejected = od_now;
+          ev.wait_valid = served || defected || pre_hit;
+          ev.wait = served ? wait_served : (defected ? age_defect : age_pre);
+          ev.cost_valid = served || od_now || defected || pre_hit;
+          ev.cost = (served ? price_s : 0.f) + (od_any ? kc : 0.f);
+          ev.cost = ev.cost + (pre_hit ? price_p : 0.f);
+          ev.t = time_elapsed;
+          tel_fold(tl, ts, e, tc, ev, t == 0);
+        }
       }
+      if constexpr (TEL)
+        tel_pass<G>(tl, ts, n_pass, e0,
+                    (static_cast<size_t>(lane) * W + w) * tl.cap, t, live);
     }
 
     if (live) {
@@ -1623,6 +1933,9 @@ __global__ void region_kernel(const RArgs a) {
         }
       }
     }
+    if constexpr (TEL)
+      tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
+                   static_cast<size_t>(L) * W, t, live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, S);
   }
@@ -1653,39 +1966,73 @@ __global__ void region_kernel(const RArgs a) {
 }
 
 template <int G, int SPT>
-cudaError_t region_launch_gs(const RArgs& a, int warps_per_block,
-                             cudaStream_t s) {
+cudaError_t region_launch_gs(const RArgs& a, const TelArgs& tl,
+                             int warps_per_block, cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem = sizeof(float) * lanes_per_block *
-                      (kLaneStride + kRSampleStride + kRTab);
+                          (kLaneStride + kRSampleStride + kRTab) +
+                      tel_smem(tl, lanes_per_block, kMarketPass);
   cudaError_t err = cudaFuncSetAttribute(
-      region_kernel<G, SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      region_kernel<G, SPT, kTel>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  region_kernel<G, SPT><<<grid, block, smem, s>>>(a);
+  region_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t region_launch_g(const RArgs& a, int group, int spt,
-                            int warps_per_block, cudaStream_t s) {
+cudaError_t region_launch_g(const RArgs& a, const TelArgs& tl, int group,
+                            int spt, int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return region_launch_gs<4, 1>(a, warps_per_block, s);
-      case 2: return region_launch_gs<4, 2>(a, warps_per_block, s);
-      case 4: return region_launch_gs<4, 4>(a, warps_per_block, s);
-      case 8: return region_launch_gs<4, 8>(a, warps_per_block, s);
+      case 1: return region_launch_gs<4, 1>(a, tl, warps_per_block, s);
+      case 2: return region_launch_gs<4, 2>(a, tl, warps_per_block, s);
+      case 4: return region_launch_gs<4, 4>(a, tl, warps_per_block, s);
+      case 8: return region_launch_gs<4, 8>(a, tl, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return region_launch_gs<8, 8>(a, warps_per_block, s);
-      case 16: return region_launch_gs<16, 8>(a, warps_per_block, s);
-      case 32: return region_launch_gs<32, 8>(a, warps_per_block, s);
+      case 8: return region_launch_gs<8, 8>(a, tl, warps_per_block, s);
+      case 16: return region_launch_gs<16, 8>(a, tl, warps_per_block, s);
+      case 32: return region_launch_gs<32, 8>(a, tl, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// the telemetry arguments of a launch: tel_ptrs the 12 pointers of TelArgs
+// in order, tel_icfg n_bins, n_locs, cap, tel_fcfg the wait and cost bins'
+// log lo and inv; false where they do not fit this build (the telemetry
+// build needs them, the other takes none) or the kernel's bounds
+bool tel_args(const int64_t* tel_ptrs, const int32_t* tel_icfg,
+              const float* tel_fcfg, TelArgs* tl) {
+  *tl = TelArgs{};
+  if ((tel_ptrs != nullptr) != kTel) return false;
+  if (!kTel) return true;
+  int i = 0;
+  tl->wait_hist = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->cost_hist = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->events = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->counters = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->loc_defects = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->loc_resumed = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->ring_t = reinterpret_cast<float*>(tel_ptrs[i++]);
+  tl->ring_type = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->ring_loc = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->ring_qlen = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->ring_val = reinterpret_cast<float*>(tel_ptrs[i++]);
+  tl->ring_n = reinterpret_cast<int32_t*>(tel_ptrs[i++]);
+  tl->n_bins = tel_icfg[0];
+  tl->n_locs = tel_icfg[1];
+  tl->cap = tel_icfg[2];
+  tl->wait_log_lo = tel_fcfg[0];
+  tl->wait_inv = tel_fcfg[1];
+  tl->cost_log_lo = tel_fcfg[2];
+  tl->cost_inv = tel_fcfg[3];
+  return tl->n_bins >= 3 && tl->n_bins <= kMaxBins && tl->n_locs >= 1 &&
+         tl->n_locs <= kMaxLocs && tl->cap >= 0;
 }
 
 }  // namespace
@@ -1693,12 +2040,18 @@ cudaError_t region_launch_g(const RArgs& a, int group, int spt,
 // ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
 // n_cols, job_code, spot_code, policy_code, wait_code, job_col, spot_col,
 // admit_col, job_n, spot_n, G (threads a lane), SPT (slots a thread),
-// warps a block; fcfg: job_c[4], spot_c[4].  Launches on `stream` and
+// warps a block; fcfg: job_c[4], spot_c[4]; tel_*: the telemetry
+// arguments (tel_args), null without the axis.  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is
-// not built).
+// not built, or telemetry arguments that do not fit this build).
 extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
-                            const float* fcfg, void* stream) {
+                            const float* fcfg, const int64_t* tel_ptrs,
+                            const int32_t* tel_icfg, const float* tel_fcfg,
+                            void* stream) {
   Args a;
+  TelArgs tl;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.next_job0 = reinterpret_cast<const float*>(ptrs[0]);
   a.next_spot0 = reinterpret_cast<const float*>(ptrs[1]);
   a.ages0 = reinterpret_cast<const float*>(ptrs[2]);
@@ -1743,7 +2096,7 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   if (a.n_cols < 0 || a.n_cols > kDraws || warps_per_block < 1 ||
       warps_per_block > 32 || group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_g(a, group, spt, warps_per_block,
+  return static_cast<int>(launch_g(a, tl, group, spt, warps_per_block,
                                    static_cast<cudaStream_t>(stream)));
 }
 
@@ -1755,12 +2108,18 @@ extern "C" const char* sweep_error_string(int code) {
 // rmax, n_windows, n_cols, n_pools, job_code, job_n, admit_code,
 // wait_code, choice_code, resume_code, preempt_on, any_exp_pool, job_col,
 // spot_col, admit_col, choice_col, pre_col, onpre_col, G, SPT, warps a
-// block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4].
-// Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a (G, SPT) that is not built).
+// block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4];
+// tel_*: as sweep_launch's.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
+// built, or telemetry arguments that do not fit this build).
 extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
-                             const float* fcfg, void* stream) {
+                             const float* fcfg, const int64_t* tel_ptrs,
+                             const int32_t* tel_icfg, const float* tel_fcfg,
+                             void* stream) {
   MArgs a;
+  TelArgs tl;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+    return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
   a.next_spot0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -1828,7 +2187,7 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_pools > kMaxPools || warps_per_block < 1 || warps_per_block > 32 ||
       group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(market_launch_g(a, group, spt, warps_per_block,
+  return static_cast<int>(market_launch_g(a, tl, group, spt, warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }
 
@@ -1837,12 +2196,18 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
 // route_code, resume_code, preempt_on, any_exp_job, any_exp_spot,
 // job_col, spot_col, admit_col, route_col, pre_col, onpre_col, G, SPT,
 // warps a block, then offset[9], job_code[8], job_n[8], spot_code[8] and
-// spot_n[8]; fcfg: job_c[8][4], spot_c[8][4].  Launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is
-// not built).
+// spot_n[8]; fcfg: job_c[8][4], spot_c[8][4]; tel_*: as sweep_launch's.
+// Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a (G, SPT) that is not built, or telemetry
+// arguments that do not fit this build).
 extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
-                             const float* fcfg, void* stream) {
+                             const float* fcfg, const int64_t* tel_ptrs,
+                             const int32_t* tel_icfg, const float* tel_fcfg,
+                             void* stream) {
   RArgs a;
+  TelArgs tl;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+    return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
   a.next_spot0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -1913,6 +2278,6 @@ extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_regions > kMaxRegions || a.offset[a.n_regions] != a.n_slots ||
       warps_per_block < 1 || warps_per_block > 32 || group * spt < a.n_slots)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(region_launch_g(a, group, spt, warps_per_block,
+  return static_cast<int>(region_launch_g(a, tl, group, spt, warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }

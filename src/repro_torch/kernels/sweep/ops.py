@@ -14,30 +14,32 @@ from repro_torch.kernels.sweep.sweep import (batched_event_windows,
                                              region_event_windows)
 
 
-def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan):
+def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan,
+                   tel=None):
     """Run stacked event windows; see ``batched_event_windows``."""
     if state.key.device.type == "cpu":
         return batched_event_windows_ref(job, spot, kernel, rmax, state,
-                                         params, k_cost, plan)
+                                         params, k_cost, plan, tel)
     return batched_event_windows(job, spot, kernel, rmax, state, params,
-                                 k_cost, plan)
+                                 k_cost, plan, tel)
 
 
 def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,
-                  k_cost, plan):
+                  k_cost, plan, tel=None):
     """Run stacked market event windows; see ``market_event_windows``."""
     if state.key.device.type == "cpu":
         return market_event_windows_ref(job, market, kernel, rmax,
                                         preempt_on, state, params, mp,
-                                        k_cost, plan)
+                                        k_cost, plan, tel)
     return market_event_windows(job, market, kernel, rmax, preempt_on, state,
-                                params, mp, k_cost, plan)
+                                params, mp, k_cost, plan, tel)
 
 
-def region_events(topo, kernel, preempt_on, state, params, rp, k_cost, plan):
+def region_events(topo, kernel, preempt_on, state, params, rp, k_cost, plan,
+                  tel=None):
     """Run stacked region event windows; see ``region_event_windows``."""
     if state.key.device.type == "cpu":
         return region_event_windows_ref(topo, kernel, preempt_on, state,
-                                        params, rp, k_cost, plan)
+                                        params, rp, k_cost, plan, tel)
     return region_event_windows(topo, kernel, preempt_on, state, params, rp,
-                                k_cost, plan)
+                                k_cost, plan, tel)

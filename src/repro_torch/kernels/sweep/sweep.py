@@ -13,6 +13,12 @@ turns the arrival, policy and wait descriptors into integer codes and
 float32 constants, checks every tensor, allocates the outputs and launches
 on the current stream.  The library is built with ``nvcc`` from the
 repository's source at first use (:mod:`repro_torch.kernels._build`).
+
+With a :class:`~repro_torch.obs.Telemetry` (``tel=``) each wrapper
+launches the kernel's telemetry instantiation instead, from a second
+library built from the same source (``TEL_LIBRARY``), and returns the
+``(base, telemetry)`` pair; ``tel=None`` launches the instantiation
+without the fold.
 """
 from __future__ import annotations
 
@@ -37,15 +43,23 @@ from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
 from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
                                        InfiniteWait, TwoPointWait)
 from repro_torch.kernels._build import KernelLibrary, load
+from repro_torch.obs.stats import (Telemetry, TelemetryWindowStats,
+                                   bin_constants)
 
-LIBRARY = KernelLibrary(
-    "sweep", Path(__file__).resolve().parent / "csrc" / "sweep.cu",
-    ("--fmad=false",))
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
+#: the kernels without the telemetry fold (``tel=None``)
+LIBRARY = KernelLibrary("sweep", _SOURCE, ("--fmad=false",))
+#: the same source's telemetry instantiations (``tel=``)
+TEL_LIBRARY = KernelLibrary("sweep_tel", _SOURCE,
+                            ("--fmad=false", "-DSWEEP_TELEMETRY"))
 
 #: slots a lane can hold: 32 threads of 8 slots, or 16 of 16
 MAX_RMAX = 256
 #: slab columns an event can take (a draw pass stages 64 words a lane)
 MAX_COLS = 32
+#: histogram bins a lane's telemetry slice holds in shared memory (the
+#: kernel's kMaxBins; 2 × 256 int32 a lane)
+MAX_BINS = 256
 #: pools a market lane and regions a region lane can hold (the kernel's
 #: kMaxPools and kMaxRegions)
 MAX_POOLS = MAX_REGIONS = 8
@@ -58,17 +72,77 @@ SMALL_GROUP, SLOTS_A_THREAD = 4, 8
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load(LIBRARY)
-    lib.sweep_launch.argtypes = [ctypes.c_void_p] * 4
-    lib.sweep_launch.restype = ctypes.c_int
-    lib.market_launch.argtypes = [ctypes.c_void_p] * 4
-    lib.market_launch.restype = ctypes.c_int
-    lib.region_launch.argtypes = [ctypes.c_void_p] * 4
-    lib.region_launch.restype = ctypes.c_int
+def _library(tel: bool = False) -> ctypes.CDLL:
+    """The kernel library, with the telemetry instantiations or without."""
+    lib = load(TEL_LIBRARY if tel else LIBRARY)
+    for fn in (lib.sweep_launch, lib.market_launch, lib.region_launch):
+        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]
     lib.sweep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+class TelemetryTooWideError(ValueError):
+    """A Telemetry of more bins than a lane's shared-memory slice holds
+    (MAX_BINS), or of fewer than three."""
+
+
+def _telemetry_outputs(tel: Telemetry | None, n_locs: int, lanes: int,
+                       w: int, device):
+    """(outputs, pointers, int config, float config) of the telemetry
+    arguments the kernel reads (``tel_args`` in csrc/sweep.cu), or
+    ``(None, None, None, None)`` without the axis.  The outputs are the
+    stacked ``(lanes, W, ...)`` TelemetryWindowStats; the rings start at
+    zero (an unwritten slot is never exported)."""
+    if tel is None:
+        return None, None, None, None
+    if not isinstance(tel, Telemetry):
+        raise TypeError(f"sweep kernel: tel must be a "
+                        f"repro_torch.obs.Telemetry, got {tel!r}")
+    if not 3 <= tel.n_bins <= MAX_BINS:
+        raise TelemetryTooWideError(
+            f"sweep kernel: a Telemetry of {tel.n_bins} bins; the kernel "
+            f"holds 3 to {MAX_BINS}")
+    i32, f32 = torch.int32, torch.float32
+
+    def empty(*shape, dtype=i32):
+        return torch.empty((lanes, w) + shape, dtype=dtype, device=device)
+
+    cap = tel.trace_cap
+    ring = (None,) * 6
+    if cap:
+        ring = tuple(torch.zeros(lanes, w, cap, dtype=dtype, device=device)
+                     for dtype in (f32, i32, i32, i32, f32)) + (
+                         torch.zeros(lanes, w, dtype=i32, device=device),)
+    counters = torch.empty(5, lanes, w, dtype=i32, device=device)
+    out = TelemetryWindowStats(empty(tel.n_bins), empty(tel.n_bins),
+                               empty(4), *counters, empty(n_locs),
+                               empty(n_locs), *ring)
+    ptrs = np.array([0 if x is None else x.data_ptr()
+                     for x in out[:3] + (counters,) + out[8:]], np.int64)
+    icfg = np.array([tel.n_bins, n_locs, cap], np.int32)
+    fcfg = np.array(bin_constants(tel.wait_lo, tel.wait_hi, tel.n_bins)
+                    + bin_constants(tel.cost_lo, tel.cost_hi, tel.n_bins),
+                    np.float32)
+    return out, ptrs, icfg, fcfg
+
+
+def _launch(fn_name: str, what: str, tel, ptrs, icfg, fcfg, tel_args,
+            device) -> None:
+    """Launch ``fn_name`` of the library on the current stream; raises on
+    an error (never falls back)."""
+    lib = _library(tel is not None)
+    tptrs, ticfg, tfcfg = (None if x is None else x.ctypes.data
+                           for x in tel_args)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn_name)(ptrs.ctypes.data, icfg.ctypes.data,
+                                   fcfg.ctypes.data, tptrs, ticfg, tfcfg,
+                                   stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.sweep_error_string(rc).decode()}")
 
 
 def _arrival(proc) -> tuple[int, list[float], int]:
@@ -169,7 +243,7 @@ def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
 
 def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
                           params: dict, k_cost: torch.Tensor,
-                          plan: tuple[int, ...]
+                          plan: tuple[int, ...], tel: Telemetry | None = None
                           ) -> tuple[EngineState, WindowStats]:
     """Run every lane through the windows of ``plan`` in one kernel launch.
 
@@ -177,7 +251,8 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     ``state`` holds ``(lanes, ...)`` CUDA tensors, ``params`` the kernel's
     per-lane float32 params, ``k_cost`` the per-lane on-demand price.
     A lane runs on :func:`group_size` threads.
-    Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)``.
+    Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` (with
+    ``tel`` a ``(base, telemetry)`` pair).
     Raises if the kernel cannot be built or launched; it never falls back.
     """
     layout = _engine_layout(job, spot, kernel)
@@ -242,22 +317,17 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     fcfg = np.zeros(8, np.float32)
     fcfg[:len(job_c)] = job_c
     fcfg[4:4 + len(spot_c)] = spot_c
+    tstats, *tel_args = _telemetry_outputs(tel, 1, lanes, w, device)
 
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sweep_launch(ptrs.ctypes.data, icfg.ctypes.data,
-                              fcfg.ctypes.data, stream)
-    if rc != 0:
-        raise RuntimeError(f"sweep kernel launch failed: "
-                           f"{lib.sweep_error_string(rc).decode()}")
+    _launch("sweep_launch", "sweep kernel", tel, ptrs, icfg, fcfg, tel_args,
+            device)
     batched_event_windows.launches += 1
     stats = WindowStats(jobs_arrived=istats[0], jobs_completed=istats[1],
                         spot_served=istats[2], ondemand=istats[3],
                         cost_sum=fstats[0], delay_sum=fstats[1],
                         time_elapsed=fstats[2], empty_time=fstats[3],
                         spot_arrivals=istats[4], spot_found_empty=istats[5])
-    return out, stats
+    return out, stats if tel is None else (stats, tstats)
 
 
 #: launches of the kernel since the count was last set to 0
@@ -300,7 +370,8 @@ def _choice_col(kernel, layout, n_pools: int) -> int:
 
 def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                          state: MarketState, params: dict, mp: dict,
-                         k_cost: torch.Tensor, plan: tuple[int, ...]
+                         k_cost: torch.Tensor, plan: tuple[int, ...],
+                         tel: Telemetry | None = None
                          ) -> tuple[MarketState, MarketWindowStats]:
     """Run every market lane through the windows of ``plan`` in one launch.
 
@@ -311,8 +382,10 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     P)`` price, hazard, notice, rate, spot_scale), ``k_cost`` the per-lane
     on-demand price.  A lane runs on :func:`group_size` threads.  Returns
     ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and ``(lanes,
-    W, P)`` for the pool fields.  Raises if the kernel cannot be built or
-    launched, or for more than ``MAX_POOLS`` pools; it never falls back.
+    W, P)`` for the pool fields (with ``tel`` a ``(base, telemetry)``
+    pair, the pools its locations).  Raises if the kernel cannot be built
+    or launched, or for more than ``MAX_POOLS`` pools; it never falls
+    back.
     """
     layout = _market_layout(job, market, kernel, preempt_on)
     n_pools = market.n_pools
@@ -405,15 +478,10 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                      group, slots_per_thread(rmax, group),
                      warps_per_block(lanes, group, sms)]
                     + codes.tolist() + ns.tolist(), np.int32)
+    tstats, *tel_args = _telemetry_outputs(tel, n_pools, lanes, w, device)
 
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.market_launch(ptrs.ctypes.data, icfg.ctypes.data,
-                               fcfg.ctypes.data, stream)
-    if rc != 0:
-        raise RuntimeError(f"market kernel launch failed: "
-                           f"{lib.sweep_error_string(rc).decode()}")
+    _launch("market_launch", "market kernel", tel, ptrs, icfg, fcfg,
+            tel_args, device)
     market_event_windows.launches += 1
     stats = MarketWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -422,7 +490,7 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
         spot_arrivals=istats[4], spot_found_empty=istats[5],
         resumed=istats[6], spot_cost=fstats[4], pool_served=pstats[0],
         pool_spot_arrivals=pstats[1], pool_preempted=pstats[2])
-    return out, stats
+    return out, stats if tel is None else (stats, tstats)
 
 
 #: launches of the market kernel since the count was last set to 0
@@ -437,7 +505,7 @@ class TooManyRegionsError(ValueError):
 
 def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
                          params: dict, rp: dict, k_cost: torch.Tensor,
-                         plan: tuple[int, ...]
+                         plan: tuple[int, ...], tel: Telemetry | None = None
                          ) -> tuple[RegionState, RegionWindowStats]:
     """Run every region lane through the windows of ``plan`` in one launch.
 
@@ -449,9 +517,10 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
     hazard, notice, rate, spot_scale, job_scale), ``k_cost`` the per-lane
     on-demand price.  A lane runs on ``group_size(Σ rmax_r)`` threads.
     Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and
-    ``(lanes, W, R)`` for the region fields.  Raises if the kernel cannot
-    be built or launched, or for more than ``MAX_REGIONS`` regions; it
-    never falls back.
+    ``(lanes, W, R)`` for the region fields (with ``tel`` a ``(base,
+    telemetry)`` pair, the regions its locations).  Raises if the kernel
+    cannot be built or launched, or for more than ``MAX_REGIONS`` regions;
+    it never falls back.
     """
     layout = _region_layout(topo, kernel, preempt_on)
     n_regions, n_slots = topo.n_regions, topo.total_slots
@@ -549,15 +618,10 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
                     + job_ns.tolist() + spot_codes.tolist()
                     + spot_ns.tolist(), np.int32)
     fcfg = np.concatenate([job_c.reshape(-1), spot_c.reshape(-1)])
+    tstats, *tel_args = _telemetry_outputs(tel, n_regions, lanes, w, device)
 
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.region_launch(ptrs.ctypes.data, icfg.ctypes.data,
-                               fcfg.ctypes.data, stream)
-    if rc != 0:
-        raise RuntimeError(f"region kernel launch failed: "
-                           f"{lib.sweep_error_string(rc).decode()}")
+    _launch("region_launch", "region kernel", tel, ptrs, icfg, fcfg,
+            tel_args, device)
     region_event_windows.launches += 1
     stats = RegionWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -568,7 +632,7 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
         region_served=rstats[0], region_spot_arrivals=rstats[1],
         region_preempted=rstats[2], region_jobs=rstats[3],
         region_routed=rstats[4])
-    return out, stats
+    return out, stats if tel is None else (stats, tstats)
 
 
 #: launches of the region kernel since the count was last set to 0

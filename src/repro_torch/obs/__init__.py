@@ -1,0 +1,41 @@
+"""``repro_torch.obs``: the observability axis of the port.
+
+:class:`Telemetry` is the descriptor the engine entry points take as
+``telemetry=``.  With it, sims and sweeps also return streaming wait and
+cost quantile sketches, event-type counters and per-pool or per-region
+defect and resume counts, accumulated in the same float32 windows as the
+base stats, by the CUDA kernels on the card and their plain versions on
+the CPU.  ``telemetry=None`` (the default) leaves every base statistic and
+every kernel launch as it was.
+
+* :mod:`repro_torch.obs.stats` — accumulators and host summaries.
+* :mod:`repro_torch.obs.trace` — event rings and the Chrome/Perfetto
+  exporter.
+* :mod:`repro_torch.obs.timing` — profiler spans.
+"""
+from repro_torch.obs.stats import (EVENT_TYPES, TEL_INT_STATS, Telemetry,
+                                   TelemetryWindowStats, sketch_quantile,
+                                   summarize_telemetry, telemetry_merge,
+                                   telemetry_reduce, telemetry_update,
+                                   telemetry_zeros)
+from repro_torch.obs.timing import annotate
+from repro_torch.obs.trace import (TraceRecorder, device_trace_records,
+                                   to_perfetto, write_perfetto)
+
+__all__ = [
+    "EVENT_TYPES",
+    "TEL_INT_STATS",
+    "Telemetry",
+    "TelemetryWindowStats",
+    "TraceRecorder",
+    "annotate",
+    "device_trace_records",
+    "sketch_quantile",
+    "summarize_telemetry",
+    "telemetry_merge",
+    "telemetry_reduce",
+    "telemetry_update",
+    "telemetry_zeros",
+    "to_perfetto",
+    "write_perfetto",
+]

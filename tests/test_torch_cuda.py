@@ -26,7 +26,10 @@ sequential and the chunked plain versions (sums of N products in another
 order), bf16 one ulp; on the tensor cores (bf16, three intermediates
 rounded to bf16), rtol one bf16 ulp with an absolute floor of twice the
 distance between the plain version and its rounding twin
-(``ssd/ref.py::tc_tolerance``).
+(``ssd/ref.py::tc_tolerance``).  The sweep kernel with telemetry (the three
+traversals' telemetry instantiations): every field bitwise, floats and
+trace rings included, and the base statistics bitwise the same kernel's
+run without telemetry.
 """
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ import torch
 
 from _torch_parity import assert_close, attn_tol, cuda_device  # noqa: F401
 import repro_torch.core as T
+from repro_torch import obs
 from repro_torch.core import engine, threefry
 from repro_torch.kernels.decode_attention import (decode_attention_bh,
                                                   decode_attention_bh_ref)
@@ -435,6 +439,79 @@ def test_cuda_region_launch_count_and_checks(cuda_device):
     assert region_event_windows.launches == before + 1
     with pytest.raises(ValueError, match="float32"):
         region_event_windows(*args[:6], args[6].double(), args[7])
+
+
+#: telemetry on the three traversals: a ring of 32 records a window, and a
+#: narrow sketch whose ring of 8 wraps
+TELS = [obs.Telemetry(trace_cap=32),
+        obs.Telemetry(n_bins=16, wait_lo=0.1, wait_hi=100.0, trace_cap=8)]
+
+
+def _assert_tel_equal(ref, ker, off, name):
+    """Plain version and kernel with telemetry: both blocks bitwise; the
+    kernel's base stats bitwise its run without telemetry (``off``)."""
+    torch.cuda.synchronize()
+    for a, b, what in ((ref[0], ker[0], "base"), (ref[1], ker[1], "tel"),
+                       (off, ker[0], "off vs on")):
+        for field in a._fields:
+            x, y = getattr(a, field), getattr(b, field)
+            assert (x is None and y is None) or torch.equal(x, y), \
+                f"{name}: {field} ({what})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", TELS, ids=["ring32", "narrow"])
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[0] != "three_phase_gamma"],
+                         ids=lambda c: c[0])
+def test_cuda_telemetry_single_queue_matches_plain_version(cuda_device,
+                                                           case, tel):
+    name, job, spot, kernel, rmax, params = case
+    lanes, plan = 13, engine._window_plan(2_000, 1_024, 256)
+    s0 = engine.init_engine_state(
+        threefry.split(threefry.key(7, cuda_device), lanes), job, spot, rmax)
+    k = torch.full((lanes,), 10.0, device=cuda_device)
+    p = engine.lane_params(kernel, {
+        n: torch.as_tensor(np.resize(np.float32(v), lanes),
+                           device=cuda_device)
+        for n, v in params.items()}, k)
+    args = (job, spot, kernel, rmax, s0, p, k, plan)
+    _assert_tel_equal(batched_event_windows_ref(*args, tel)[1],
+                      batched_event_windows(*args, tel)[1],
+                      batched_event_windows(*args)[1], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", TELS, ids=["ring32", "narrow"])
+@pytest.mark.parametrize("case", [MARKET_CASES[i] for i in (3, 4, 7, 8)],
+                         ids=lambda c: c[0])
+def test_cuda_telemetry_market_matches_plain_version(cuda_device, case, tel):
+    name, market, kernel, rmax, params = case
+    args, (_, off) = _market_run(cuda_device, market, kernel, rmax, params)
+    _assert_tel_equal(market_event_windows_ref(*args, tel)[1],
+                      market_event_windows(*args, tel)[1], off, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", TELS, ids=["ring32", "narrow"])
+@pytest.mark.parametrize("case", REGION_CASES, ids=lambda c: c[0])
+def test_cuda_telemetry_regions_match_plain_version(cuda_device, case, tel):
+    name, topo, kernel, params = case
+    args, (_, off) = _region_run(cuda_device, topo, kernel, params)
+    _assert_tel_equal(region_event_windows_ref(*args, tel)[1],
+                      region_event_windows(*args, tel)[1], off, name)
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_launch_count(cuda_device):
+    """A telemetry launch counts on the traversal's counter, once."""
+    args, _ = _region_run(cuda_device, _REGIONS, REGION_CASES[0][2],
+                          {"r": [2.0]}, lanes=4)
+    before = region_event_windows.launches
+    _, (base, ts) = region_event_windows(*args, obs.Telemetry())
+    torch.cuda.synchronize()
+    assert region_event_windows.launches == before + 1
+    assert ts.ring_t is None and int(ts.events.sum()) == 4 * sum(args[7])
 
 
 def _normals(device, dtype, seed, *shapes):

@@ -45,6 +45,17 @@ assert out["region_routed"].shape == (2, 2, 2)
 assert np.isfinite(out["avg_cost_job"]).all()
 assert OnlineAdmissionController(delta=1.0).choose_region(
     topology, [0, 0], rule="cheapest") == 1
+from repro_torch.obs import Telemetry, device_trace_records, to_perfetto
+out = run_region_sweep(topology,
+                       RoutingKernel(NoticeAwareKernel(0.05), "least_loaded"),
+                       {{"r": np.array([1.0, 2.5])}}, n_events=200,
+                       n_seeds=2, key=repro_torch.key(0), device="cpu",
+                       telemetry=Telemetry(trace_cap=8))
+assert out["wait_hist"].shape == (2, 2, 64)
+assert out["loc_defects"].shape == (2, 2, 2)
+assert out["events"].sum() == 4 * 200
+recs = device_trace_records(out["trace"], out["trace"]["time_windows"])
+assert len(to_perfetto(recs)["traceEvents"]) > len(recs)
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)

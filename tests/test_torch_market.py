@@ -577,10 +577,14 @@ def test_unported_options_raise_named_errors():
     kernel = market.NoticeAwareKernel(0.05)
     job = T.Exponential(LAM)
     kw = dict(n_events=100, key=threefry.key(0), device="cpu")
-    for bad in ({"rng": "split"}, {"telemetry": object()}, {"env": object()},
-                {"work": object()}, {"shard": "lanes"}):
+    for bad in ({"rng": "split"}, {"env": object()}, {"work": object()},
+                {"shard": "lanes"}):
         with pytest.raises(NotImplementedError):
             T.run_market_sweep(job, tm, kernel, {"r": 1.0}, **kw, **bad)
+    # telemetry= is ported: a value of another type is refused
+    with pytest.raises(TypeError, match="Telemetry"):
+        T.run_market_sweep(job, tm, kernel, {"r": 1.0}, **kw,
+                           telemetry=object())
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_market_sweep(T.Gamma(12.0, 1.0), tm, kernel, {"r": 1.0}, **kw)
     with pytest.raises(NotImplementedError, match="Gamma"):

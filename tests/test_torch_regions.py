@@ -511,10 +511,13 @@ def test_unported_options_raise_named_errors():
     tt = both_topologies()[1]
     kernel = T.RoutingKernel(T.NoticeAwareKernel(0.05), "least_loaded")
     kw = dict(n_events=100, key=threefry.key(0), device="cpu")
-    for bad in ({"rng": "split"}, {"telemetry": object()}, {"env": object()},
-                {"work": object()}, {"shard": "lanes"}):
+    for bad in ({"rng": "split"}, {"env": object()}, {"work": object()},
+                {"shard": "lanes"}):
         with pytest.raises(NotImplementedError):
             T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, **bad)
+    # telemetry= is ported: a value of another type is refused
+    with pytest.raises(TypeError, match="Telemetry"):
+        T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, telemetry=object())
     gamma = T.RegionTopology(regions=(
         tt.regions[0], dataclasses.replace(tt.regions[1],
                                            job=T.Gamma(12.0, 1.0))))
