@@ -7,15 +7,17 @@ seconds; the run ends with its total; any failure raises and exits
 nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the seven CUDA kernel libraries from
+2. build the nine CUDA kernel libraries from
    ``src/repro_torch/kernels/*/csrc`` (sweep with its three traversals,
-   the single queue, the market and the regions, twice: without the
-   telemetry fold and with it, ``sweep_tel``; flash attention on the
-   tensor cores and on the CUDA cores, decode attention, SSD on the tensor
-   cores and on the CUDA cores), one ``nvcc`` each, all started together,
-   with ptxas's registers, shared memory and spills (the two tensor-core
-   kernels and the fourteen region builds must spill nothing, and ptxas
-   must not serialise flash's wgmma);
+   the single queue, the market and the regions, four times: without the
+   telemetry fold and the environment timeline, with the fold
+   (``sweep_tel``), with the timeline (``sweep_env``) and with both
+   (``sweep_tel_env``); flash attention on the tensor cores and on the
+   CUDA cores, decode attention, SSD on the tensor cores and on the CUDA
+   cores), one ``nvcc`` each, all started together, with ptxas's
+   registers, shared memory and spills (the two tensor-core kernels and
+   the twenty-eight region builds must spill nothing, and ptxas must not
+   serialise flash's wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
@@ -208,13 +210,44 @@ nonzero):
    main-path inputs over the first 512 events (every field bitwise, both
    timed); then at cut depth (4,608 events) with a ring as wide as the
    windows, every lane's P50/P90/P99 wait sketch within γ − 1 of the
-   ring's exact quantiles, and lane 0's Perfetto trace well-formed.
+   ring's exact quantiles, and lane 0's Perfetto trace well-formed;
+21. the sweep kernel's three traversals with the environment timeline
+   (``env=``, the ``sweep_env`` and ``sweep_tel_env`` builds) against their
+   plain versions on the card at cut depth (320 events, each timeline
+   scaled so that its boundaries land inside: a storm, blackouts of one
+   location or of every location in turn, a price spike, every location
+   dark at once, a storm that lowers a hazard), on every (G, slots a
+   thread) layout of each traversal, under kernels with and without
+   ``PanicKernel`` (with ``drain_dead`` in the market), with telemetry on
+   one configuration of each: every field bitwise, floats, the final state
+   and the shock counters included;
+22. the three main-path fleets at full width (the three-phase sweep,
+   ``bench_market()`` under ``PanicKernel(NoticeAwareKernel(0.05),
+   drain_dead=True)``, ``bench_topology(rmax=16)`` under
+   ``PanicKernel(RoutingKernel(NoticeAwareKernel(0.05), "least_loaded"))``)
+   under the shock timeline (benchmarks/env_bench.py's calm/storm
+   modulator over H = 0.4 × the least time a lane covers without a
+   timeline, a blackout of location 0 over [0.40, 0.45]·H, a price spike
+   ×3 over [0.70, 0.75]·H): the kernel under the constant timeline and
+   under the shock one, and with ``Telemetry()`` under the shock one, one
+   timed run each, the on/off ratios against phase 20's runs without a
+   timeline (the same inputs); the constant timeline's base stats bitwise
+   the run without one; each entry point
+   with the launch count set to 0 just before and read just after (one
+   launch), equal to the summary of the kernel's own call; at every lane
+   every boundary crossed, the storms, blackouts and spikes observed equal
+   to the timeline's, degraded admissions within shock arrivals, storm and
+   blackout time within their float32 rounding bound of the segments'
+   length, and the ledgers of PERF.md §2; the kernel against its plain
+   version with the env state and ``Telemetry()`` on the main-path inputs
+   over 512 events (the timeline scaled into them), every field bitwise.
 
 The next-to-last line is a JSON object describing the five ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
 with each route's time and launches; the sweep's three traversals as
 three entries, each with its telemetry time, bound, on/off ratio and
-launches); the last is ``{"ok": true, "device": {...}}``.
+launches, and its env time, bound, on/off ratios and launches); the last
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -251,10 +284,15 @@ from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
                                      run_market_sweep, run_region_sweep,
                                      run_sweep, summarize, summarize_market,
                                      summarize_region)
+from repro_torch.core.env import (SEG_BLACKOUT, SEG_STORM,  # noqa: E402
+                                  EnvTimeline, Regime, init_env_state,
+                                  inject_blackout, inject_price_spike,
+                                  inject_storm, markov_timeline)
 from repro_torch.core.lp import (market_knapsack_lp,  # noqa: E402
                                  region_knapsack_lp)
 from repro_torch.core.market import (NoticeAwareKernel,  # noqa: E402
-                                     PoolChoiceKernel, SpotMarket, SpotPool)
+                                     PanicKernel, PoolChoiceKernel,
+                                     SpotMarket, SpotPool)
 from repro_torch.core.regions import (Region, RegionTopology,  # noqa: E402
                                       RoutingKernel)
 from repro_torch.core.policies import (SingleSlotKernel,  # noqa: E402
@@ -300,6 +338,7 @@ from repro_torch.models.base import cross_entropy_chunked  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.obs import (Telemetry, device_trace_records,  # noqa: E402
                              summarize_telemetry, to_perfetto)
+from repro_torch.obs.shocks import EnvWindowStats  # noqa: E402
 from repro_torch.obs.stats import drop_windows  # noqa: E402
 from repro_torch.serving.engine import (BatchedServer,  # noqa: E402
                                         SpotServingFrontend)
@@ -742,9 +781,9 @@ TEL_PTXAS: dict[str, dict[tuple[int, int], str]] = {}
 def sweep_ptxas(report: str, kernel: str = "sweep_kernel"
                 ) -> dict[tuple[int, int], str]:
     """(G, SPT) -> ptxas's registers and spills line of that instantiation
-    of ``kernel`` (``sweep_kernel<G, SPT, TEL>``, ``market_kernel`` or
-    ``region_kernel``, mangled ``ILiGELiSPTELbTELE``; a library holds one
-    TEL)."""
+    of ``kernel`` (``sweep_kernel<G, SPT, TEL, ENV>``, ``market_kernel`` or
+    ``region_kernel``, mangled ``ILiGELiSPTELbTELELbENVE``; a library holds
+    one TEL and one ENV)."""
     out, key = {}, None
     pattern = re.compile(rf"{kernel}ILi(\d+)ELi(\d+)E")
     for line in report.splitlines():
@@ -772,20 +811,22 @@ def no_spill(line: str) -> bool:
 def phase_build() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    results = _build.build(sweep.LIBRARY, sweep.TEL_LIBRARY,
-                           flash_mod.TC_LIBRARY, flash_mod.LIBRARY,
+    builds = {lib: key for key, lib in sweep.LIBRARIES.items()}
+    results = _build.build(*builds, flash_mod.TC_LIBRARY, flash_mod.LIBRARY,
                            decode_mod.LIBRARY, ssd_mod.TC_LIBRARY,
                            ssd_mod.LIBRARY, verbose=True)
     for res in results:
         print(f"built {res.library.path.name}: nvcc {res.seconds:.1f} s",
               flush=True)
-        if res.library in (sweep.LIBRARY, sweep.TEL_LIBRARY):
+        if res.library in builds:
             # one instantiation a (G, slots a thread) the wrapper can pick
-            tel = res.library == sweep.TEL_LIBRARY
+            tel, env = builds[res.library]
             tables = {name: sweep_ptxas(res.ptxas, name)
                       for name in ("sweep_kernel", "market_kernel",
                                    "region_kernel")}
-            if tel:
+            if env:
+                ENV_PTXAS.update({(tel, n): t for n, t in tables.items()})
+            elif tel:
                 TEL_PTXAS.update(tables)
             else:
                 SWEEP_PTXAS.update(tables["sweep_kernel"])
@@ -794,12 +835,14 @@ def phase_build() -> None:
             for name, table in tables.items():
                 for key, line in sorted(table.items()):
                     print(f"  {name}<G {key[0]}, SPT {key[1]}, TEL "
-                          f"{str(tel).lower()}>: {line}", flush=True)
-            # the region builds must not spill, with telemetry or without
+                          f"{str(tel).lower()}, ENV {str(env).lower()}>: "
+                          f"{line}", flush=True)
+            # the region builds must not spill, in any of the four builds
             for key, line in tables["region_kernel"].items():
                 if not no_spill(line):
                     raise AssertionError(f"region_kernel<G {key[0]}, SPT "
-                                         f"{key[1]}, TEL {tel}>: {line}")
+                                         f"{key[1]}, TEL {tel}, ENV {env}>: "
+                                         f"{line}")
             continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
@@ -1999,7 +2042,7 @@ MARKET_CASES = [
      SpotMarket.single(Uniform(0.0, 48.0), price=0.4, hazard=0.05),
      SingleSlotKernel(wait=ExponentialWait(0.5)), 1, {}, None),
 ]
-MARKET_PLAN = _window_plan(1_500, 512, 128)
+MARKET_PLAN = _window_plan(1_000, 512, 128)
 MARKET_LANES = 96  # a ragged last block at G 4 (32 lanes a block)
 #: every (G, slots a thread) the wrapper can pick, by rmax
 MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
@@ -2432,9 +2475,9 @@ REGION_CASES = [
      RoutingKernel(_NOTICE, "weighted"),
      {"r": np.linspace(0.5, 6.0, 4), "region_logits": "per lane"}, None),
 ]
-#: a burn-in, two windows and a tail, none a multiple of a draw pass (rows
+#: a burn-in, a window and a tail, none a multiple of a draw pass (rows
 #: of 4 to 9 or 16 columns take 16, 12, 10, 9, 8, 7 or 4 events a pass)
-REGION_PLAN = _window_plan(1_001, 383, 97)
+REGION_PLAN = _window_plan(700, 383, 97)
 REGION_LANES = 94  # no multiple of 32/G: a ragged last warp at every G
 #: total slots whose wrapper picks are every (G, slots a thread) built
 REGION_LAYOUT_SLOTS = (2, 8, 16, 32, 64, 100, 256)
@@ -2849,21 +2892,23 @@ def tel_bytes_moved(lanes: int, plan, tel: Telemetry, n_locs: int) -> int:
 
 
 def tel_bound_ms(loop: str, lanes: int, plan, tel: Telemetry | None,
-                 rmax: int = 64) -> tuple[float, str]:
+                 rmax: int = 64, env: bool = False) -> tuple[float, str]:
     """:func:`bound_ms` of a main-path fleet's traversal (``loop``: single,
     market or region), with the fold's operations and bytes where ``tel``
-    is given."""
+    is given, and the env state's (:func:`env_ops_per_lane_event`; the
+    cursor read and written, ten shock sums a window written) with
+    ``env``."""
     w = len(plan)
     if loop == "single":
         n_cols = _engine_layout(JOB, SPOT, ThreePhaseKernel()).n_cols
         ops, n_bytes = ops_per_lane_event(rmax, n_cols), bytes_moved(
             lanes, rmax, w)
-        n_locs = 1
+        n_locs, slots = 1, rmax
     elif loop == "market":
         n_cols = _market_layout(JOB, BENCH_MARKET, MARKET_KERNEL, True).n_cols
         ops = market_ops_per_lane_event(64, n_cols, BENCH_MARKET.n_pools)
         n_bytes = market_bytes_moved(lanes, 64, BENCH_MARKET.n_pools, w)
-        n_locs = BENCH_MARKET.n_pools
+        n_locs, slots = BENCH_MARKET.n_pools, 64
     else:
         slots, n_locs = BENCH_TOPOLOGY.total_slots, BENCH_TOPOLOGY.n_regions
         n_cols = _region_layout(BENCH_TOPOLOGY, REGION_KERNEL, True).n_cols
@@ -2874,6 +2919,10 @@ def tel_bound_ms(loop: str, lanes: int, plan, tel: Telemetry | None,
         ops = tuple(a + b for a, b in zip(
             ops, tel_ops_per_lane_event(loop, bool(tel.trace_cap))))
         n_bytes += tel_bytes_moved(lanes, plan, tel, n_locs)
+    if env:
+        ops = tuple(a + b for a, b in zip(ops, env_ops_per_lane_event(
+            loop, n_locs, slots)))
+        n_bytes += lanes * (2 * 8 + w * 10 * 4)
     return bound_ms(lanes, plan, ops, n_bytes)
 
 
@@ -2891,14 +2940,33 @@ def hold_base(name: str, a, b, what: str = "base, telemetry off vs on"
                                  f"differs at lane/window {bad}")
 
 
+def hold_all(name: str, ref, ker) -> None:
+    """Every leaf of two nested (state, stats) results bitwise, floats
+    included; ``None`` leaves on both."""
+    def walk(a, b, path):
+        if a is None and b is None:
+            return
+        if a is None or b is None:
+            raise AssertionError(f"{name}: {path} is None on one side")
+        if isinstance(a, tuple):
+            names = getattr(a, "_fields", None) or range(len(a))
+            for field, x, y in zip(names, a, b):
+                walk(x, y, f"{path}.{field}")
+            return
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = None if a.shape != b.shape else (a != b).nonzero()[0]
+            where = None if bad is None else bad.tolist()
+            raise AssertionError(f"{name}: {path} differs (plain vs "
+                                 f"kernel) at {where}")
+    walk(ref, ker, "")
+
+
 def hold_tel(name: str, ref, ker, off) -> None:
     """Kernel against plain version with telemetry: every field of both
     blocks bitwise, floats and rings included; and the kernel's base stats
     bitwise its own run without telemetry (``off``)."""
-    (base_r, tel_r), (base_k, tel_k) = ref, ker
-    hold_base(name, base_r, base_k, "base, plain vs kernel")
-    hold_base(name, tel_r, tel_k, "telemetry, plain vs kernel")
-    hold_base(name, off, base_k)
+    hold_all(f"telemetry {name}", ref, ker)
+    hold_base(name, off, ker[0])
 
 
 def tel_line(tel: Telemetry, ts) -> str:
@@ -2917,13 +2985,13 @@ def tel_line(tel: Telemetry, ts) -> str:
 def phase_telemetry_parity() -> None:
     """Each traversal with telemetry against its plain version on the card,
     on a named subset of its parity configurations at their depths: the
-    single queue's three_phase (rmax 8) and single_slot (6,000 events,
+    single queue's three_phase (rmax 8) and single_slot (3,000 events,
     2,048-event windows after 512), the market's heterogeneous_notice and
     eight_pools_mixed (MARKET_PLAN), the regions' least_loaded and
     eight_regions (REGION_PLAN), each with one of the two telemetries:
     every field bitwise, and the base stats bitwise the kernel's own run
     without telemetry."""
-    plan = _window_plan(6_000, 2_048, 512)
+    plan = _window_plan(3_000, 2_048, 512)
     for (name, job, spot, kernel, rmax, params, lanes), tel in (
             (PARITY_CASES[0], TEL_RING), (PARITY_CASES[2], TEL_NARROW)):
         state0, p, k = fleet(job, spot, kernel, rmax, params, lanes, 7)
@@ -3100,10 +3168,11 @@ def hold_sketch(name: str, ts, time_windows, tel: Telemetry) -> float:
     return worst
 
 
-def phase_telemetry_main_path(entries: dict[str, dict]) -> None:
+def phase_telemetry_main_path(entries: dict[str, dict]) -> dict:
     """The main-path fleets at full width with ``Telemetry()``: the kernel
     alone with telemetry off and on in turns (off, on, on, off), its base
-    stats bitwise the off run's; each entry point with the launch count set
+    stats bitwise the off run's (returned for the env phase: ``{name:
+    (off stats, off ms, on ms)}``); each entry point with the launch count set
     to 0 just before and read just after (one launch), its result equal to
     the summary of the kernel's own call, the ledgers at every lane, the
     single-slot fleet's P99 wait within a bin of its deterministic wait;
@@ -3111,6 +3180,7 @@ def phase_telemetry_main_path(entries: dict[str, dict]) -> None:
     within γ − 1 of the ring's exact quantiles, and a Perfetto trace."""
     plan, fleets = tel_fleets()
     lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    offs = {}
     for name, loop, rmax, kernel_call, entry_call, owner, summary in fleets:
         entry = entries[loop]
         times = {None: [], TEL_MAIN: []}
@@ -3123,6 +3193,7 @@ def phase_telemetry_main_path(entries: dict[str, dict]) -> None:
                 on = stats
         hold_base(f"{name} full width", off, on[0])
         off_ms, on_ms = (float(np.mean(times[t])) for t in (None, TEL_MAIN))
+        offs[name] = off, off_ms, on_ms
         b_ms, b_by = tel_bound_ms(loop, lanes, plan, TEL_MAIN, rmax)
         suffix = "" if name in ("three_phase", "market", "region") \
             else f"_{name}"
@@ -3215,6 +3286,528 @@ def phase_telemetry_main_path(entries: dict[str, dict]) -> None:
               f"γ − 1 = {TEL_WIDE.rel_error():.4f} of the ring's exact "
               f"quantiles (largest distance {worst:.4f}); lane 0's Perfetto "
               f"trace well-formed", flush=True)
+    return offs
+
+
+# ---------------------------------------------------------------------------
+# the environment timeline: the three traversals with the env state
+# (sweep.ENV_LIBRARY, and sweep.TEL_ENV_LIBRARY with telemetry)
+# ---------------------------------------------------------------------------
+#: ptxas's report of each env instantiation, by (telemetry?, kernel name)
+ENV_PTXAS: dict[tuple[bool, str], dict[tuple[int, int], str]] = {}
+#: the parity phase's plan: a burn-in, two windows and a tail (320 events,
+#: no window a multiple of a draw pass)
+ENV_PLAN = _window_plan(256, 100, 64)
+ENV_LANES = 70  # a ragged last warp at every G
+#: every (G, slots a thread) pick, by rmax (the region topologies' totals)
+ENV_LAYOUT_RMAX = (4, 8, 16, 32, 64, 128, 256)
+
+
+def env_parity_timeline(n: int, t_run: float, every_loc: bool = False
+                        ) -> EnvTimeline:
+    """A timeline whose boundaries land inside a run of ``t_run`` hours: a
+    storm of every location (hazard ×8); a blackout of location 0, or of
+    each location in turn (``every_loc``); a price spike ×3 of the last
+    location; every location dark at once; a storm of location 0 whose
+    multiplier is 0.5 (hazards fall)."""
+    t = EnvTimeline.constant()
+    t = inject_storm(t, 0.04 * t_run, 0.10 * t_run, hazard_mult=8.0)
+    locs = range(n) if every_loc else (0,)
+    step = 0.5 / len(locs)
+    for i in locs:
+        t0 = (0.12 + step * i) * t_run
+        t = inject_blackout(t, t0, t0 + 0.8 * step * t_run, loc=i, n_locs=n)
+    t = inject_price_spike(t, 0.64 * t_run, 0.70 * t_run, price_mult=3.0,
+                           loc=n - 1, n_locs=n)
+    t = inject_blackout(t, 0.72 * t_run, 0.76 * t_run)
+    return inject_storm(t, 0.80 * t_run, 0.84 * t_run, hazard_mult=0.5,
+                        loc=0, n_locs=n)
+
+
+def env_main_timeline(n: int, horizon: float) -> EnvTimeline:
+    """The main path's shock timeline over ``horizon`` hours:
+    benchmarks/env_bench.py::_storm_timeline's calm/storm modulator (calm
+    hold H/60, storm hold H/200, hazard ×8, availability 0.5, seed 0), a
+    blackout of location 0 over [0.40, 0.45]·H and a price spike ×3 of
+    every location over [0.70, 0.75]·H."""
+    t = markov_timeline(
+        (Regime(mean_hold=horizon / 60.0),
+         Regime(mean_hold=horizon / 200.0, hazard_mult=8.0, avail=0.5,
+                kind=SEG_STORM)), horizon=horizon, seed=0)
+    t = inject_blackout(t, 0.40 * horizon, 0.45 * horizon, loc=0, n_locs=n)
+    return inject_price_spike(t, 0.70 * horizon, 0.75 * horizon,
+                              price_mult=3.0)
+
+
+def with_env(state, tl: EnvTimeline | None, n_locs: int, init=None):
+    """``(state, ep)``: the lanes' state paired with every lane's cursor at
+    segment 0 and the timeline's table on the card (``init`` recomputes
+    the state's initial clocks under segment 0), or as it is without a
+    timeline."""
+    if tl is None:
+        return state, None
+    ep = tl.params(n_locs, DEVICE)
+    if init is not None:
+        state = init(ep)
+    return (state, init_env_state(ep, state.key.shape[0])), ep
+
+
+def env_counts(estats) -> str:
+    """What a run's shock counters saw, for the phase's lines."""
+    s = {f: int(getattr(estats, f).sum()) for f in (
+        "boundaries", "storms_entered", "blackouts_entered",
+        "spikes_entered", "shock_arrivals", "degraded_admits",
+        "shock_served", "shock_resumed")}
+    return ", ".join(f"{k} {v}" for k, v in s.items())
+
+
+def env_t_run(run) -> float:
+    """0.9 × the least total time a lane of ``run()`` (the kernel without a
+    timeline) covers, in hours."""
+    _, stats = run()
+    if not hasattr(stats, "time_elapsed"):  # a (base, ...) pair
+        stats = stats[0]
+    return 0.9 * float(stats.time_elapsed.double().sum(1).min())
+
+
+def env_region_topology(slots: int) -> RegionTopology:
+    """Three regions of a ragged partition of ``slots`` slots, unit-scale
+    rates."""
+    a = max(1, slots // 2)
+    b = max(1, (slots - a) // 2)
+    rows = [(Exponential(0.6), Exponential(0.5), 0.5, 0.2, 0.5, a),
+            (Exponential(0.3), Exponential(0.4), 0.3, 0.4, 0.01, b),
+            (Exponential(0.2), Exponential(0.3), 0.2, 0.0, 0.0,
+             slots - a - b)]
+    return region_topology([r for r in rows if r[5] > 0])
+
+
+def phase_env_parity() -> None:
+    """Each traversal with the env state against its plain version on the
+    card, at cut depth (ENV_PLAN, 320 events; the timelines scaled so that
+    their boundaries land inside): every (G, slots a thread) the wrapper
+    can pick, the blackout of every location, PanicKernel on and off, its
+    drain, a kernel without PanicKernel under it, and env with telemetry
+    on one configuration of each traversal: every field bitwise, floats,
+    the final state and the shock counters included."""
+    job, spot = Exponential(1.0), Exponential(0.8)
+    for rmax in ENV_LAYOUT_RMAX:
+        kernel = (SingleSlotKernel(wait=ExponentialWait(0.5)) if rmax == 4
+                  else ThreePhaseKernel())
+        params = {} if rmax == 4 else {"r": np.linspace(0.5, rmax, 7)}
+        state0, p, k = fleet(job, spot, kernel, rmax, params, ENV_LANES, 5)
+        t_run = env_t_run(lambda: sweep.batched_event_windows(
+            job, spot, kernel, rmax, state0, p, k, ENV_PLAN))
+        keys = threefry.split(threefry.key(5, DEVICE), ENV_LANES)
+        st, ep = with_env(state0, env_parity_timeline(1, t_run), 1,
+                          lambda ep: init_engine_state(keys, job, spot, rmax,
+                                                       ep))
+        for tel in ((None, TEL_RING) if rmax == 8 else (None,)):
+            args = (job, spot, kernel, rmax, st, p, k, ENV_PLAN, tel, ep)
+            ref = batched_event_windows_ref(*args)
+            ker = sweep.batched_event_windows(*args)
+            torch.cuda.synchronize()
+            hold_all(f"env single rmax {rmax}", ref, ker)
+            g, spt = picked_layout(rmax)
+            print(f"env parity single queue rmax {rmax} (G {g}, {spt} slots "
+                  f"a thread), {ENV_LANES} lanes, plan {ENV_PLAN}"
+                  f"{', ' + tel_line(tel, ker[1][0][1]) if tel else ''}: "
+                  f"{env_counts(ker[1][1])}; every field bitwise",
+                  flush=True)
+    notice = NoticeAwareKernel(checkpoint_time=0.05)
+    market_cases = [
+        (4, 2, notice, False),
+        (8, 3, PanicKernel(notice, drain_dead=True), False),
+        (16, 4, PanicKernel(NoticeAwareKernel(0.05, "least_loaded"),
+                            drain_dead=True), True),
+        (32, 2, PanicKernel(PoolChoiceKernel(ThreePhaseKernel(),
+                                             "fastest")), False),
+        (64, 4, PanicKernel(NoticeAwareKernel(0.05, "uniform")), False),
+        (128, 8, PanicKernel(notice, drain_dead=True), True),
+        (256, 3, PanicKernel(ThreePhaseKernel()), False)]
+    for rmax, n, kernel, every_loc in market_cases:
+        market = spot_market(tuple(0.9 - 0.1 * i for i in range(n)),
+                             tuple(0.1 + 0.05 * (i % 3) for i in range(n)),
+                             tuple(0.3 * (i % 2) for i in range(n)),
+                             [Exponential(1.0 / n)] * n)
+        state0, p, mp, k, pre = market_fleet(
+            market, kernel, rmax, {"r": np.linspace(0.5, 6.0, ENV_LANES)},
+            ENV_LANES, 6)
+        base = (JOB, market, kernel, rmax, pre)
+        t_run = env_t_run(lambda: sweep.market_event_windows(
+            *base, state0, p, mp, k, ENV_PLAN))
+        keys = threefry.split(threefry.key(6, DEVICE), ENV_LANES)
+        st, ep = with_env(state0, env_parity_timeline(n, t_run, every_loc),
+                          n, lambda ep: init_market_state(
+                              keys, JOB, market, rmax, mp, pre, ep))
+        for tel in ((None, TEL_NARROW) if rmax == 16 else (None,)):
+            args = (*base, st, p, mp, k, ENV_PLAN, tel, ep)
+            ref = market_event_windows_ref(*args)
+            ker = sweep.market_event_windows(*args)
+            torch.cuda.synchronize()
+            hold_all(f"env market rmax {rmax}", ref, ker)
+            g, spt = picked_layout(rmax)
+            print(f"env parity market P {n}, rmax {rmax} (G {g}, {spt} slots "
+                  f"a thread), {type(kernel).__name__}"
+                  f"{' drain' if getattr(kernel, 'drain_dead', False) else ''}"
+                  f", {'every pool' if every_loc else 'pool 0'} blacked out "
+                  f"in turn, {ENV_LANES} lanes"
+                  f"{', ' + tel_line(tel, ker[1][0][1]) if tel else ''}: "
+                  f"{env_counts(ker[1][1])}; every field bitwise",
+                  flush=True)
+    routed = RoutingKernel(notice, "least_loaded")
+    region_cases = [
+        (4, notice, False),
+        (8, PanicKernel(routed), True),
+        (16, RoutingKernel(notice, "cheapest"), False),
+        (32, PanicKernel(RoutingKernel(ThreePhaseKernel(), "fastest")),
+         True),
+        (64, RoutingKernel(PanicKernel(notice), "uniform"), False),
+        (128, PanicKernel(notice), True),
+        (256, PanicKernel(routed), False)]
+    for slots, kernel, every_loc in region_cases:
+        topo = env_region_topology(slots)
+        n = topo.n_regions
+        rparams = {"r": np.linspace(0.5, 6.0, ENV_LANES)}
+        args0 = region_fleet(topo, kernel, rparams, ENV_LANES, 8)
+        t_run = env_t_run(lambda: sweep.region_event_windows(
+            *args0, ENV_PLAN))
+        topo_, kern_, pre, state0, p, rp, k = args0
+        keys = threefry.split(threefry.key(8, DEVICE), ENV_LANES)
+        st, ep = with_env(state0, env_parity_timeline(n, t_run, every_loc),
+                          n, lambda ep: init_region_state(keys, topo, rp,
+                                                          pre, ep))
+        for tel in ((None, TEL_RING) if slots == 32 else (None,)):
+            args = (topo, kernel, pre, st, p, rp, k, ENV_PLAN, tel, ep)
+            ref = region_event_windows_ref(*args)
+            ker = sweep.region_event_windows(*args)
+            torch.cuda.synchronize()
+            hold_all(f"env regions slots {slots}", ref, ker)
+            g, spt = picked_layout(slots)
+            print(f"env parity regions R {n}, slots {slots} (G {g}, {spt} "
+                  f"slots a thread), {type(kernel).__name__}, "
+                  f"{'every region' if every_loc else 'region 0'} blacked "
+                  f"out in turn, {ENV_LANES} lanes"
+                  f"{', ' + tel_line(tel, ker[1][0][1]) if tel else ''}: "
+                  f"{env_counts(ker[1][1])}; every field bitwise",
+                  flush=True)
+
+
+def env_ops_per_lane_event(loop: str, n_locs: int,
+                           rmax: int) -> tuple[int, int]:
+    """(INT32, FP32) operations the env state adds to a lane-event,
+    counted from the kernel's chain as csrc/sweep.cu does it (a crossing,
+    ~10^-4 of the events, not counted).  Every loop: the boundary's
+    compare and min (2 FP32), the three event masks (3 INT32), the cursor's
+    countdown and select (2 FP32), the shock test and four counters'
+    masks and adds (9 INT32), two dwell selects and adds (4 FP32).  The
+    single queue: the spot draw's × 1/avail and the price select (2
+    FP32).  The market and regions: the fixed choice's select (1 INT32),
+    PanicKernel's failover and gate (4 INT32), a spot draw's × 1/avail a
+    location (P FP32); the market the drain's test a slot (3 INT32 ×
+    rmax).  The thinning pick and the preemption clock's division, which
+    the env build does on the chain and the base build in the sample pass,
+    are the base count's (:func:`market_ops_per_lane_event`)."""
+    n_int, n_fp = 12, 8
+    if loop == "single":
+        return n_int, n_fp + 2
+    n_int += 1 + 4
+    n_fp += n_locs
+    if loop == "market":
+        n_int += 3 * rmax
+    return n_int, n_fp
+
+
+def dwell_bound(window_sums: np.ndarray, plan, n_segments: int,
+                t_end_max: float, seg_len_max: float) -> np.ndarray:
+    """The float32 rounding bound of a lane's total dwell time against the
+    exact length of its segments: each window's sum of at most plan[w]
+    terms within plan[w] half-ulps of its value (the market's spend bound, with
+    the window's event count as the number of terms), the countdown's
+    subtractions within half an ulp of a segment's length an event, and
+    the table's float32 end times."""
+    windows = (np.asarray(plan) * np.spacing(
+        window_sums.astype(np.float32)).astype(np.float64) / 2).sum(-1)
+    countdown = sum(plan) * float(np.spacing(np.float32(seg_len_max))) / 2
+    table = n_segments * 2 * float(np.spacing(np.float32(t_end_max)))
+    return windows + countdown + table
+
+
+def env_fleets():
+    """The three main-path fleets under env: (name, loop, n_locs, the
+    kernel's call given (timeline, telemetry), the entry point's call
+    given a timeline, the launch counter's owner, the summary function).
+    The kernel's call without a timeline runs the base kernel (no
+    PanicKernel) on the build without the env state: the off run the
+    ratios divide by; with one, the main path's PanicKernel, its initial
+    clocks under segment 0."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    key = threefry.key(MAIN_SEED)
+    kw = dict(k=K_GRID[None, :], n_events=N_EVENTS, key=key,
+              n_seeds=N_SEEDS, burn_in=BURN_IN)
+    out = []
+    _, kernel, params, rmax = MAIN_PATHS[0]
+    state0, p, k = main_inputs(kernel, params, rmax)
+
+    def single(tl, tel=None):
+        st, ep = with_env(state0, tl, 1, lambda ep: init_engine_state(
+            main_keys(), JOB, SPOT, rmax, ep))
+        return sweep.batched_event_windows(JOB, SPOT, kernel, rmax, st, p, k,
+                                           plan, tel, ep)
+
+    out.append(("three_phase", "single", 1, single,
+                lambda tl: run_sweep(JOB, SPOT, kernel, params, rmax=rmax,
+                                     env=tl, **kw),
+                sweep.batched_event_windows, summarize))
+    margs = market_main_inputs(BENCH_MARKET, ENV_MARKET_KERNEL)
+    moff = market_main_inputs()
+
+    def mkt(tl, tel=None):
+        if tl is None:  # the base kernel, on the build without the env
+            return sweep.market_event_windows(*moff, plan, tel)
+        st, ep = with_env(margs[5], tl, BENCH_MARKET.n_pools,
+                          lambda ep: init_market_state(
+                              main_keys(), JOB, BENCH_MARKET, 64, margs[7],
+                              margs[4], ep))
+        return sweep.market_event_windows(*margs[:5], st, *margs[6:], plan,
+                                          tel, ep)
+
+    out.append(("market", "market", BENCH_MARKET.n_pools, mkt,
+                lambda tl: run_market_sweep(
+                    JOB, BENCH_MARKET, ENV_MARKET_KERNEL,
+                    {"r": R_GRID[:, None]}, rmax=64, env=tl, **kw),
+                sweep.market_event_windows, summarize_market))
+    rargs = region_main_inputs(BENCH_TOPOLOGY, ENV_REGION_KERNEL)
+    roff = region_main_inputs()
+
+    def reg(tl, tel=None):
+        if tl is None:  # the base kernel, on the build without the env
+            return sweep.region_event_windows(*roff, plan, tel)
+        st, ep = with_env(rargs[3], tl, BENCH_TOPOLOGY.n_regions,
+                          lambda ep: init_region_state(
+                              main_keys(), BENCH_TOPOLOGY, rargs[5],
+                              rargs[2], ep))
+        return sweep.region_event_windows(*rargs[:3], st, *rargs[4:], plan,
+                                          tel, ep)
+
+    out.append(("region", "region", BENCH_TOPOLOGY.n_regions, reg,
+                lambda tl: run_region_sweep(
+                    BENCH_TOPOLOGY, ENV_REGION_KERNEL,
+                    {"r": R_GRID[:, None]}, env=tl, **kw),
+                sweep.region_event_windows, summarize_region))
+    return plan, out
+
+
+#: the main path's PanicKernels: the market's drains, the regions' route
+#: fails over
+ENV_MARKET_KERNEL = PanicKernel(NoticeAwareKernel(checkpoint_time=0.05),
+                                drain_dead=True)
+ENV_REGION_KERNEL = PanicKernel(REGION_KERNEL)
+
+
+def main_keys():
+    """Every main-path lane's key, as the entry points lay them out."""
+    keys = threefry.split(threefry.key(MAIN_SEED, DEVICE), N_SEEDS)
+    return keys.repeat(R_GRID.size * K_GRID.size, 1)
+
+
+def env_ledgers(loop: str, out: dict, tl: EnvTimeline, estats) -> dict:
+    """The shock identities at every lane over the whole run (``estats``,
+    the kernel's own windows, the burn-in included: the timeline starts
+    with it) and the ledgers of PERF.md §2 at every lane of an entry
+    point's result under ``tl``."""
+    def total(field):
+        return getattr(estats, field).sum(1).cpu().numpy()
+
+    checks = {
+        "env_boundaries = S - 1": np.all(total("boundaries")
+                                         == tl.n_segments - 1),
+        "storms observed = injected": np.all(total("storms_entered")
+                                             == tl.count_storms()),
+        "blackouts observed = injected": np.all(
+            total("blackouts_entered") == tl.count_blackouts()),
+        "spikes observed = injected": np.all(total("spikes_entered")
+                                             == tl.count_spikes()),
+        "degraded_admits <= shock_arrivals": np.all(
+            total("degraded_admits") <= total("shock_arrivals"))
+        and np.all(out["degraded_admits"] <= out["shock_arrivals"])}
+    if loop == "single":
+        checks["completed = served + on-demand"] = np.array_equal(
+            out["jobs_completed"], out["spot_served"] + out["ondemand"])
+    else:
+        checks["completed = served + on-demand + resumed"] = np.array_equal(
+            out["jobs_completed"],
+            out["spot_served"] + out["ondemand"] + out["resumed"])
+    if loop == "region":
+        admitted = out["region_routed"].sum(-1)
+        checks.update({
+            "spot_served = sum of region_served": np.array_equal(
+                out["spot_served"], out["region_served"].sum(-1)),
+            "jobs_arrived = sum of region_jobs": np.array_equal(
+                out["jobs_arrived"], out["region_jobs"].sum(-1)),
+            "routed_home <= admitted <= jobs_arrived": bool(np.all(
+                (out["routed_home"] <= admitted)
+                & (admitted <= out["jobs_arrived"])))})
+    return checks
+
+
+def phase_env_main_path(entries: dict[str, dict], offs: dict) -> None:
+    """The three main-path fleets at full width under the shock timeline
+    (H = 0.4 × the least time a lane covers without a timeline, so every
+    lane crosses every boundary): the kernel under the constant timeline
+    and under the shock one (the main path's PanicKernel), and with
+    ``Telemetry()`` under the shock one, one timed run each, their on/off
+    ratios against the off runs of :func:`phase_telemetry_main_path` in
+    ``offs`` (the base kernel on the build without the env state, without
+    and with ``Telemetry()``, the same inputs); the constant timeline's
+    base stats bitwise the off run's (PanicKernel without a blackout is
+    its base); each entry point under the shock timeline with
+    the launch count set to 0 just before and read just after (one
+    launch), equal to the summary of the kernel's own call, the shock
+    identities and the ledgers at every lane, each lane's storm and
+    blackout time within its float32 rounding bound of the segments'
+    length; then the kernel against its plain version with the env state
+    and ``Telemetry()`` on the main-path inputs over TEL_CUT_PLAN, the
+    shock timeline scaled so that its boundaries land inside."""
+    plan, fleets = env_fleets()
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    const = EnvTimeline.constant()
+    for name, loop, n_locs, kernel_call, entry_call, owner, summary in fleets:
+        entry = entries[loop]
+        off, off_ms, tel_off_ms = offs[name]
+        horizon = 0.4 * float(off.time_elapsed.double().sum(1).min())
+        shock = env_main_timeline(n_locs, horizon)
+        const_ms, (_, const_stats) = cuda_ms(lambda: kernel_call(const))
+        hold_base(f"{name} constant timeline", off, const_stats[0],
+                  "base, env off vs the constant timeline")
+        env_ms, (_, shock_stats) = cuda_ms(lambda: kernel_call(shock))
+        tel_ms, (_, tstats) = cuda_ms(lambda: kernel_call(shock, TEL_MAIN))
+        hold_base(f"{name} shock timeline", shock_stats[0], tstats[0][0],
+                  "base, telemetry off vs on under the shock timeline")
+        hold_base(f"{name} shock timeline", shock_stats[1], tstats[1],
+                  "shock counters, telemetry off vs on")
+        b_ms, b_by = tel_bound_ms(loop, lanes, plan, None, env=True)
+        bt_ms, _ = tel_bound_ms(loop, lanes, plan, TEL_MAIN, env=True)
+        entry.update({
+            "env_ms": env_ms, "env_off_ms": off_ms,
+            "env_constant_ms": const_ms, "env_ratio": env_ms / off_ms,
+            "env_constant_ratio": const_ms / off_ms,
+            "env_tel_ms": tel_ms, "env_tel_off_ms": tel_off_ms,
+            "env_tel_ratio": tel_ms / tel_off_ms,
+            "env_bound_ms": b_ms, "env_bound_by": b_by,
+            "env_tel_bound_ms": bt_ms, "env_segments": shock.n_segments,
+            "env_horizon_h": horizon})
+        print(f"env main-size kernel {name}: {lanes} lanes × {sum(plan)} "
+              f"events; shock timeline over H {horizon:.4g} h, "
+              f"{shock.n_segments} segments ({shock.count_storms()} storms, "
+              f"{shock.count_blackouts()} blackout, {shock.count_spikes()} "
+              f"spike); off {off_ms:.1f} ms (the telemetry phase's), "
+              f"constant {const_ms:.1f} ms, shock {env_ms:.1f} ms: on/off "
+              f"constant {entry['env_constant_ratio']:.4f}, shock "
+              f"{entry['env_ratio']:.4f}; with Telemetry() off "
+              f"{tel_off_ms:.1f} ms, shock {tel_ms:.1f} ms: "
+              f"{entry['env_tel_ratio']:.4f}; bound with the env state "
+              f"{b_ms:.1f} ms ({b_by}: {100 * b_ms / env_ms:.1f}%), "
+              f"with telemetry too {bt_ms:.1f} ms; the constant timeline's "
+              f"base stats bitwise the off run", flush=True)
+
+        owner.launches = 0
+        t0 = time.perf_counter()
+        out = entry_call(shock)
+        wall = time.perf_counter() - t0
+        launches = owner.launches
+        entry["env_launches"] = entry.get("env_launches", 0) + launches
+        if launches != 1:
+            raise AssertionError(f"env {name}: the entry point launched "
+                                 f"the kernel {launches} times")
+        base, estats = shock_stats
+        want = summary((type(base)(*(x[:, 1:] for x in base)),
+                        EnvWindowStats(*(x[:, 1:] for x in estats))),
+                       None, shock)
+        for field, v in want.items():
+            if not np.array_equal(out[field], np.reshape(
+                    v, np.shape(out[field]))):
+                raise AssertionError(f"env {name}: {field} differs from the "
+                                     f"kernel's own call")
+        checks = env_ledgers(loop, out, shock, estats)
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"env {name}: {what} fails")
+        # the dwell times over the whole run (burn-in included) against the
+        # segments' exact length, within their float32 rounding bound
+        segs = list(shock.segments())
+        worst = 0.0
+        for kind, field, f in ((SEG_STORM, "storm_time", estats.storm_time),
+                               (SEG_BLACKOUT, "blackout_time",
+                                estats.blackout_time)):
+            exact = sum(t1 - t0 for t0, t1, *_, kd in segs if kd == kind)
+            got = f.double().sum(1).cpu().numpy()
+            bound = dwell_bound(f.cpu().numpy(), plan, shock.n_segments,
+                                shock.span(), max(
+                                    t1 - t0 for t0, t1, *_ in segs[:-1]))
+            if not np.all(np.abs(got - exact) <= bound):
+                bad = int(np.flatnonzero(np.abs(got - exact) > bound)[0])
+                raise AssertionError(f"env {name}: lane {bad} {field} "
+                                     f"{got[bad]} against {exact} (bound "
+                                     f"{bound[bad]:.4g})")
+            worst = max(worst, float((np.abs(got - exact) / bound).max()))
+        entry["env_dwell_max_of_bound"] = max(
+            entry.get("env_dwell_max_of_bound", 0.0), worst)
+        print(f"env main path {name}: entry point {wall:.3f} s wall, kernel "
+              f"launches {launches}, equal to the kernel's own call; "
+              f"{env_counts(estats)} (over all lanes, burn-in included); "
+              f"{', '.join(checks)} at every lane; storm and blackout time "
+              f"within their float32 rounding bound of the segments' length "
+              f"(at most {worst:.3f} of it)", flush=True)
+
+    # TEL_CUT_PLAN: kernel and plain version with the env state and
+    # Telemetry() on the main-path inputs, the shock timeline scaled so
+    # that its boundaries land inside the cut
+    _, kernel, params, rmax = MAIN_PATHS[0]
+    state0, p, k = main_inputs(kernel, params, rmax)
+    margs = market_main_inputs(BENCH_MARKET, ENV_MARKET_KERNEL)
+    rargs = region_main_inputs(BENCH_TOPOLOGY, ENV_REGION_KERNEL)
+    for name, loop, n_locs, call, plain, init in (
+            ("three_phase", "single", 1,
+             lambda st, ep, tel: sweep.batched_event_windows(
+                 JOB, SPOT, kernel, rmax, st, p, k, TEL_CUT_PLAN, tel, ep),
+             lambda st, ep, tel: batched_event_windows_ref(
+                 JOB, SPOT, kernel, rmax, st, p, k, TEL_CUT_PLAN, tel, ep),
+             lambda ep: init_engine_state(main_keys(), JOB, SPOT, rmax, ep)),
+            ("market", "market", BENCH_MARKET.n_pools,
+             lambda st, ep, tel: sweep.market_event_windows(
+                 *margs[:5], st, *margs[6:], TEL_CUT_PLAN, tel, ep),
+             lambda st, ep, tel: market_event_windows_ref(
+                 *margs[:5], st, *margs[6:], TEL_CUT_PLAN, tel, ep),
+             lambda ep: init_market_state(main_keys(), JOB, BENCH_MARKET, 64,
+                                          margs[7], margs[4], ep)),
+            ("region", "region", BENCH_TOPOLOGY.n_regions,
+             lambda st, ep, tel: sweep.region_event_windows(
+                 *rargs[:3], st, *rargs[4:], TEL_CUT_PLAN, tel, ep),
+             lambda st, ep, tel: region_event_windows_ref(
+                 *rargs[:3], st, *rargs[4:], TEL_CUT_PLAN, tel, ep),
+             lambda ep: init_region_state(main_keys(), BENCH_TOPOLOGY,
+                                          rargs[5], rargs[2], ep))):
+        entry = entries[loop]
+        run0 = {"single": state0, "market": margs[5],
+                "region": rargs[3]}[loop]
+        _, off = call(run0, None, None)
+        horizon = 0.4 * float(off.time_elapsed.double().sum(1).min())
+        st, ep = with_env(run0, env_main_timeline(n_locs, horizon), n_locs,
+                          init)
+        call(st, ep, TEL_MAIN)  # warm-up
+        cut_ms, ker = cuda_ms(lambda: call(st, ep, TEL_MAIN), 3)
+        plain_ms, ref = cuda_ms(lambda: plain(st, ep, TEL_MAIN))
+        hold_all(f"env {name} cut depth", ref, ker)
+        b_ms, _ = tel_bound_ms(loop, lanes, TEL_CUT_PLAN, TEL_MAIN,
+                               env=True)
+        entry.update(env_cut_ms=cut_ms, env_cut_bound_ms=b_ms,
+                     env_plain_ms=plain_ms)
+        print(f"env cut depth {name}: {lanes} lanes, plan {TEL_CUT_PLAN}, "
+              f"the shock timeline over H {horizon:.4g} h, Telemetry(): "
+              f"kernel {cut_ms:.3f} ms (bound {b_ms:.4f} ms), plain "
+              f"{plain_ms:.1f} ms; {env_counts(ker[1][1])}; every field "
+              f"bitwise", flush=True)
 
 
 #: (phase, wall seconds) of this run, in order
@@ -3314,8 +3907,11 @@ def main() -> int:
           timed(phase_region_main_kernel, region))
 
     timed(phase_telemetry_parity)
-    timed(phase_telemetry_main_path,
-          {"single": entry, "market": market, "region": region})
+    main_entries = {"single": entry, "market": market, "region": region}
+    offs = timed(phase_telemetry_main_path, main_entries)
+
+    timed(phase_env_parity)
+    timed(phase_env_main_path, main_entries, offs)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, "
           f"{sum(s for _, s in PHASE_SECONDS):.1f} s in its "

@@ -13,6 +13,10 @@ The single-queue slice of :mod:`repro.core`:
                            policy kernels, the notice law)
   * regions              — :mod:`repro_torch.core.regions` (topologies,
                            routing rules, ``RoutingKernel``)
+  * environment          — :mod:`repro_torch.core.env` (``EnvTimeline``:
+                           piecewise-constant price, hazard and supply
+                           segments, storms, blackouts and spikes; with
+                           ``PanicKernel`` in :mod:`repro_torch.core.market`)
   * sweep engine         — :mod:`repro_torch.core.engine` (``run_sweep``
                            runs a policy grid × seed fleet through the CUDA
                            batched-event kernel, :mod:`repro_torch.kernels.sweep`;
@@ -21,7 +25,8 @@ The single-queue slice of :mod:`repro.core`:
                            N-region routing through its region traversal;
                            ``telemetry=Telemetry(...)`` on all of them adds
                            the :mod:`repro_torch.obs` sketches, counters and
-                           trace rings)
+                           trace rings, ``env=EnvTimeline(...)`` the
+                           environment timeline and its shock counters)
 """
 from repro_torch.core.analytic import (
     mm1n_pi,
@@ -63,6 +68,15 @@ from repro_torch.core.engine import (
     summarize_market,
     summarize_region,
 )
+from repro_torch.core.env import (
+    EnvTimeline,
+    Regime,
+    inject_blackout,
+    inject_price_spike,
+    inject_storm,
+    markov_timeline,
+    timeline_from_trace,
+)
 from repro_torch.core.lp import region_knapsack_lp
 from repro_torch.core.market import (
     NoticeAwareKernel,
@@ -100,10 +114,11 @@ from repro_torch.obs.stats import Telemetry
 
 __all__ = [
     "ArrivalProcess", "BathtubGCP", "DEFAULT_CHUNK_EVENTS", "Deterministic",
-    "DeterministicWait", "EngineState", "Exponential", "ExponentialWait",
+    "DeterministicWait", "EngineState", "EnvTimeline", "Exponential",
+    "ExponentialWait",
     "Gamma", "INT_STATS", "InfiniteWait", "MarketState",
     "MarketWindowStats", "NonFiniteStatsError", "NoticeAwareKernel",
-    "PanicKernel", "PoolChoiceKernel", "Region", "RegionState",
+    "PanicKernel", "PoolChoiceKernel", "Regime", "Region", "RegionState",
     "RegionTopology", "RegionView", "RegionWindowStats", "RoutingKernel",
     "SingleSlotKernel", "SingleSlotPolicy", "SpotMarket", "SpotPool",
     "Telemetry", "ThreePhaseKernel", "ThreePhasePolicy", "TwoPointWait",
@@ -111,10 +126,11 @@ __all__ = [
     "WindowStats", "as_market", "as_topology", "checkpoint_within_notice",
     "choose_region", "choose_region_u", "cost_lower_bound", "host_route",
     "init_engine_state", "init_market_state", "init_region_state",
-    "mm1n_pi", "prob_A_le_S", "region_cost_lower_bound",
+    "inject_blackout", "inject_price_spike", "inject_storm",
+    "markov_timeline", "mm1n_pi", "prob_A_le_S", "region_cost_lower_bound",
     "region_knapsack_lp", "run_market_sim", "run_market_sweep",
     "run_region_sim", "run_region_sweep", "run_sim", "run_sweep",
     "summarize", "summarize_market", "summarize_region", "theorem1_cost",
     "theorem1_region_cost", "theorem2_cost", "theorem5_cost",
-    "theorem5_delta", "three_phase_admit_prob",
+    "theorem5_delta", "three_phase_admit_prob", "timeline_from_trace",
 ]

@@ -85,6 +85,12 @@ def _running_sums(h: torch.Tensor) -> list:
     return cum
 
 
+def hazard_total(h: torch.Tensor) -> torch.Tensor:
+    """The total of ``h``'s last axis, summed left to right in float32 (the
+    superposed hazard of :func:`hazard_clock`)."""
+    return _running_sums(h)[-1]
+
+
 def hazard_clock(hazard, u):
     """Time to the next preemption under the superposed total hazard:
     ``min_p Exp(h_p) ~ Exp(Σ h_p)``; a zero total never fires (INF).  Host
@@ -95,7 +101,7 @@ def hazard_clock(hazard, u):
         if total <= 0.0:
             return math.inf
         return -math.log1p(-float(u)) / total
-    total = _running_sums(hazard)[-1]
+    total = hazard_total(hazard)
     return torch.where(total > 0.0,
                        exp_from_u(u) / torch.clamp_min(total, 1e-30), _INF)
 

@@ -26,6 +26,13 @@ in float64 on the host by :func:`summarize`.
 Randomness: the slab stream only (:mod:`repro_torch.core.clocks`); the
 per-event split ladder is still to be ported (ROADMAP.md Queue 1 item 7).
 
+Optional axes on every entry point: ``telemetry=`` (:mod:`repro_torch.obs`)
+and ``env=`` (an :class:`~repro_torch.core.env.EnvTimeline`: segment
+boundaries join the event race, the segment's multipliers scale prices,
+hazards and spot supply, and the shock counters of
+:mod:`repro_torch.obs.shocks` ride outermost of the stats); ``work=`` is
+not ported yet.
+
 Executors: the device picks one.  A fleet on a GPU runs through the
 hand-written batched-event kernel of its traversal
 (:mod:`repro_torch.kernels.sweep`), a fleet on the CPU through its plain
@@ -44,18 +51,22 @@ import torch
 from repro_torch.core import threefry
 from repro_torch.core.arrivals import ArrivalProcess, Gamma
 from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
-                                     hazard_clock, process_udim,
+                                     hazard_clock, hazard_total, process_udim,
                                      sample_clock_vector,
                                      sample_hazard_clocks, thinning_pick)
+from repro_torch.core.env import (EnvState, EnvTimeline, clock_rescale,
+                                  env_row, init_env_state, inv_avail)
 from repro_torch.core.market import (PanicKernel, PoolChoiceKernel,
-                                     PoolState, as_market)
+                                     PoolState, as_market, peel_panic)
 from repro_torch.core.regions import RegionView, RoutingKernel, as_topology
 from repro_torch.core.policies import SingleSlotKernel
 from repro_torch.core.waittime import INF
 from repro_torch.device import resolve_device
+from repro_torch.obs.shocks import env_update, summarize_env
 from repro_torch.obs.stats import (Telemetry, drop_windows, lane,
                                    summarize_telemetry, telemetry_update)
 from repro_torch.obs.timing import annotate
+
 _ORDER_MAX = 2**31 - 1
 
 #: float32 window sums are re-zeroed every 2**16 events and assembled in
@@ -104,15 +115,21 @@ class EngineState(NamedTuple):
 
 
 def init_engine_state(key: torch.Tensor, job: ArrivalProcess,
-                      spot: ArrivalProcess, rmax: int) -> EngineState:
+                      spot: ArrivalProcess, rmax: int,
+                      ep: dict | None = None) -> EngineState:
     """Initial state of each ``(lanes, 2)`` key: the first job and spot
-    clocks are drawn from two subkeys, the third becomes the lane key."""
+    clocks are drawn from two subkeys, the third becomes the lane key.
+    With an environment timeline ``ep`` the spot clock runs under segment
+    0's availability."""
     ks = threefry.split(key, 3)
     lanes, device = key.shape[0], key.device
+    next_spot = spot.sample(ks[:, 1])
+    if ep is not None:
+        next_spot = next_spot * inv_avail(ep["avail"][0])[0]
     return EngineState(
         key=ks[:, 2],
         next_job=job.sample(ks[:, 0]),
-        next_spot=spot.sample(ks[:, 1]),
+        next_spot=next_spot,
         ages=torch.zeros(lanes, rmax, dtype=torch.float32, device=device),
         budgets=torch.full((lanes, rmax), INF, dtype=torch.float32,
                            device=device),
@@ -126,12 +143,23 @@ def init_engine_state(key: torch.Tensor, job: ArrivalProcess,
 def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
                   rmax: int, layout: SlabLayout, carry: EngineState,
                   stats: WindowStats, params: dict, k_cost: torch.Tensor,
-                  x: torch.Tensor, tel: Telemetry | None = None
+                  x: torch.Tensor, tel: Telemetry | None = None,
+                  ep: dict | None = None
                   ) -> tuple[EngineState, WindowStats]:
     """One merged event (job arrival / spot slot / wait deadline) for every
     lane; ``x`` is this event's ``(lanes, n_cols)`` slab row.  With ``tel``
     the stats are a ``(base, telemetry)`` pair and the event is also
-    folded into the telemetry block (the JAX body's fold)."""
+    folded into the telemetry block (the JAX body's fold).  With an
+    environment timeline ``ep`` (:meth:`EnvTimeline.params`) the carry is
+    an ``(EngineState, EnvState)`` pair and the stats an outermost
+    ``(stats, EnvWindowStats)`` pair: the segment boundary joins the race
+    as the highest-priority event, the segment's availability scales the
+    spot clock and its price multiplier the price of a spot serve."""
+    if ep is not None:
+        carry, env_c = carry
+        stats, estats = stats
+        seg = env_c.seg
+        avail_row = env_row(ep["avail"], seg)
     if tel is not None:
         stats, tstats = stats
     iota = torch.arange(rmax, device=carry.ages.device)
@@ -144,6 +172,9 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     is_spot = carry.next_spot <= torch.minimum(carry.next_job, deadline)
     is_deadline = (~is_spot) & (deadline <= carry.next_job)
     is_job = (~is_spot) & (~is_deadline)
+    if ep is not None:
+        is_boundary, dt, (is_spot, is_deadline, is_job) = _boundary(
+            env_c, dt, (is_spot, is_deadline, is_job))
 
     ages = carry.ages + dt[:, None]
     budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
@@ -182,6 +213,16 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     spot_draw = spot.sample_u(layout.uniforms(x, layout.spot))
     next_job = torch.where(is_job, job_draw, carry.next_job - dt)
     next_spot = torch.where(is_spot, spot_draw, carry.next_spot - dt)
+    if ep is not None:
+        # the spot clock runs at rate·avail, as base draw × 1/avail: fresh
+        # draws under the post-event segment, a crossing rescales the
+        # survived clock by inv_new/inv_old (exact by memorylessness)
+        seg_new = seg + is_boundary.to(torch.int32)
+        inv_old = inv_avail(avail_row)[:, 0]
+        inv_new = inv_avail(env_row(ep["avail"], seg_new))[:, 0]
+        next_spot = torch.where(is_spot, spot_draw * inv_new, next_spot)
+        next_spot = torch.where(is_boundary, next_spot * (inv_new / inv_old),
+                                next_spot)
     admit_i = admit.to(torch.int32)
     new_carry = EngineState(
         key=carry.key,  # advanced once per window by the slab generator
@@ -195,13 +236,15 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
         qlen=carry.qlen + admit_i - leave.to(torch.int32),
     )
     od_or_def = od_now | defected
+    # a spot serve pays the segment's price multiplier (k is not spiked)
+    spot_price = 1.0 if ep is None else env_row(ep["price"], seg)[:, 0]
     new_stats = WindowStats(
         jobs_arrived=stats.jobs_arrived + is_job.to(torch.int32),
         jobs_completed=stats.jobs_completed
         + (od_now | served | defected).to(torch.int32),
         spot_served=stats.spot_served + served.to(torch.int32),
         ondemand=stats.ondemand + od_or_def.to(torch.int32),
-        cost_sum=stats.cost_sum + torch.where(served, 1.0, 0.0)
+        cost_sum=stats.cost_sum + torch.where(served, spot_price, 0.0)
         + torch.where(od_or_def, k_cost, 0.0),
         delay_sum=stats.delay_sum + torch.where(served, wait_served, 0.0)
         + torch.where(defected, age_defect, 0.0),
@@ -211,19 +254,45 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
         spot_found_empty=stats.spot_found_empty
         + (is_spot & (~has_job)).to(torch.int32),
     )
-    if tel is None:
-        return new_carry, new_stats
-    no = torch.zeros_like(is_spot)
-    tstats = telemetry_update(
-        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
-        is_spot=is_spot, is_pre=no, is_deadline=is_deadline, served=served,
-        resume=no, defected=defected, od_now=od_now,
-        wait_sample=torch.where(served, wait_served, age_defect),
-        wait_valid=served | defected,
-        cost_inc=torch.where(served, np.float32(1.0), k_cost),
-        cost_valid=served | od_now | defected,
-        loc=torch.zeros_like(new_carry.qlen), n_locs=1, qlen=new_carry.qlen)
-    return new_carry, (new_stats, tstats)
+    out_stats = new_stats
+    if tel is not None:
+        # the JAX body's cost sample stays 1.0 on a spot serve, even where
+        # the segment's price multiplier is not 1 (cost_sum pays it)
+        no = torch.zeros_like(is_spot)
+        tstats = telemetry_update(
+            tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+            is_spot=is_spot, is_pre=no, is_deadline=is_deadline,
+            served=served, resume=no, defected=defected, od_now=od_now,
+            wait_sample=torch.where(served, wait_served, age_defect),
+            wait_valid=served | defected,
+            cost_inc=torch.where(served, np.float32(1.0), k_cost),
+            cost_valid=served | od_now | defected,
+            loc=torch.zeros_like(new_carry.qlen), n_locs=1,
+            qlen=new_carry.qlen)
+        out_stats = (new_stats, tstats)
+    if ep is None:
+        return new_carry, out_stats
+    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
+                                dt, is_job, od_now, served,
+                                torch.zeros_like(served))
+    return (new_carry, new_env), (out_stats, estats)
+
+
+def _env_step(ep: dict, env_c: EnvState, estats, is_boundary, seg, seg_new,
+              dt, is_job, od_now, served, resumed):
+    """The shock counters' fold and the cursor's step of one event, shared
+    by the three loops."""
+    estats = env_update(
+        estats, is_boundary=is_boundary, kind_prev=env_row(ep["kind"], seg),
+        kind_next=env_row(ep["kind"], seg_new), dt=dt, is_job=is_job,
+        od_now=od_now, served=served, resumed=resumed)
+    t_end = ep["t_end"]
+    new_env = EnvState(
+        next_boundary=torch.where(
+            is_boundary, env_row(t_end, seg_new) - env_row(t_end, seg),
+            env_c.next_boundary - dt),
+        seg=seg_new)
+    return estats, new_env
 
 
 def _rebase_order(state: EngineState) -> EngineState:
@@ -265,7 +334,9 @@ def _engine_layout(job: ArrivalProcess, spot: ArrivalProcess,
 
 def lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
     """The kernel's per-lane params dict: a single-slot kernel whose wait
-    parameters are not swept gets its wait family's own values."""
+    parameters are not swept gets its wait family's own values (through a
+    ``PanicKernel``, which admits as its base)."""
+    kernel = peel_panic(kernel)
     if isinstance(kernel, SingleSlotKernel) and "wait" not in params:
         wait = {name: torch.full_like(k_cost, np.float32(v))
                 for name, v in kernel.wait.params().items()}
@@ -312,17 +383,22 @@ def _merge_telemetry(out: dict, telemetry: Telemetry, tstats,
     return out
 
 
-def summarize(stats: WindowStats,
-              telemetry: Telemetry | None = None) -> dict:
+def summarize(stats: WindowStats, telemetry: Telemetry | None = None,
+              env: EnvTimeline | None = None) -> dict:
     """Reduce (…, n_windows) sums in float64; derive long-run stats.
 
     Leading batch axes pass through: every value in the returned dict is a
     numpy array of the batch shape (0-d for a single run).  With
     ``telemetry``, ``stats`` is the ``(base, telemetry)`` pair and the dict
     gains :func:`repro_torch.obs.summarize_telemetry`'s keys (the base keys
-    unchanged).  Raises :class:`NonFiniteStatsError` when a reduced
-    statistic is NaN/inf.
+    unchanged).  With ``env``, ``stats`` is wrapped in an outermost
+    ``(stats, EnvWindowStats)`` pair and the dict gains
+    :func:`repro_torch.obs.summarize_env`'s shock counters.  Raises
+    :class:`NonFiniteStatsError` when a reduced statistic is NaN/inf.
     """
+    estats = None
+    if env is not None:
+        stats, estats = stats
     tstats = None
     if telemetry is not None:
         stats, tstats = stats
@@ -348,6 +424,8 @@ def summarize(stats: WindowStats,
     }
     if telemetry is not None:
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
+    if estats is not None:
+        out.update(summarize_env(estats))
     return out
 
 
@@ -370,11 +448,17 @@ def _reshape_sweep(out: dict, grid_shape: tuple, n_seeds: int) -> dict:
             for name, v in out.items()}
 
 
-def _without_burn_in(stats, burn_in: int, tel: Telemetry | None):
-    """Stats (or the ``(base, telemetry)`` pair) of ``(lanes, windows,
-    ...)`` without the burn-in window."""
+def _without_burn_in(stats, burn_in: int, tel: Telemetry | None,
+                     env: bool = False):
+    """Stats (or the ``(base, telemetry)`` pair, and the outermost ``(...,
+    env)`` pair with ``env``) of ``(lanes, windows, ...)`` without the
+    burn-in window."""
     if not burn_in:
         return stats
+    if env:
+        inner, estats = stats
+        return (_without_burn_in(inner, burn_in, tel),
+                type(estats)(*(x[:, 1:] for x in estats)))
     if tel is not None:
         base, tstats = stats
         return (_without_burn_in(base, burn_in, None),
@@ -382,8 +466,11 @@ def _without_burn_in(stats, burn_in: int, tel: Telemetry | None):
     return type(stats)(*(x[:, 1:] for x in stats))
 
 
-def _lane0(stats, tel: Telemetry | None):
-    """The first lane's stats (or pair), the lane axis dropped."""
+def _lane0(stats, tel: Telemetry | None, env: bool = False):
+    """The first lane's stats (or pairs), the lane axis dropped."""
+    if env:
+        inner, estats = stats
+        return _lane0(inner, tel), type(estats)(*(x[0] for x in estats))
     if tel is not None:
         base, tstats = stats
         return _lane0(base, None), lane(tstats, 0)
@@ -436,19 +523,28 @@ def _check_run_shape(name: str, n_events: int, burn_in: int) -> None:
             f"{name}: burn_in must be >= 0 events, got {burn_in}")
 
 
+def _env_carry(state, ep: dict | None):
+    """The initial carry: the state, paired with every lane's timeline
+    cursor when the env axis is on."""
+    if ep is None:
+        return state
+    return state, init_env_state(ep, state.key.shape[0])
+
+
 def _run_lanes(job, spot, kernel, rmax, plan, burn_in, params, k_cost,
-               keys, tel: Telemetry | None = None):
+               keys, tel: Telemetry | None = None, ep: dict | None = None):
     """Flat lanes through the executor of their device; returns (lanes,
-    windows) stats (a ``(base, telemetry)`` pair with ``tel``) without the
-    burn-in window."""
+    windows) stats (a ``(base, telemetry)`` pair with ``tel``, inside an
+    outermost ``(..., env)`` pair with ``ep``) without the burn-in
+    window."""
     # imported here: the kernels package builds on this module's state types
     from repro_torch.kernels.sweep import batched_events
 
-    state0 = init_engine_state(keys, job, spot, rmax)
+    state0 = _env_carry(init_engine_state(keys, job, spot, rmax, ep), ep)
     _, stats = batched_events(job, spot, kernel, rmax, state0,
                               lane_params(kernel, params, k_cost), k_cost,
-                              plan, tel)
-    return _without_burn_in(stats, burn_in, tel)
+                              plan, tel, ep)
+    return _without_burn_in(stats, burn_in, tel, ep is not None)
 
 
 def _lane_tensors(params: dict, k, device):
@@ -491,10 +587,13 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     split), as in the JAX package.  ``telemetry`` (a
     :class:`repro_torch.obs.Telemetry`) adds the P50/P90/P99 wait and cost
     sketches, the event counters and, with ``trace_cap``, the event rings
-    (``"trace"``); ``env`` and ``work`` are not ported and raise.
+    (``"trace"``); ``env`` (a :class:`repro_torch.core.env.EnvTimeline`)
+    runs the horizon through a piecewise-constant environment and adds the
+    shock counters (:func:`repro_torch.obs.summarize_env`); ``work`` is not
+    ported and raises.
     """
     params = {} if params is None else params
-    _check_options("run_sim", (job, spot), kernel, telemetry, env, work)
+    _check_options("run_sim", (job, spot), telemetry, env, work)
     device = _resolve(device, impl, rng, "run_sim", (job, spot))
     _check_run_shape("run_sim", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -503,12 +602,13 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
                          f"{grid_shape}")
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(1, device)
     with annotate(f"repro_torch.run_sim[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_f,
-                           k_f, key.to(device)[None], telemetry)
+                           k_f, key.to(device)[None], telemetry, ep)
     return {name: _scalar_or_array(v)
-            for name, v in summarize(_lane0(stats, telemetry),
-                                     telemetry).items()}
+            for name, v in summarize(_lane0(stats, telemetry, ep is not None),
+                                     telemetry, env).items()}
 
 
 def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
@@ -534,16 +634,17 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     ``"slab"``, the only stream ported so far (the JAX package defaults to
     ``"split"``).  ``telemetry`` (a :class:`repro_torch.obs.Telemetry`)
     adds the telemetry summary at every grid point, through the same
-    kernel launch; ``env``, ``work`` and ``shard``/``mesh`` are not ported
-    and raise.
+    kernel launch; ``env`` (an :class:`~repro_torch.core.env.EnvTimeline`)
+    adds the shock counters at every grid point, through the same launch;
+    ``work`` and ``shard``/``mesh`` are not ported and raise.
 
     Returns :func:`summarize`'s dict with every value shaped
     ``grid_shape + (n_seeds,)`` (plus a trailing bin, type or location
     axis for the telemetry vectors, and ``(windows, cap)`` for the trace).
     """
     params = {} if params is None else params
-    _check_options("run_sweep", (job, spot), kernel, telemetry, env, work,
-                   shard, mesh)
+    _check_options("run_sweep", (job, spot), telemetry, env, work, shard,
+                   mesh)
     device = _resolve(device, impl, rng, "run_sweep", (job, spot))
     _check_run_shape("run_sweep", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -551,10 +652,12 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(1, device)
     with annotate(f"repro_torch.run_sweep[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_l,
-                           k_l, keys_l, telemetry)
-    return _reshape_sweep(summarize(stats, telemetry), grid_shape, n_seeds)
+                           k_l, keys_l, telemetry, ep)
+    return _reshape_sweep(summarize(stats, telemetry, env), grid_shape,
+                          n_seeds)
 
 
 # ===========================================================================
@@ -632,30 +735,36 @@ class MarketState(NamedTuple):
 
 
 def init_market_state(key: torch.Tensor, job: ArrivalProcess, market,
-                      rmax: int, mp: dict, preempt_on: bool) -> MarketState:
+                      rmax: int, mp: dict, preempt_on: bool,
+                      ep: dict | None = None) -> MarketState:
     """Initial state of each ``(lanes, 2)`` key under the per-lane
     pools-config ``mp`` (``(lanes, P)`` leaves).  As the JAX package's
     ``init_market_state(..., scalar_preempt=True)``: the job, spot and lane
     keys are the three subkeys of a split; the pools' spot clocks come from
     ``fold_in(spot key, tag)`` (the spot key itself for one pool), and the
     superposed preemption clock is the least of the per-pool hazard draws
-    under ``fold_in(spot key, 2**31 - 1)``."""
+    under ``fold_in(spot key, 2**31 - 1)``.  An environment timeline ``ep``
+    places the initial clocks under segment 0's hazard and availability
+    (exact ×1.0 on a constant timeline)."""
     ks3 = threefry.split(key, 3)
     kj, ks = ks3[:, 0], ks3[:, 1]
     lanes, device = key.shape[0], key.device
+    hazard0 = mp["hazard"] if ep is None else mp["hazard"] * ep["hazard"][0]
     if preempt_on:
         next_preempt = sample_hazard_clocks(
             market.tags, threefry.fold_in(ks, 2**31 - 1),
-            mp["hazard"]).min(dim=-1).values
+            hazard0).min(dim=-1).values
     else:
         next_preempt = torch.full((lanes,), INF, dtype=torch.float32,
                                   device=device)
+    next_spot = sample_clock_vector(tuple(p.arrival for p in market.pools),
+                                    market.tags, ks, mp["spot_scale"])
+    if ep is not None:
+        next_spot = next_spot * inv_avail(ep["avail"][0])
     return MarketState(
         key=ks3[:, 2],
         next_job=job.sample(kj),
-        next_spot=sample_clock_vector(
-            tuple(p.arrival for p in market.pools), market.tags, ks,
-            mp["spot_scale"]),
+        next_spot=next_spot,
         next_preempt=next_preempt,
         ages=torch.zeros(lanes, rmax, dtype=torch.float32, device=device),
         budgets=torch.full((lanes, rmax), INF, dtype=torch.float32,
@@ -700,19 +809,31 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
                   preempt_on: bool, layout: SlabLayout, carry: MarketState,
                   stats: MarketWindowStats, params: dict, mp: dict,
                   k_cost: torch.Tensor, x: torch.Tensor,
-                  tel: Telemetry | None = None
+                  tel: Telemetry | None = None, ep: dict | None = None
                   ) -> tuple[MarketState, MarketWindowStats]:
     """One merged event (job arrival / pool spot slot / pool preemption /
     wait deadline) for every lane; ``x`` is this event's slab row.  The
     JAX package's ``_market_event`` on the slab stream with its telemetry
-    fold (``tel``: the stats are a ``(base, telemetry)`` pair), without
-    its environment and work branches."""
+    fold (``tel``: the stats are a ``(base, telemetry)`` pair) and its
+    environment branch (``ep``, as in :func:`_engine_event`: the pools'
+    effective price and hazard are the base × the segment's row, their
+    spot supply × the availability, and the kernel's :class:`PoolState`
+    sees the effective market, a zero ``rate`` the blackout signal
+    ``PanicKernel`` keys on), without its work branch."""
+    if ep is not None:
+        carry, env_c = carry
+        stats, estats = stats
+        seg = env_c.seg
+        avail_row = env_row(ep["avail"], seg)
+        price = mp["price"] * env_row(ep["price"], seg)
+        hazard = mp["hazard"] * env_row(ep["hazard"], seg)
+    else:
+        price, hazard = mp["price"], mp["hazard"]
     if tel is not None:
         stats, tstats = stats
     device = carry.ages.device
     iota = torch.arange(rmax, device=device)
     iota_p = torch.arange(market.n_pools, device=device)
-    price, hazard = mp["price"], mp["hazard"]
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
     deadline, defect_slot = torch.min(budgets_masked, dim=1)
@@ -735,16 +856,32 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         is_pre = torch.zeros_like(is_spot)
         is_deadline = (~is_spot) & (deadline <= nj)
         is_job = (~is_spot) & (~is_deadline)
+    if ep is not None:
+        is_boundary, dt, (is_spot, is_pre, is_deadline, is_job) = _boundary(
+            env_c, dt, (is_spot, is_pre, is_deadline, is_job))
 
     ages = carry.ages + dt[:, None]
     budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
+
+    rates = mp["rate"] / mp["spot_scale"]
+    if ep is not None:
+        rates = rates * avail_row  # 0 on a blacked-out pool: the signal
+        if getattr(kernel, "drain_dead", False):
+            # PanicKernel's drain: jobs queued on a dead pool re-tag to the
+            # cheapest alive pool (identity where nothing is dark)
+            alive_p = rates > 0
+            cheapest = torch.argmin(torch.where(alive_p, price, INF),
+                                    dim=1).to(torch.int32)
+            alive_slot = torch.gather(alive_p, 1, carry.pool.long())
+            retag = carry.occ & (~alive_slot) & alive_p.any(dim=1)[:, None]
+            carry = carry._replace(pool=torch.where(retag, cheapest[:, None],
+                                                    carry.pool))
 
     # ---- job arrival: the policy kernel admits and picks a pool ----
     qlen_pool = (carry.occ[:, :, None]
                  & (carry.pool[:, :, None] == iota_p)).sum(1).to(torch.int32)
     pool_state = PoolState(price=price, hazard=hazard, notice=mp["notice"],
-                           rate=mp["rate"] / mp["spot_scale"],
-                           qlen_pool=qlen_pool)
+                           rate=rates, qlen_pool=qlen_pool)
     admit_raw, budget, pool_choice = _kernel_admit_slab(
         kernel, params, carry.qlen, pool_state, layout, x)
     admit = is_job & admit_raw & (carry.qlen < rmax)
@@ -806,15 +943,10 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     spot_draws = torch.stack([p.arrival.sample_u(u_spot)
                               for p in market.pools], dim=-1) \
         * mp["spot_scale"]
-    next_spot = torch.where(fire_s, spot_draws, carry.next_spot - dt[:, None])
-    if preempt_on:
-        # the superposed clock is drawn afresh whenever any pool fires
-        next_preempt = torch.where(
-            is_pre, hazard_clock(hazard,
-                                 layout.uniforms(x, layout.preempt)[:, 0]),
-            carry.next_preempt - dt)
-    else:
-        next_preempt = carry.next_preempt
+    next_spot, next_preempt, seg_new = _supply_clocks(
+        mp, layout, x, preempt_on, spot_draws, fire_s, carry.next_spot,
+        carry.next_preempt, dt, is_pre, hazard,
+        None if ep is None else (ep, is_boundary, seg, avail_row))
     job_draw = job.sample_u(layout.uniforms(x, layout.job))
 
     admit_i = admit.to(torch.int32)
@@ -857,27 +989,81 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         pool_preempted=stats.pool_preempted
         + i32(pre_hit[:, None] & (iota_p == pre_pool[:, None])),
     )
-    if tel is None:
-        return new_carry, new_stats
-    # a job event's loc is the pool it chose, a deadline's the defecting
-    # job's pool
-    loc = torch.where(is_spot, spot_pool, torch.where(
-        is_pre, pre_pool, torch.where(is_deadline,
-                                      _pick(carry.pool, defect_slot),
-                                      pool_choice)))
-    tstats = telemetry_update(
-        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
-        is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
-        served=served, resume=resume, defected=defected, od_now=od_now,
-        wait_sample=torch.where(served, wait_served,
-                                torch.where(defected, age_defect, age_pre)),
-        wait_valid=served | defected | pre_hit,
-        cost_inc=torch.where(served, price_s, 0.0)
-        + torch.where(od_any, k_cost, 0.0)
-        + torch.where(pre_hit, price_p, 0.0),
-        cost_valid=served | od_now | defected | pre_hit,
-        loc=loc, n_locs=market.n_pools, qlen=new_carry.qlen)
-    return new_carry, (new_stats, tstats)
+    out_stats = new_stats
+    if tel is not None:
+        # a job event's loc is the pool it chose, a deadline's the
+        # defecting job's pool
+        loc = torch.where(is_spot, spot_pool, torch.where(
+            is_pre, pre_pool, torch.where(is_deadline,
+                                          _pick(carry.pool, defect_slot),
+                                          pool_choice)))
+        tstats = telemetry_update(
+            tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+            is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
+            served=served, resume=resume, defected=defected, od_now=od_now,
+            wait_sample=torch.where(served, wait_served,
+                                    torch.where(defected, age_defect,
+                                                age_pre)),
+            wait_valid=served | defected | pre_hit,
+            cost_inc=torch.where(served, price_s, 0.0)
+            + torch.where(od_any, k_cost, 0.0)
+            + torch.where(pre_hit, price_p, 0.0),
+            cost_valid=served | od_now | defected | pre_hit,
+            loc=loc, n_locs=market.n_pools, qlen=new_carry.qlen)
+        out_stats = (new_stats, tstats)
+    if ep is None:
+        return new_carry, out_stats
+    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
+                                dt, is_job, od_now, served, resume)
+    return (new_carry, new_env), (out_stats, estats)
+
+
+def _boundary(env_c: EnvState, dt: torch.Tensor, events: tuple):
+    """Boundary-as-event: ``(is_boundary, dt, events)`` with the crossing
+    winning the race outright (no queue activity, clocks age by dt), every
+    queue event masked off on it, so dt never spans segments."""
+    is_boundary = env_c.next_boundary <= dt
+    not_b = ~is_boundary
+    return (is_boundary, torch.minimum(dt, env_c.next_boundary),
+            tuple(e & not_b for e in events))
+
+
+def _supply_clocks(cfg, layout, x, preempt_on, spot_draws, fire_s, next_spot,
+                   next_preempt, dt, is_pre, hazard, env=None):
+    """The market's or regions' spot clocks (``(lanes, n)``) and superposed
+    preemption clock after one event: fresh draws where a location fired,
+    aged clocks elsewhere.  ``hazard`` is the pre-event (effective) hazard.
+    With ``env`` (``(ep, is_boundary, seg, avail_row)``), fresh draws run
+    under the post-event segment (spot × 1/avail, the preemption clock at
+    the new total hazard) and a crossing rescales the survived clocks
+    exactly.  Returns ``(next_spot, next_preempt, seg_new)`` (``seg_new``
+    None without ``env``)."""
+    seg_new = None
+    hazard_new = hazard
+    if env is not None:
+        ep, is_boundary, seg, avail_row = env
+        seg_new = seg + is_boundary.to(torch.int32)
+        inv_old = inv_avail(avail_row)
+        inv_new = inv_avail(env_row(ep["avail"], seg_new))
+        hazard_new = cfg["hazard"] * env_row(ep["hazard"], seg_new)
+        spot_draws = spot_draws * inv_new
+    next_spot = torch.where(fire_s, spot_draws, next_spot - dt[:, None])
+    if env is not None:
+        next_spot = torch.where(is_boundary[:, None],
+                                next_spot * (inv_new / inv_old), next_spot)
+    if preempt_on:
+        # the superposed clock is drawn afresh whenever any location fires
+        next_preempt = torch.where(
+            is_pre, hazard_clock(hazard_new,
+                                 layout.uniforms(x, layout.preempt)[:, 0]),
+            next_preempt - dt)
+        if env is not None:
+            next_preempt = torch.where(
+                is_boundary,
+                next_preempt * clock_rescale(hazard_total(hazard),
+                                             hazard_total(hazard_new)),
+                next_preempt)
+    return next_spot, next_preempt, seg_new
 
 
 def _market_layout(job: ArrivalProcess, market, kernel,
@@ -901,20 +1087,26 @@ def _market_layout(job: ArrivalProcess, market, kernel,
 def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
     """:func:`lane_params` of the single-queue kernel a market or region
     kernel admits through (the base of a ``RoutingKernel`` and of a
-    ``PoolChoiceKernel``, or a legacy kernel)."""
-    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel)):
+    ``PoolChoiceKernel`` or a ``PanicKernel``, or a legacy kernel)."""
+    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel, PanicKernel)):
         kernel = kernel.base
     return lane_params(kernel, params, k_cost)
 
 
 def summarize_market(stats: MarketWindowStats,
-                     telemetry: Telemetry | None = None) -> dict:
+                     telemetry: Telemetry | None = None,
+                     env: EnvTimeline | None = None) -> dict:
     """:func:`summarize`'s dict plus the market's: preemptions, resumed
     legs, spot spend, per-job averages over final completions (spot
     service or on-demand: a resumed leg is not one), and per-pool arrays
     (a trailing pool axis).  Scalar fields reduce the last (window) axis,
     pool fields the one before it.  With ``telemetry``, ``stats`` is the
-    ``(base, telemetry)`` pair and the telemetry keys are appended."""
+    ``(base, telemetry)`` pair and the telemetry keys are appended; with
+    ``env`` the env block rides outermost and the shock counters are
+    appended."""
+    estats = None
+    if env is not None:
+        stats, estats = stats
     tstats = None
     if telemetry is not None:
         stats, tstats = stats
@@ -942,6 +1134,8 @@ def summarize_market(stats: MarketWindowStats,
     })
     if telemetry is not None:
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
+    if estats is not None:
+        out.update(summarize_env(estats))
     return out
 
 
@@ -986,55 +1180,52 @@ def _broadcast_market_params(market, overrides: dict,
                                     overrides, grid_shape)
 
 
-def _check_options(name: str, procs, kernel, telemetry, env, work,
+def _check_options(name: str, procs, telemetry, env, work,
                    shard: str = "none", mesh=None) -> None:
-    """The ``telemetry=`` type, and named errors for the options the port
-    does not serve yet; ``procs`` are the run's arrival processes."""
+    """The ``telemetry=`` and ``env=`` types, and named errors for the
+    options the port does not serve yet; ``procs`` are the run's arrival
+    processes."""
     if telemetry is not None and not isinstance(telemetry, Telemetry):
         raise TypeError(f"{name}: telemetry must be a "
                         f"repro_torch.obs.Telemetry or None, got "
                         f"{telemetry!r}")
-    for axis, value, what in (
-            ("env", env, "the environment timeline, with PanicKernel and "
-             "obs/shocks.py, ROADMAP.md \"Next slices\" item 5"),
-            ("work", work, "the work model, with CantBeLateKernel and "
-             "obs/survival.py, ROADMAP.md \"Next slices\" item 6")):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}: {axis}= ({what}) is not ported yet; the port "
-                f"runs env=work=None")
+    if env is not None and not isinstance(env, EnvTimeline):
+        raise TypeError(f"{name}: env must be a "
+                        f"repro_torch.core.env.EnvTimeline or None, got "
+                        f"{env!r}")
+    if work is not None:
+        raise NotImplementedError(
+            f"{name}: work= (the work model, with CantBeLateKernel and "
+            "obs/survival.py, ROADMAP.md \"Next slices\" item 6) is not "
+            "ported yet; the port runs work=None")
     if shard != "none" or mesh is not None:
         raise NotImplementedError(
             f"{name}: shard={shard!r}/mesh= (lane sharding) is not ported "
             "yet (ROADMAP.md Queue 1 item 12)")
-    base = kernel.base if isinstance(kernel, RoutingKernel) else kernel
-    if isinstance(base, PanicKernel):
-        raise NotImplementedError(
-            f"{name}: PanicKernel repairs choices against pools that the "
-            "environment timeline blacks out; env= is not ported yet "
-            "(ROADMAP.md \"Next slices\" item 5)")
     _refuse_gamma(name, procs)
 
 
-def _check_market_options(name: str, market, kernel, telemetry, env, work,
+def _check_market_options(name: str, market, telemetry, env, work,
                           shard: str = "none", mesh=None) -> None:
-    _check_options(name, [p.arrival for p in market.pools], kernel,
-                   telemetry, env, work, shard, mesh)
+    _check_options(name, [p.arrival for p in market.pools], telemetry, env,
+                   work, shard, mesh)
 
 
 def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
                       params, mp, k_cost, keys,
-                      tel: Telemetry | None = None):
+                      tel: Telemetry | None = None, ep: dict | None = None):
     """Flat market lanes through the executor of their device; returns
     (lanes, windows[, P]) stats (a ``(base, telemetry)`` pair with
-    ``tel``) without the burn-in window."""
+    ``tel``, inside an outermost ``(..., env)`` pair with ``ep``) without
+    the burn-in window."""
     from repro_torch.kernels.sweep import market_events
 
-    state0 = init_market_state(keys, job, market, rmax, mp, preempt_on)
+    state0 = _env_carry(init_market_state(keys, job, market, rmax, mp,
+                                         preempt_on, ep), ep)
     _, stats = market_events(job, market, kernel, rmax, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), mp,
-                             k_cost, plan, tel)
-    return _without_burn_in(stats, burn_in, tel)
+                             k_cost, plan, tel, ep)
+    return _without_burn_in(stats, burn_in, tel, ep is not None)
 
 
 def _one_lane(params: dict, device) -> dict:
@@ -1071,8 +1262,7 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     """
     market = as_market(market)
     params = {} if params is None else params
-    _check_market_options("run_market_sim", market, kernel, telemetry, env,
-                          work)
+    _check_market_options("run_market_sim", market, telemetry, env, work)
     device = _resolve(device, impl, rng, "run_market_sim", (job,))
     _check_run_shape("run_market_sim", n_events, burn_in)
     if np.ndim(k) != 0:
@@ -1084,12 +1274,14 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     mp = _config_tensors(_broadcast_market_params(market, {}, ()), device)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(market.n_pools, device)
     with annotate(f"repro_torch.run_market_sim[{device.type}]"):
         stats = _run_market_lanes(job, market, kernel, rmax,
                                   market.preemptible, plan, burn_in,
                                   params_f, mp, k_f, key.to(device)[None],
-                                  telemetry)
-    out = summarize_market(_lane0(stats, telemetry), telemetry)
+                                  telemetry, ep)
+    out = summarize_market(_lane0(stats, telemetry, ep is not None),
+                           telemetry, env)
     return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
@@ -1111,8 +1303,9 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     sweeps it.  A ``hazards`` override turns the preemption path on even
     for a market without hazards.  ``device``, ``impl``, ``rng`` and
     ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
-    hand-written market kernel, a CPU fleet its plain version.  ``env``,
-    ``work`` and ``shard`` are not ported and raise.
+    hand-written market kernel, a CPU fleet its plain version.  ``env`` as
+    in :func:`run_sweep` (its per-loc rows are the pools'); ``work`` and
+    ``shard`` are not ported and raise.
 
     Returns :func:`summarize_market`'s dict: scalar statistics shaped
     ``grid_shape + (n_seeds,)``, pool statistics ``grid_shape + (n_seeds,
@@ -1121,8 +1314,8 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     market = as_market(market)
     n = market.n_pools
     params = {} if params is None else params
-    _check_market_options("run_market_sweep", market, kernel, telemetry, env,
-                          work, shard, mesh)
+    _check_market_options("run_market_sweep", market, telemetry, env, work,
+                          shard, mesh)
     device = _resolve(device, impl, rng, "run_market_sweep", (job,))
     _check_run_shape("run_market_sweep", n_events, burn_in)
     _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
@@ -1145,12 +1338,13 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     mp_l = _flat_lane_args(mp, k_f, keys)[0]
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(n, device)
     with annotate(f"repro_torch.run_market_sweep[{device.type}]"):
         stats = _run_market_lanes(job, market, kernel, rmax, preempt_on,
                                   plan, burn_in, params_l, mp_l, k_l, keys_l,
-                                  telemetry)
-    return _reshape_sweep(summarize_market(stats, telemetry), grid_shape,
-                          n_seeds)
+                                  telemetry, ep)
+    return _reshape_sweep(summarize_market(stats, telemetry, env),
+                          grid_shape, n_seeds)
 
 
 # ===========================================================================
@@ -1244,31 +1438,38 @@ def _slot_region_iota(topo, iota_s: torch.Tensor) -> torch.Tensor:
 
 
 def init_region_state(key: torch.Tensor, topo, rp: dict,
-                      preempt_on: bool) -> RegionState:
+                      preempt_on: bool, ep: dict | None = None
+                      ) -> RegionState:
     """Initial state of each ``(lanes, 2)`` key under the per-lane
     regions-config ``rp`` (``(lanes, R)`` leaves).  As the JAX package's
     ``init_region_state(..., scalar_preempt=True)``: the job, spot and lane
     keys are the three subkeys of a split; the regions' job and spot clocks
     come from ``fold_in(key, tag)`` (the key itself for one region), and
     the superposed preemption clock is the least of the per-region hazard
-    draws under ``fold_in(spot key, 2**31 - 1)``."""
+    draws under ``fold_in(spot key, 2**31 - 1)``.  An environment timeline
+    ``ep`` places the initial supply clocks under segment 0 (the job clocks
+    are never modulated)."""
     ks3 = threefry.split(key, 3)
     kj, ks = ks3[:, 0], ks3[:, 1]
     lanes, device = key.shape[0], key.device
     s = topo.total_slots
+    hazard0 = rp["hazard"] if ep is None else rp["hazard"] * ep["hazard"][0]
     if preempt_on:
         next_preempt = sample_hazard_clocks(
             topo.tags, threefry.fold_in(ks, 2**31 - 1),
-            rp["hazard"]).min(dim=-1).values
+            hazard0).min(dim=-1).values
     else:
         next_preempt = torch.full((lanes,), INF, dtype=torch.float32,
                                   device=device)
+    next_spot = sample_clock_vector(tuple(r.spot for r in topo.regions),
+                                    topo.tags, ks, rp["spot_scale"])
+    if ep is not None:
+        next_spot = next_spot * inv_avail(ep["avail"][0])
     return RegionState(
         key=ks3[:, 2],
         next_job=sample_clock_vector(tuple(r.job for r in topo.regions),
                                      topo.tags, kj, rp["job_scale"]),
-        next_spot=sample_clock_vector(tuple(r.spot for r in topo.regions),
-                                      topo.tags, ks, rp["spot_scale"]),
+        next_spot=next_spot,
         next_preempt=next_preempt,
         ages=torch.zeros(lanes, s, dtype=torch.float32, device=device),
         budgets=torch.full((lanes, s), INF, dtype=torch.float32,
@@ -1306,20 +1507,30 @@ def _kernel_route_slab(kernel, params, qlens, view: RegionView,
 def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
                   carry: RegionState, stats: RegionWindowStats, params: dict,
                   rp: dict, k_cost: torch.Tensor, x: torch.Tensor,
-                  tel: Telemetry | None = None
+                  tel: Telemetry | None = None, ep: dict | None = None
                   ) -> tuple[RegionState, RegionWindowStats]:
     """One merged event (job arrival in some region / region spot slot /
     region preemption / wait deadline) for every lane; ``x`` is this
     event's slab row.  The JAX package's ``_region_event`` on the slab
     stream with its telemetry fold (``tel``: the stats are a ``(base,
-    telemetry)`` pair), without its environment and work branches."""
+    telemetry)`` pair) and its environment branch (``ep``, as in
+    :func:`_market_event` with the regions as the locations; the job
+    clocks are never modulated), without its work branch."""
+    if ep is not None:
+        carry, env_c = carry
+        stats, estats = stats
+        seg = env_c.seg
+        avail_row = env_row(ep["avail"], seg)
+        price = rp["price"] * env_row(ep["price"], seg)
+        hazard = rp["hazard"] * env_row(ep["hazard"], seg)
+    else:
+        price, hazard = rp["price"], rp["hazard"]
     if tel is not None:
         stats, tstats = stats
     device = carry.ages.device
     iota_s = torch.arange(topo.total_slots, device=device)
     iota_r = torch.arange(topo.n_regions, device=device)
     slot_region = _slot_region_iota(topo, iota_s)
-    price, hazard = rp["price"], rp["hazard"]
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
     deadline, defect_slot = torch.min(budgets_masked, dim=1)
@@ -1343,14 +1554,20 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
         is_pre = torch.zeros_like(is_spot)
         is_deadline = (~is_spot) & (deadline <= min_job)
         is_job = (~is_spot) & (~is_deadline)
+    if ep is not None:
+        is_boundary, dt, (is_spot, is_pre, is_deadline, is_job) = _boundary(
+            env_c, dt, (is_spot, is_pre, is_deadline, is_job))
 
     ages = carry.ages + dt[:, None]
     budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
 
     # ---- job arrival in region `home`: route, then the admission law ----
+    rates = rp["rate"] / rp["spot_scale"]
+    if ep is not None:
+        rates = rates * avail_row  # 0 marks a blacked-out region
     view = RegionView(
         home=home, price=price, hazard=hazard, notice=rp["notice"],
-        rate=rp["rate"] / rp["spot_scale"],
+        rate=rates,
         job_rate=rp["job_rate"] / rp["job_scale"],
         qlen_region=carry.qlen,
         free_slots=torch.clamp_min(rp["rmax"] - carry.qlen, 0))
@@ -1433,16 +1650,10 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
                               for r in topo.regions], dim=-1) \
         * rp["spot_scale"]
     next_job = torch.where(fire_j, job_draws, carry.next_job - dt[:, None])
-    next_spot = torch.where(fire_s, spot_draws,
-                            carry.next_spot - dt[:, None])
-    if preempt_on:
-        # the superposed clock is drawn afresh whenever any region fires
-        next_preempt = torch.where(
-            is_pre, hazard_clock(hazard,
-                                 layout.uniforms(x, layout.preempt)[:, 0]),
-            carry.next_preempt - dt)
-    else:
-        next_preempt = carry.next_preempt
+    next_spot, next_preempt, seg_new = _supply_clocks(
+        rp, layout, x, preempt_on, spot_draws, fire_s, carry.next_spot,
+        carry.next_preempt, dt, is_pre, hazard,
+        None if ep is None else (ep, is_boundary, seg, avail_row))
 
     i32 = lambda b: b.to(torch.int32)  # noqa: E731
     to_target = admit[:, None] & (iota_r == target[:, None])
@@ -1487,26 +1698,33 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
         region_jobs=stats.region_jobs + i32(fire_j),
         region_routed=stats.region_routed + i32(to_target),
     )
-    if tel is None:
-        return new_carry, new_stats
-    # a job event's loc is its target region, a deadline's the region of
-    # the defecting job's slot
-    loc = torch.where(is_spot, spot_region, torch.where(
-        is_pre, pre_region, torch.where(is_deadline,
-                                        slot_region[defect_slot], target)))
-    tstats = telemetry_update(
-        tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
-        is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
-        served=served, resume=resume, defected=defected, od_now=od_now,
-        wait_sample=torch.where(served, wait_served,
-                                torch.where(defected, age_defect, age_pre)),
-        wait_valid=served | defected | pre_hit,
-        cost_inc=torch.where(served, price_s, 0.0)
-        + torch.where(od_any, k_cost, 0.0)
-        + torch.where(pre_hit, price_p, 0.0),
-        cost_valid=served | od_now | defected | pre_hit,
-        loc=loc, n_locs=topo.n_regions, qlen=new_carry.qlen.sum(dim=1))
-    return new_carry, (new_stats, tstats)
+    out_stats = new_stats
+    if tel is not None:
+        # a job event's loc is its target region, a deadline's the region
+        # of the defecting job's slot
+        loc = torch.where(is_spot, spot_region, torch.where(
+            is_pre, pre_region, torch.where(is_deadline,
+                                            slot_region[defect_slot],
+                                            target)))
+        tstats = telemetry_update(
+            tel, tstats, t=new_stats.time_elapsed, is_job=is_job,
+            is_spot=is_spot, is_pre=is_pre, is_deadline=is_deadline,
+            served=served, resume=resume, defected=defected, od_now=od_now,
+            wait_sample=torch.where(served, wait_served,
+                                    torch.where(defected, age_defect,
+                                                age_pre)),
+            wait_valid=served | defected | pre_hit,
+            cost_inc=torch.where(served, price_s, 0.0)
+            + torch.where(od_any, k_cost, 0.0)
+            + torch.where(pre_hit, price_p, 0.0),
+            cost_valid=served | od_now | defected | pre_hit,
+            loc=loc, n_locs=topo.n_regions, qlen=new_carry.qlen.sum(dim=1))
+        out_stats = (new_stats, tstats)
+    if ep is None:
+        return new_carry, out_stats
+    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
+                                dt, is_job, od_now, served, resume)
+    return (new_carry, new_env), (out_stats, estats)
 
 
 def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
@@ -1529,14 +1747,19 @@ def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
 
 
 def summarize_region(stats: RegionWindowStats,
-                     telemetry: Telemetry | None = None) -> dict:
+                     telemetry: Telemetry | None = None,
+                     env: EnvTimeline | None = None) -> dict:
     """:func:`summarize`'s dict plus the region's: preemptions, resumed
     legs, spot spend, per-job averages over final completions, the routing
     flow (``routed_home``, ``cross_region_frac``: the share of admissions
     sent away from home) and per-region arrays (a trailing region axis).
     Scalar fields reduce the last (window) axis, region fields the one
     before it.  With ``telemetry``, ``stats`` is the ``(base, telemetry)``
-    pair and the telemetry keys are appended."""
+    pair and the telemetry keys are appended; with ``env`` the env block
+    rides outermost and the shock counters are appended."""
+    estats = None
+    if env is not None:
+        stats, estats = stats
     tstats = None
     if telemetry is not None:
         stats, tstats = stats
@@ -1574,29 +1797,34 @@ def summarize_region(stats: RegionWindowStats,
     })
     if telemetry is not None:
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
+    if estats is not None:
+        out.update(summarize_env(estats))
     return out
 
 
 def _run_region_lanes(topo, kernel, preempt_on, plan, burn_in, params, rp,
-                      k_cost, keys, tel: Telemetry | None = None):
+                      k_cost, keys, tel: Telemetry | None = None,
+                      ep: dict | None = None):
     """Flat region lanes through the executor of their device; returns
     (lanes, windows[, R]) stats (a ``(base, telemetry)`` pair with
-    ``tel``) without the burn-in window."""
+    ``tel``, inside an outermost ``(..., env)`` pair with ``ep``) without
+    the burn-in window."""
     from repro_torch.kernels.sweep import region_events
 
-    state0 = init_region_state(keys, topo, rp, preempt_on)
+    state0 = _env_carry(init_region_state(keys, topo, rp, preempt_on, ep),
+                       ep)
     _, stats = region_events(topo, kernel, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), rp,
-                             k_cost, plan, tel)
-    return _without_burn_in(stats, burn_in, tel)
+                             k_cost, plan, tel, ep)
+    return _without_burn_in(stats, burn_in, tel, ep is not None)
 
 
-def _check_region_run(name: str, topo, kernel, telemetry, env, work, shard,
-                      mesh, device, impl, rng, n_events, burn_in):
+def _check_region_run(name: str, topo, telemetry, env, work, shard, mesh,
+                      device, impl, rng, n_events, burn_in):
     """The options checks of the two region entry points; returns the
     device."""
     _check_options(name, [p for r in topo.regions for p in (r.job, r.spot)],
-                   kernel, telemetry, env, work, shard, mesh)
+                   telemetry, env, work, shard, mesh)
     device = _resolve(device, impl, rng, name)
     _check_run_shape(name, n_events, burn_in)
     return device
@@ -1620,8 +1848,8 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
     """
     topology = as_topology(topology)
     params = {} if params is None else params
-    device = _check_region_run("run_region_sim", topology, kernel, telemetry,
-                               env, work, "none", None, device, impl, rng,
+    device = _check_region_run("run_region_sim", topology, telemetry, env,
+                               work, "none", None, device, impl, rng,
                                n_events, burn_in)
     if np.ndim(k) != 0:
         raise ValueError(f"run_region_sim: k must be a scalar, got shape "
@@ -1631,13 +1859,15 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
         topology.n_regions, topology.params(), {}, ()), device)
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(topology.n_regions, device)
     with annotate(f"repro_torch.run_region_sim[{device.type}]"):
         stats = _run_region_lanes(
             topology, kernel, topology.preemptible, plan, burn_in,
             _one_lane(params, device), rp,
             torch.full((1,), np.float32(k), device=device),
-            key.to(device)[None], telemetry)
-    out = summarize_region(_lane0(stats, telemetry), telemetry)
+            key.to(device)[None], telemetry, ep)
+    out = summarize_region(_lane0(stats, telemetry, ep is not None),
+                           telemetry, env)
     return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
@@ -1663,8 +1893,9 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     one config, a ``grid_shape + (R,)`` array sweeps it.  A ``hazards``
     override turns the preemption path on.  ``device``, ``impl``, ``rng``
     and ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
-    hand-written region kernel, a CPU fleet its plain version.  ``env``,
-    ``work`` and ``shard`` are not ported and raise.
+    hand-written region kernel, a CPU fleet its plain version.  ``env`` as
+    in :func:`run_sweep` (its per-loc rows are the regions'); ``work`` and
+    ``shard`` are not ported and raise.
 
     Returns :func:`summarize_region`'s dict: scalar statistics shaped
     ``grid_shape + (n_seeds,)``, region statistics ``grid_shape +
@@ -1673,9 +1904,9 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     topology = as_topology(topology)
     n = topology.n_regions
     params = {} if params is None else params
-    device = _check_region_run("run_region_sweep", topology, kernel,
-                               telemetry, env, work, shard, mesh, device,
-                               impl, rng, n_events, burn_in)
+    device = _check_region_run("run_region_sweep", topology, telemetry, env,
+                               work, shard, mesh, device, impl, rng,
+                               n_events, burn_in)
     _check_loc_overrides("run_region_sweep", n, "region", prices=prices,
                          hazards=hazards, notices=notices,
                          spot_scales=spot_scales, job_scales=job_scales)
@@ -1702,9 +1933,10 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     rp_l = _flat_lane_args(rp, k_f, keys)[0]
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
+    ep = None if env is None else env.params(n, device)
     with annotate(f"repro_torch.run_region_sweep[{device.type}]"):
         stats = _run_region_lanes(topology, kernel, preempt_on, plan,
                                   burn_in, params_l, rp_l, k_l, keys_l,
-                                  telemetry)
-    return _reshape_sweep(summarize_region(stats, telemetry), grid_shape,
-                          n_seeds)
+                                  telemetry, ep)
+    return _reshape_sweep(summarize_region(stats, telemetry, env),
+                          grid_shape, n_seeds)

@@ -15,6 +15,10 @@ process, price ``c_p``, Poisson preemption hazard ``h_p`` and notice window:
     their own slab columns; the keyed hooks (``admit_market``,
     ``on_preempt``) exist so the slab layout sees the JAX protocol, and
     raise: they belong to the split stream (ROADMAP.md Queue 1 item 7).
+  * :class:`PanicKernel` — blackout failover around any kernel: a choice
+    of a dead pool (zero rate under the environment timeline) goes to the
+    cheapest alive one, and with ``drain_dead`` the engine re-tags jobs
+    queued on a dead pool.
   * :func:`checkpoint_within_notice` — the notice law, shared by the
     event loop and a host orchestrator.
 
@@ -315,14 +319,103 @@ class NoticeAwareKernel:
         return within & readmit
 
 
+def _failover_alive(target: torch.Tensor, alive: torch.Tensor,
+                    price: torch.Tensor) -> torch.Tensor:
+    """Re-target a dead location to the cheapest alive one (identity where
+    the chosen one is alive; position 0 where none is, and callers gate on
+    ``alive.any(-1)``)."""
+    cheapest_alive = torch.argmin(torch.where(alive, price, INF),
+                                  dim=-1).to(torch.int32)
+    target = torch.as_tensor(target, dtype=torch.int32, device=alive.device)
+    target = target.expand(alive.shape[:-1])
+    target_alive = torch.gather(alive, -1, target.long()[..., None])[..., 0]
+    return torch.where(target_alive, target, cheapest_alive)
+
+
+def peel_panic(kernel):
+    """The kernel that decides under ``PanicKernel`` wrappers (``kernel``
+    itself where there is none)."""
+    while isinstance(kernel, PanicKernel):
+        kernel = kernel.base
+    return kernel
+
+
 @dataclasses.dataclass(frozen=True)
 class PanicKernel:
-    """Blackout failover around a base kernel (the JAX package's).
+    """Blackout failover around a base kernel: degrade gracefully when
+    supply goes dark.
 
-    Its repairs key on pools whose availability is zero, which only the
-    environment timeline (``env=``) can make so; that axis is not ported
-    (ROADMAP.md Queue 1 item 10), so the engine refuses this kernel.
+    The environment timeline (``env=``) multiplies each location's slot
+    rate by its availability before the kernel sees it, so ``rate > 0`` is
+    the liveness signal.  PanicKernel delegates every decision to ``base``
+    and repairs it:
+
+      * an admission to a dead pool goes to the cheapest alive pool;
+      * when every pool is dark the job is rejected, to on-demand at cost
+        ``k``;
+      * a route to a dead region goes to the cheapest alive region (a base
+        without a ``route`` hook routes home unless home is dead).
+
+    The failover draws no randomness (slab layouts are the base's), and
+    with no blackout every repair is the identity: the statistics are the
+    base's, bitwise.  ``drain_dead=True`` also re-tags, on every market
+    event, each queued job whose pool is dark to the cheapest alive pool
+    (the engine does it; market loop only, as in the JAX package).  In the
+    single queue the kernel is its base: its admission is delegated.
     """
 
-    base: object
-    drain_dead: bool = False
+    base: object  # any single-queue, market or routing kernel
+    drain_dead: bool = False  # re-queue jobs stranded on a dead pool
+
+    # keyed hooks: the split stream, not ported; they exist so that the
+    # slab layout sees the JAX protocol
+    def admit_market(self, params, qlen, pool_state, key):
+        _split_stream("PanicKernel.admit_market")
+
+    def on_preempt(self, params, age, notice, qlen, key):
+        _split_stream("PanicKernel.on_preempt")
+
+    def route(self, params, qlens, region_state, key):
+        _split_stream("PanicKernel.route")
+
+    def slab_cols(self, hook, n):
+        if hook == "route":
+            if not hasattr(self.base, "route"):
+                return 0  # the home fallback draws nothing
+            return kernel_slab_cols(self.base, "route", n)
+        if hook == "admit_market" and not hasattr(self.base, "admit_market"):
+            return kernel_slab_cols(self.base, "admit", n)
+        if hook == "on_preempt" and not hasattr(self.base, "on_preempt"):
+            return 0  # the defect fallback draws nothing
+        return kernel_slab_cols(self.base, hook, n)
+
+    def admit_market_u(self, params, qlen, pool_state, u):
+        if hasattr(self.base, "admit_market"):
+            admit, budget, pool = self.base.admit_market_u(
+                params, qlen, pool_state, u)
+        else:
+            admit, budget = self.base.admit_u(params, qlen, u)
+            pool = torch.zeros_like(qlen)
+        alive = pool_state.rate > 0.0
+        pool = _failover_alive(pool, alive, pool_state.price)
+        return admit & alive.any(dim=-1), budget, pool
+
+    def on_preempt_u(self, params, age, notice, qlen, u):
+        if hasattr(self.base, "on_preempt"):
+            return self.base.on_preempt_u(params, age, notice, qlen, u)
+        return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
+
+    def route_u(self, params, qlens, region_state, u):
+        if hasattr(self.base, "route"):
+            target = self.base.route_u(params, qlens, region_state, u)
+        else:
+            target = region_state.home
+        alive = region_state.rate > 0.0
+        return _failover_alive(target, alive, region_state.price)
+
+    def __getattr__(self, name):
+        # delegate the hooks the wrapper does not repair, so the engine's
+        # hasattr dispatch sees the base's protocol for them
+        if name in ("admit", "admit_u", "init_params"):
+            return getattr(object.__getattribute__(self, "base"), name)
+        raise AttributeError(name)

@@ -68,6 +68,12 @@
 // kernels as they run without the axis; with it, the TEL=true ones.  So
 // telemetry=None launches code that does not hold the fold, and the two
 // builds run side by side.
+//
+// The environment timeline (the env= axis, repro/core/env.py, threaded
+// through each of the three JAX event bodies) is a second template flag,
+// ENV, with its own define, SWEEP_ENV: so the source builds four ways (no
+// flag, TEL, ENV, TEL and ENV) and env=None launches code without it.  See
+// "The environment timeline" below.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -75,6 +81,11 @@
 constexpr bool kTel = true;
 #else
 constexpr bool kTel = false;
+#endif
+#ifdef SWEEP_ENV
+constexpr bool kEnv = true;
+#else
+constexpr bool kEnv = false;
 #endif
 
 namespace {
@@ -536,8 +547,141 @@ __device__ __forceinline__ void tel_flush(const TelArgs& tl, int* ts,
   c = TelCounts{};
 }
 
-template <int G, int SPT, bool TEL>
-__global__ void sweep_kernel(const Args a, const TelArgs tl) {
+// ---------------------------------------------------------------------------
+// The environment timeline (repro/core/env.py and repro/obs/shocks.py;
+// plain version repro_torch/core/engine.py's event bodies with ep=, run by
+// ../ref.py)
+// ---------------------------------------------------------------------------
+// One table for every lane, in global memory (L2 holds it): the S segments'
+// end times and kinds, and their per-location price, hazard and
+// availability multipliers (S x n_locs).  A lane reads it only when it
+// crosses a boundary.  Its cursor (the countdown to the next boundary and
+// the segment) and what depends on the segment alone (effective prices,
+// the hazards' running sums, 1/avail, the kernel's fixed choice, the alive
+// pools or regions for PanicKernel) live in registers and in the lane's
+// table in shared memory, recomputed once a crossing.  The boundary joins
+// the event race as its first clock: a crossing is a divergent branch, the
+// same on the G threads of a lane, whose shared-memory writes synchronize
+// the group alone.  The sample pass runs ahead of the chain, so it keeps
+// only what does not depend on the segment (the base draws, the unit
+// exponential of the preemption clock); the chain scales them under the
+// event's own segment, in the JAX body's order of operations.  The eight
+// shock counters and two dwell times are held as the base sums are, on
+// every thread of the group, and written with the window's other sums.
+constexpr float kBlackoutScale = 1e15f;  // env.py BLACKOUT_SCALE
+enum SegKind { kSegNormal = 0, kSegStorm = 1, kSegBlackout = 2,
+               kSegSpike = 3 };
+
+struct EnvArgs {
+  const float* t_end;    // S
+  const int32_t* kind;   // S
+  const float* price;    // S x n_locs multipliers
+  const float* hazard;   // S x n_locs
+  const float* avail;    // S x n_locs
+  const float* nb0;      // lanes: the countdown to the next boundary
+  const int32_t* seg0;   // lanes: the segment
+  float* nb;             // lanes: final countdown
+  int32_t* seg;          // lanes: final segment
+  int32_t* istats;       // 8 x lanes x windows: the shock counters
+  float* fstats;         // 2 x lanes x windows: storm and blackout time
+  int n_segments, n_locs;
+  // PanicKernel: gate admissions on any location alive; fail a choice (a
+  // pool, a route) over to the cheapest alive location; re-tag jobs queued
+  // on a dead pool (market only)
+  int panic_admit, panic_choice, drain;
+};
+
+__device__ __forceinline__ float inv_avail(float av) {
+  return av > 0.f ? 1.f / av : kBlackoutScale;
+}
+
+// clock_rescale of two total hazards: old / new where both are positive
+__device__ __forceinline__ float clock_rescale(float old_h, float new_h) {
+  return old_h > 0.f && new_h > 0.f ? old_h / new_h : 1.f;
+}
+
+// a window's shock counters (the same on every thread of a group)
+struct EnvCounts {
+  int boundaries = 0, storms = 0, blackouts = 0, spikes = 0;
+  int arrivals = 0, degraded = 0, served = 0, resumed = 0;
+  float storm_time = 0.f, blackout_time = 0.f;
+};
+
+// the lane's cursor: its segment, that segment's kind and end time, and
+// the countdown to its boundary
+struct EnvCursor {
+  int seg, kind;
+  float t_end, nb;
+};
+
+// fold one event (env_update) and step the cursor over it; `kind_next`
+// is read only on a crossing
+__device__ __forceinline__ void env_fold(const EnvArgs& E, EnvCursor& c,
+                                         EnvCounts& n, bool is_b, float dt,
+                                         bool is_job, bool od_now,
+                                         bool served, bool resumed) {
+  const bool shock = c.kind != kSegNormal;
+  n.arrivals += is_job && shock;
+  n.degraded += od_now && shock;
+  n.served += served && shock;
+  n.resumed += resumed && shock;
+  n.storm_time = n.storm_time + (c.kind == kSegStorm ? dt : 0.f);
+  n.blackout_time = n.blackout_time + (c.kind == kSegBlackout ? dt : 0.f);
+  if (is_b) {
+    const int s1 = c.seg + 1;
+    const int k1 = E.kind[s1];
+    const float t1 = E.t_end[s1];
+    n.boundaries += 1;
+    n.storms += k1 == kSegStorm;
+    n.blackouts += k1 == kSegBlackout;
+    n.spikes += k1 == kSegSpike;
+    c.nb = t1 - c.t_end;
+    c.seg = s1;
+    c.kind = k1;
+    c.t_end = t1;
+  } else {
+    c.nb = c.nb - dt;
+  }
+}
+
+__device__ __forceinline__ EnvCursor env_cursor(const EnvArgs& E, int lane) {
+  EnvCursor c;
+  c.seg = E.seg0[lane];
+  c.kind = E.kind[c.seg];
+  c.t_end = E.t_end[c.seg];
+  c.nb = E.nb0[lane];
+  return c;
+}
+
+// window `o` (lane * windows + window) of the shock outputs (n = lanes *
+// windows); the group's first thread writes; then the counts start again
+__device__ __forceinline__ void env_flush(const EnvArgs& E, EnvCounts& n,
+                                          size_t o, size_t nw, bool write) {
+  if (write) {
+    E.istats[0 * nw + o] = n.boundaries;
+    E.istats[1 * nw + o] = n.storms;
+    E.istats[2 * nw + o] = n.blackouts;
+    E.istats[3 * nw + o] = n.spikes;
+    E.istats[4 * nw + o] = n.arrivals;
+    E.istats[5 * nw + o] = n.degraded;
+    E.istats[6 * nw + o] = n.served;
+    E.istats[7 * nw + o] = n.resumed;
+    E.fstats[0 * nw + o] = n.storm_time;
+    E.fstats[1 * nw + o] = n.blackout_time;
+  }
+  n = EnvCounts{};
+}
+
+// the G threads of the lane at `shift` in the warp, for the syncs of a
+// crossing (a branch the other lanes of the warp may not take)
+template <int G>
+__device__ __forceinline__ unsigned group_mask(int shift) {
+  return G == 32 ? kFull : ((1u << G) - 1u) << shift;
+}
+
+template <int G, int SPT, bool TEL, bool ENV>
+__global__ void sweep_kernel(const Args a, const TelArgs tl,
+                             const EnvArgs E) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -561,6 +705,16 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
   if constexpr (TEL)
     ts = tel_slice<G>(smem, lanes_per_block * (kLaneStride + kSampleStride),
                       lane_in_block, tl.n_bins, kDraws, t);
+  // the environment: the lane's cursor and counts, its segment's 1/avail
+  // and spot price (1 and 1 without the axis)
+  EnvCursor cur{};
+  EnvCounts ec;
+  float inv_cur = 1.f, price_cur = 1.f;
+  if constexpr (ENV) {
+    cur = env_cursor(E, lane);
+    inv_cur = inv_avail(E.avail[cur.seg]);
+    price_cur = E.price[cur.seg];
+  }
 
   float nj = a.next_job0[lane], ns = a.next_spot0[lane];
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
@@ -629,10 +783,18 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
         const float deadline = __int_as_float(bmin);
 
         // ties resolve spot > deadline > job
-        const float dt = fminf(fminf(nj, ns), deadline);
-        const bool is_spot = ns <= fminf(nj, deadline);
-        const bool is_deadline = !is_spot && deadline <= nj;
-        const bool is_job = !is_spot && !is_deadline;
+        float dt = fminf(fminf(nj, ns), deadline);
+        bool is_spot = ns <= fminf(nj, deadline);
+        bool is_deadline = !is_spot && deadline <= nj;
+        bool is_job = !is_spot && !is_deadline;
+        bool is_b = false;  // a boundary crossing: no queue activity
+        if constexpr (ENV) {
+          is_b = cur.nb <= dt;
+          dt = fminf(dt, cur.nb);
+          is_spot = is_spot && !is_b;
+          is_deadline = is_deadline && !is_b;
+          is_job = is_job && !is_b;
+        }
 
         bool admit_raw;
         float budget;
@@ -680,7 +842,7 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
         jobs_completed += od_now || served || defected;
         spot_served += served;
         ondemand += od_now || defected;
-        cost_sum = cost_sum + (served ? 1.f : 0.f);
+        cost_sum = cost_sum + (served ? price_cur : 0.f);
         cost_sum = cost_sum + ((od_now || defected) ? kc : 0.f);
         delay_sum = delay_sum + (served ? wait_served : 0.f);
         delay_sum = delay_sum + (defected ? age_defect : 0.f);
@@ -690,7 +852,21 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
         spot_found_empty += is_spot && !has_job;
 
         nj = is_job ? job_draw : nj - dt;
-        ns = is_spot ? spot_draw : ns - dt;
+        if constexpr (ENV) {
+          // the spot clock at rate x avail: a fresh draw x 1/avail, the
+          // survived clock rescaled by inv_new / inv_old at a crossing
+          if (is_b) {
+            const float inv_new = inv_avail(E.avail[cur.seg + 1]);
+            ns = (ns - dt) * (inv_new / inv_cur);
+            inv_cur = inv_new;
+            price_cur = E.price[cur.seg + 1];
+          } else {
+            ns = is_spot ? spot_draw * inv_cur : ns - dt;
+          }
+          env_fold(E, cur, ec, is_b, dt, is_job, od_now, served, false);
+        } else {
+          ns = is_spot ? spot_draw : ns - dt;
+        }
         next_seq += admit;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
 
@@ -733,6 +909,9 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
     if constexpr (TEL)
       tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
                    static_cast<size_t>(L) * W, t, live);
+    if constexpr (ENV)
+      env_flush(E, ec, static_cast<size_t>(lane) * W + w,
+                static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -753,6 +932,10 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl) {
     a.next_spot[lane] = ns;
     a.next_seq[lane] = next_seq;
     a.qlen[lane] = qlen;
+    if constexpr (ENV) {
+      E.nb[lane] = cur.nb;
+      E.seg[lane] = cur.seg;
+    }
   }
 }
 
@@ -764,8 +947,8 @@ size_t tel_smem(const TelArgs& tl, int lanes_per_block, int pass) {
 }
 
 template <int G, int SPT>
-cudaError_t launch_gs(const Args& a, const TelArgs& tl, int warps_per_block,
-                      cudaStream_t s) {
+cudaError_t launch_gs(const Args& a, const TelArgs& tl, const EnvArgs& E,
+                      int warps_per_block, cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
@@ -773,28 +956,29 @@ cudaError_t launch_gs(const Args& a, const TelArgs& tl, int warps_per_block,
       sizeof(float) * lanes_per_block * (kLaneStride + kSampleStride) +
       tel_smem(tl, lanes_per_block, kDraws);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<G, SPT, kTel>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      sweep_kernel<G, SPT, kTel, kEnv>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sweep_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
+  sweep_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t launch_g(const Args& a, const TelArgs& tl, int group, int spt,
-                     int warps_per_block, cudaStream_t s) {
+cudaError_t launch_g(const Args& a, const TelArgs& tl, const EnvArgs& E,
+                     int group, int spt, int warps_per_block,
+                     cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return launch_gs<4, 1>(a, tl, warps_per_block, s);
-      case 2: return launch_gs<4, 2>(a, tl, warps_per_block, s);
-      case 4: return launch_gs<4, 4>(a, tl, warps_per_block, s);
-      case 8: return launch_gs<4, 8>(a, tl, warps_per_block, s);
+      case 1: return launch_gs<4, 1>(a, tl, E, warps_per_block, s);
+      case 2: return launch_gs<4, 2>(a, tl, E, warps_per_block, s);
+      case 4: return launch_gs<4, 4>(a, tl, E, warps_per_block, s);
+      case 8: return launch_gs<4, 8>(a, tl, E, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return launch_gs<8, 8>(a, tl, warps_per_block, s);
-      case 16: return launch_gs<16, 8>(a, tl, warps_per_block, s);
-      case 32: return launch_gs<32, 8>(a, tl, warps_per_block, s);
+      case 8: return launch_gs<8, 8>(a, tl, E, warps_per_block, s);
+      case 16: return launch_gs<16, 8>(a, tl, E, warps_per_block, s);
+      case 32: return launch_gs<32, 8>(a, tl, E, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -830,8 +1014,9 @@ constexpr int kMarketPass = 16;
 constexpr int kEv = 5 + kMaxPools;
 constexpr int kMSampleStride = kMarketPass * kEv + 1;
 // a lane's pool table in shared memory: price, spot scale, the hazards'
-// running sums, pool logits
-constexpr int kTab = 4 * kMaxPools + 1;
+// running sums, pool logits, and with the environment 1/avail (prices and
+// hazards then the segment's effective ones)
+constexpr int kTab = (kEnv ? 5 : 4) * kMaxPools + 1;
 
 enum Admit { kThreePhaseAdmit = 0, kSingleSlotAdmit = 1 };
 enum Choice { kPoolZero = 0, kCheapest = 1, kFastest = 2, kLeastLoaded = 3,
@@ -893,9 +1078,84 @@ __device__ __forceinline__ float three_phase_p(float r, int q) {
   return qf < n_hat ? 1.f : (qf == n_hat ? frac : 0.f);
 }
 
+// which of the P locations a revocation hits: u thinned over the hazards'
+// running sums `cum` (clocks.py::thinning_pick)
+__device__ __forceinline__ int thinning_pick(const float* cum, int P,
+                                             float u) {
+  const float xu = u * cum[P - 1];
+  int pick = 0;
+#pragma unroll
+  for (int p = 0; p < kMaxPools - 1; ++p)
+    if (p < P - 1) pick += xu >= cum[p];
+  return min(pick, P - 1);
+}
+
+// what a segment fixes for a lane's market or regions: the rule's fixed
+// choice (cheapest, fastest), the alive locations (rate x avail > 0) and
+// the cheapest alive one (position 0 where none is)
+struct LocSeg {
+  int fixed, cheapest_alive;
+  unsigned alive;
+};
+
+// the lane's locations under segment s: the effective prices (at tab[p]),
+// the effective hazards' running sums (at cum[p]) and 1/avail (at inv[p])
+// written by the writer thread; `price`, `hazard`, `rate` and `scale` the
+// lane's base config (n entries), `rule` the fixed-choice rule
+__device__ __forceinline__ LocSeg loc_segment(
+    const EnvArgs& E, int s, int n, const float* price, const float* hazard,
+    const float* rate, const float* scale, int rule, float* tab, float* cum,
+    float* inv, bool writer) {
+  LocSeg r{0, 0, 0u};
+  const size_t row = static_cast<size_t>(s) * E.n_locs;
+  float h_sum = 0.f, best = 0.f, best_alive = 0.f;
+#pragma unroll
+  for (int p = 0; p < kMaxPools; ++p) {
+    if (p < n) {
+      const float av = E.avail[row + p];
+      const float eff_price = price[p] * E.price[row + p];
+      const float h = hazard[p] * E.hazard[row + p];
+      h_sum = p == 0 ? h : h_sum + h;
+      const float eff_rate = (rate[p] / scale[p]) * av;
+      if (writer) {
+        tab[p] = eff_price;
+        cum[p] = h_sum;
+        inv[p] = inv_avail(av);
+      }
+      const bool alive = eff_rate > 0.f;
+      r.alive |= static_cast<unsigned>(alive) << p;
+      if (rule == kCheapest) {
+        if (p == 0 || eff_price < best) { best = eff_price; r.fixed = p; }
+      } else if (rule == kFastest) {
+        if (p == 0 || eff_rate > best) { best = eff_rate; r.fixed = p; }
+      }
+      const float v = alive ? eff_price : kInf;
+      if (p == 0 || v < best_alive) { best_alive = v; r.cheapest_alive = p; }
+    }
+  }
+  return r;
+}
+
+// the left-to-right sum of the lane's effective hazards under segment s
+__device__ __forceinline__ float total_hazard(const EnvArgs& E, int s, int n,
+                                              const float* hazard) {
+  const size_t row = static_cast<size_t>(s) * E.n_locs;
+  float h_sum = 0.f;
+#pragma unroll
+  for (int p = 0; p < kMaxPools; ++p) {
+    if (p < n) {
+      const float h = hazard[p] * E.hazard[row + p];
+      h_sum = p == 0 ? h : h_sum + h;
+    }
+  }
+  return h_sum;
+}
+
 // the samples of the pass's n events (kEv floats each in x_s) from their
-// slab rows in u_s; thread t takes events t, t + G, ...
-template <int G>
+// slab rows in u_s; thread t takes events t, t + G, ...  With ENV the
+// revoked pool and the preemption clock depend on the event's segment: the
+// pass leaves the pick to the chain and stores the unit exponential alone.
+template <int G, bool ENV>
 __device__ __forceinline__ void market_sample_pass(
     float* x_s, const float* u_s, const float* tab, int n, int nc,
     const MArgs& a, float pa, float pb, int fixed_choice, int t) {
@@ -932,7 +1192,9 @@ __device__ __forceinline__ void market_sample_pass(
       }
     }
     x[2] = __int_as_float(choice);
-    if (a.preempt_on) {
+    if (ENV) {
+      if (a.preempt_on) x[4] = exp_from_u(u[a.pre_col]);
+    } else if (a.preempt_on) {
       const float total = tab[2 * kMaxPools + P - 1];
       const float xu = u[a.pre_col + 1] * total;
       int pick = 0;
@@ -962,8 +1224,9 @@ __device__ __forceinline__ void market_sample_pass(
   }
 }
 
-template <int G, int SPT, bool TEL>
-__global__ void market_kernel(const MArgs a, const TelArgs tl) {
+template <int G, int SPT, bool TEL, bool ENV>
+__global__ void market_kernel(const MArgs a, const TelArgs tl,
+                              const EnvArgs E) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -1025,6 +1288,19 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
       }
     }
   }
+  // the environment: the lane's cursor and counts, and what its segment
+  // fixes (the table's prices, running sums and 1/avail are the segment's)
+  EnvCursor cur{};
+  EnvCounts ec;
+  LocSeg sg{0, 0, 0u};
+  float* const cum = tab + 2 * kMaxPools;
+  float* const inv = tab + 4 * kMaxPools;
+  if constexpr (ENV) {
+    cur = env_cursor(E, lane);
+    sg = loc_segment(E, cur.seg, P, a.price + lp, a.hazard + lp, a.rate + lp,
+                     a.scale + lp, a.choice_code, tab, cum, inv, t == 0);
+    __syncwarp();
+  }
 
   float nj = a.next_job0[lane], npre = a.next_pre0[lane];
   float ns[kMaxPools];
@@ -1079,8 +1355,8 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
       draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
                    k2, t);
       __syncwarp();
-      market_sample_pass<G>(x_s, u_s, tab, n_pass, nc, a, pa, pb,
-                            fixed_choice, t);
+      market_sample_pass<G, ENV>(x_s, u_s, tab, n_pass, nc, a, pa, pb,
+                                 fixed_choice, t);
       __syncwarp();
 
       for (int e = 0; e < n_pass; ++e) {
@@ -1093,7 +1369,38 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
 #pragma unroll
         for (int p = 1; p < kMaxPools; ++p)
           if (p < P && ns[p] < min_spot) { min_spot = ns[p]; spot_pool = p; }
-        const int pre_pool = a.preempt_on ? __float_as_int(x[3]) : 0;
+        int pre_pool = 0;
+        if (a.preempt_on)
+          pre_pool = ENV ? thinning_pick(cum, P, u[a.pre_col + 1])
+                         : __float_as_int(x[3]);
+        if constexpr (ENV) {
+          // PanicKernel's drain: jobs queued on a dead pool re-tag to the
+          // cheapest alive one (where one is alive)
+          if (E.drain) {
+            bool moved = false;
+#pragma unroll
+            for (int j = 0; j < SPT; ++j) {
+              if (sg.alive != 0u && ((occ >> j) & 1u) &&
+                  !((sg.alive >> pool[j]) & 1u)) {
+                pool[j] = sg.cheapest_alive;
+                moved = true;
+              }
+            }
+            if (a.choice_code == kLeastLoaded && __any_sync(kFull, moved)) {
+#pragma unroll
+              for (int p = 0; p < kMaxPools; ++p) {
+                int c = 0;
+#pragma unroll
+                for (int j = 0; j < SPT; ++j)
+                  c += ((occ >> j) & 1u) && pool[j] == p;
+#pragma unroll
+                for (int o = G / 2; o > 0; o >>= 1)
+                  c += __shfl_xor_sync(kFull, c, o, G);
+                qp[p] = c;
+              }
+            }
+          }
+        }
 
         // pre-event slot reductions: deadline, the oldest job of the spot
         // pool, the oldest of the revoked pool, the first free slot
@@ -1148,20 +1455,37 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
           is_spot = min_spot <= fminf(nj, deadline);
           is_deadline = !is_spot && deadline <= nj;
         }
-        const bool is_job = !is_spot && !is_pre && !is_deadline;
+        bool is_b = false;  // a boundary crossing: no queue activity
+        if constexpr (ENV) {
+          is_b = cur.nb <= dt;
+          dt = fminf(dt, cur.nb);
+          is_spot = is_spot && !is_b;
+          is_pre = is_pre && !is_b;
+          is_deadline = is_deadline && !is_b;
+        }
+        const bool is_job = !is_b && !is_spot && !is_pre && !is_deadline;
 
         // admission and the pool it joins
         const float budget = x[1];
-        const bool admit_raw = a.admit_code == kThreePhaseAdmit
-                                   ? u[a.admit_col] < three_phase_p(pa, qlen)
-                                   : qlen == 0 && budget > 0.f;
+        bool admit_raw = a.admit_code == kThreePhaseAdmit
+                             ? u[a.admit_col] < three_phase_p(pa, qlen)
+                             : qlen == 0 && budget > 0.f;
         int choice = __float_as_int(x[2]);
+        if (ENV && (a.choice_code == kCheapest || a.choice_code == kFastest))
+          choice = sg.fixed;  // the segment's, not the pass's
         if (a.choice_code == kLeastLoaded) {
           int best = qp[0];
           choice = 0;
 #pragma unroll
           for (int p = 1; p < kMaxPools; ++p)
             if (p < P && qp[p] < best) { best = qp[p]; choice = p; }
+        }
+        if constexpr (ENV) {
+          // PanicKernel: a dead pool fails over, and with every pool dark
+          // the job goes to on-demand
+          if (E.panic_choice && !((sg.alive >> choice) & 1u))
+            choice = sg.cheapest_alive;
+          if (E.panic_admit) admit_raw = admit_raw && sg.alive != 0u;
         }
         const bool admit = is_job && admit_raw && qlen < R;
         const bool od_now = is_job && !admit;
@@ -1256,10 +1580,46 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
         }
 
         nj = is_job ? x[0] : nj - dt;
+        if constexpr (ENV) {
+          if (is_b) {
+            // the crossing: survived clocks rescaled exactly, then the new
+            // segment's table (the group syncs alone: a branch)
+            const size_t row = static_cast<size_t>(cur.seg + 1) * E.n_locs;
 #pragma unroll
-        for (int p = 0; p < kMaxPools; ++p)
-          if (p < P) ns[p] = is_spot && p == spot_pool ? x[5 + p] : ns[p] - dt;
-        if (a.preempt_on) npre = is_pre ? x[4] : npre - dt;
+            for (int p = 0; p < kMaxPools; ++p)
+              if (p < P)
+                ns[p] = (ns[p] - dt) * (inv_avail(E.avail[row + p]) / inv[p]);
+            if (a.preempt_on)
+              npre = (npre - dt) *
+                     clock_rescale(cum[P - 1], total_hazard(E, cur.seg + 1, P,
+                                                            a.hazard + lp));
+            const unsigned gm = group_mask<G>(grp.shift);
+            __syncwarp(gm);
+            sg = loc_segment(E, cur.seg + 1, P, a.price + lp, a.hazard + lp,
+                             a.rate + lp, a.scale + lp, a.choice_code, tab,
+                             cum, inv, t == 0);
+            __syncwarp(gm);
+          } else {
+#pragma unroll
+            for (int p = 0; p < kMaxPools; ++p)
+              if (p < P)
+                ns[p] = is_spot && p == spot_pool ? x[5 + p] * inv[p]
+                                                  : ns[p] - dt;
+            if (a.preempt_on) {
+              const float total = cum[P - 1];
+              npre = is_pre ? (total > 0.f ? x[4] / fmaxf(total, 1e-30f)
+                                           : kInf)
+                            : npre - dt;
+            }
+          }
+          env_fold(E, cur, ec, is_b, dt, is_job, od_now, served, resume);
+        } else {
+#pragma unroll
+          for (int p = 0; p < kMaxPools; ++p)
+            if (p < P)
+              ns[p] = is_spot && p == spot_pool ? x[5 + p] : ns[p] - dt;
+          if (a.preempt_on) npre = is_pre ? x[4] : npre - dt;
+        }
         next_seq += admit || resume;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
 
@@ -1320,6 +1680,9 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
     if constexpr (TEL)
       tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
                    static_cast<size_t>(L) * W, t, live);
+    if constexpr (ENV)
+      env_flush(E, ec, static_cast<size_t>(lane) * W + w,
+                static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -1344,12 +1707,17 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl) {
       if (p < P) a.next_spot[lp + p] = ns[p];
     a.next_seq[lane] = next_seq;
     a.qlen[lane] = qlen;
+    if constexpr (ENV) {
+      E.nb[lane] = cur.nb;
+      E.seg[lane] = cur.seg;
+    }
   }
 }
 
 template <int G, int SPT>
 cudaError_t market_launch_gs(const MArgs& a, const TelArgs& tl,
-                             int warps_per_block, cudaStream_t s) {
+                             const EnvArgs& E, int warps_per_block,
+                             cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
@@ -1357,28 +1725,29 @@ cudaError_t market_launch_gs(const MArgs& a, const TelArgs& tl,
                           (kLaneStride + kMSampleStride + kTab) +
                       tel_smem(tl, lanes_per_block, kMarketPass);
   cudaError_t err = cudaFuncSetAttribute(
-      market_kernel<G, SPT, kTel>,
+      market_kernel<G, SPT, kTel, kEnv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  market_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
+  market_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t market_launch_g(const MArgs& a, const TelArgs& tl, int group,
-                            int spt, int warps_per_block, cudaStream_t s) {
+cudaError_t market_launch_g(const MArgs& a, const TelArgs& tl,
+                            const EnvArgs& E, int group, int spt,
+                            int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return market_launch_gs<4, 1>(a, tl, warps_per_block, s);
-      case 2: return market_launch_gs<4, 2>(a, tl, warps_per_block, s);
-      case 4: return market_launch_gs<4, 4>(a, tl, warps_per_block, s);
-      case 8: return market_launch_gs<4, 8>(a, tl, warps_per_block, s);
+      case 1: return market_launch_gs<4, 1>(a, tl, E, warps_per_block, s);
+      case 2: return market_launch_gs<4, 2>(a, tl, E, warps_per_block, s);
+      case 4: return market_launch_gs<4, 4>(a, tl, E, warps_per_block, s);
+      case 8: return market_launch_gs<4, 8>(a, tl, E, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return market_launch_gs<8, 8>(a, tl, warps_per_block, s);
-      case 16: return market_launch_gs<16, 8>(a, tl, warps_per_block, s);
-      case 32: return market_launch_gs<32, 8>(a, tl, warps_per_block, s);
+      case 8: return market_launch_gs<8, 8>(a, tl, E, warps_per_block, s);
+      case 16: return market_launch_gs<16, 8>(a, tl, E, warps_per_block, s);
+      case 32: return market_launch_gs<32, 8>(a, tl, E, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -1417,8 +1786,10 @@ constexpr int kREv = 4 + 2 * kMaxRegions;
 constexpr int kRSampleStride = kMarketPass * kREv + 1;
 // a lane's region table: price, job scale, spot scale, the hazards'
 // running sums and logits (kMaxRegions each), then the R + 1 partition
-// offsets (int bits)
-constexpr int kRTab = 5 * kMaxRegions + kMaxRegions + 1;
+// offsets (int bits), and with the environment 1/avail (prices and hazards
+// then the segment's effective ones)
+constexpr int kRInv = 5 * kMaxRegions + kMaxRegions + 1;
+constexpr int kRTab = kRInv + (kEnv ? kMaxRegions : 0);
 
 struct RArgs {
   // initial state, per lane (clocks and queue lengths lanes x R, slot
@@ -1489,8 +1860,10 @@ __device__ __forceinline__ unsigned region_bits(const int* off, int r,
 }
 
 // the samples of the pass's n events (kREv floats each in x_s) from their
-// slab rows in u_s; thread t takes events t, t + G, ...
-template <int G>
+// slab rows in u_s; thread t takes events t, t + G, ...  With ENV the pass
+// leaves the revoked region to the chain and stores the preemption clock's
+// unit exponential alone.
+template <int G, bool ENV>
 __device__ __forceinline__ void region_sample_pass(
     float* x_s, const float* u_s, const float* tab, int n, int nc,
     const RArgs& a, float pa, float pb, int t) {
@@ -1523,7 +1896,9 @@ __device__ __forceinline__ void region_sample_pass(
       }
     }
     x[1] = __int_as_float(route);
-    if (a.preempt_on) {
+    if (ENV) {
+      if (a.preempt_on) x[3] = exp_from_u(u[a.pre_col]);
+    } else if (a.preempt_on) {
       const float total = tab[3 * kMaxRegions + R - 1];
       const float xu = u[a.pre_col + 1] * total;
       int pick = 0;
@@ -1562,8 +1937,9 @@ __device__ __forceinline__ void region_sample_pass(
   }
 }
 
-template <int G, int SPT, bool TEL>
-__global__ void region_kernel(const RArgs a, const TelArgs tl) {
+template <int G, int SPT, bool TEL, bool ENV>
+__global__ void region_kernel(const RArgs a, const TelArgs tl,
+                              const EnvArgs E) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -1630,6 +2006,19 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
       }
     }
   }
+  // the environment: the lane's cursor and counts, and what its segment
+  // fixes (the table's prices, running sums and 1/avail are the segment's)
+  EnvCursor cur{};
+  EnvCounts ec;
+  LocSeg sg{0, 0, 0u};
+  float* const cum = tab + 3 * kMaxRegions;
+  float* const inv = tab + kRInv;
+  if constexpr (ENV) {
+    cur = env_cursor(E, lane);
+    sg = loc_segment(E, cur.seg, R, a.price + lr, a.hazard + lr, a.rate + lr,
+                     a.spot_scale + lr, a.route_code, tab, cum, inv, t == 0);
+    __syncwarp();
+  }
 
   float nj[kMaxRegions], ns[kMaxRegions];
   int qr[kMaxRegions];  // queued jobs a region
@@ -1681,7 +2070,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
       draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
                    k2, t);
       __syncwarp();
-      region_sample_pass<G>(x_s, u_s, tab, n_pass, nc, a, pa, pb, t);
+      region_sample_pass<G, ENV>(x_s, u_s, tab, n_pass, nc, a, pa, pb, t);
       __syncwarp();
 
       for (int e = 0; e < n_pass; ++e) {
@@ -1699,10 +2088,13 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
             if (ns[r] < min_spot) { min_spot = ns[r]; spot_r = r; }
           }
         }
-        const int pre_r = a.preempt_on ? __float_as_int(x[2]) : 0;
+        int pre_r = 0;
+        if (a.preempt_on)
+          pre_r = ENV ? thinning_pick(cum, R, u[a.pre_col + 1])
+                      : __float_as_int(x[2]);
         int target = home;
         if (a.route_code == kCheapest || a.route_code == kFastest) {
-          target = fixed_route;
+          target = ENV ? sg.fixed : fixed_route;
         } else if (a.route_code == kLeastLoaded) {
           int best = qr[0];
           target = 0;
@@ -1711,6 +2103,11 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
             if (r < R && qr[r] < best) { best = qr[r]; target = r; }
         } else if (a.route_code != kPoolZero) {  // uniform, weighted
           target = __float_as_int(x[1]);
+        }
+        if constexpr (ENV) {
+          // PanicKernel's route: a dead region fails over
+          if (E.panic_choice && !((sg.alive >> target) & 1u))
+            target = sg.cheapest_alive;
         }
 
         // pre-event slot reductions: deadline, the oldest job of the spot
@@ -1763,16 +2160,28 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
           is_spot = min_spot <= fminf(min_job, deadline);
           is_deadline = !is_spot && deadline <= min_job;
         }
-        const bool is_job = !is_spot && !is_pre && !is_deadline;
+        bool is_b = false;  // a boundary crossing: no queue activity
+        if constexpr (ENV) {
+          is_b = cur.nb <= dt;
+          dt = fminf(dt, cur.nb);
+          is_spot = is_spot && !is_b;
+          is_pre = is_pre && !is_b;
+          is_deadline = is_deadline && !is_b;
+        }
+        const bool is_job = !is_b && !is_spot && !is_pre && !is_deadline;
 
         // admission against the target region's queue and capacity
         const int qlen_t = region_value(qr, target);
         const int rmax_t = off[target + 1] - off[target];
         const float budget = x[0];
-        const bool admit_raw =
-            a.admit_code == kThreePhaseAdmit
-                ? u[a.admit_col] < three_phase_p(pa, qlen_t)
-                : qlen_t == 0 && budget > 0.f;
+        bool admit_raw = a.admit_code == kThreePhaseAdmit
+                             ? u[a.admit_col] < three_phase_p(pa, qlen_t)
+                             : qlen_t == 0 && budget > 0.f;
+        if constexpr (ENV) {
+          // PanicKernel's admission: with every region dark the job goes
+          // to on-demand
+          if (E.panic_admit) admit_raw = admit_raw && sg.alive != 0u;
+        }
         const bool admit = is_job && admit_raw && qlen_t < rmax_t;
         const bool od_now = is_job && !admit;
         const bool served = is_spot && has_elig;
@@ -1863,13 +2272,51 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
         for (int r = 0; r < kMaxRegions; ++r) {
           if (r < R) {
             nj[r] = is_job && r == home ? x[4 + r] : nj[r] - dt;
-            ns[r] = is_spot && r == spot_r ? x[4 + kMaxRegions + r]
-                                           : ns[r] - dt;
+            if (!ENV)
+              ns[r] = is_spot && r == spot_r ? x[4 + kMaxRegions + r]
+                                             : ns[r] - dt;
             qr[r] += static_cast<int>(admit && r == target) -
                      static_cast<int>(leave && r == leave_r);
           }
         }
-        if (a.preempt_on) npre = is_pre ? x[3] : npre - dt;
+        if constexpr (ENV) {
+          if (is_b) {
+            // the crossing: survived spot and preemption clocks rescaled
+            // exactly (the job clocks are never modulated), then the new
+            // segment's table (the group syncs alone: a branch)
+            const size_t row = static_cast<size_t>(cur.seg + 1) * E.n_locs;
+#pragma unroll
+            for (int r = 0; r < kMaxRegions; ++r)
+              if (r < R)
+                ns[r] = (ns[r] - dt) * (inv_avail(E.avail[row + r]) / inv[r]);
+            if (a.preempt_on)
+              npre = (npre - dt) *
+                     clock_rescale(cum[R - 1], total_hazard(E, cur.seg + 1, R,
+                                                            a.hazard + lr));
+            const unsigned gm = group_mask<G>(grp.shift);
+            __syncwarp(gm);
+            sg = loc_segment(E, cur.seg + 1, R, a.price + lr, a.hazard + lr,
+                             a.rate + lr, a.spot_scale + lr, a.route_code,
+                             tab, cum, inv, t == 0);
+            __syncwarp(gm);
+          } else {
+#pragma unroll
+            for (int r = 0; r < kMaxRegions; ++r)
+              if (r < R)
+                ns[r] = is_spot && r == spot_r
+                            ? x[4 + kMaxRegions + r] * inv[r]
+                            : ns[r] - dt;
+            if (a.preempt_on) {
+              const float total = cum[R - 1];
+              npre = is_pre ? (total > 0.f ? x[3] / fmaxf(total, 1e-30f)
+                                           : kInf)
+                            : npre - dt;
+            }
+          }
+          env_fold(E, cur, ec, is_b, dt, is_job, od_now, served, resume);
+        } else if (a.preempt_on) {
+          npre = is_pre ? x[3] : npre - dt;
+        }
         next_seq += admit || resume;
         qtot += static_cast<int>(admit) - static_cast<int>(leave);
 
@@ -1880,9 +2327,10 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
                     : is_deadline ? kEvDeadline
                                   : kEvJob;
           // a job event's region is its target, a deadline's the
-          // defecting job's (leave_r)
-          ev.loc = is_job ? target : (is_spot ? spot_r
-                                              : (is_pre ? pre_r : leave_r));
+          // defecting job's (leave_r); a crossing's is the target too
+          ev.loc = is_job || is_b ? target
+                                  : (is_spot ? spot_r
+                                             : (is_pre ? pre_r : leave_r));
           ev.qlen = qtot;
           ev.served = served;
           ev.preempt = is_pre;
@@ -1936,6 +2384,9 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
     if constexpr (TEL)
       tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
                    static_cast<size_t>(L) * W, t, live);
+    if constexpr (ENV)
+      env_flush(E, ec, static_cast<size_t>(lane) * W + w,
+                static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, S);
   }
@@ -1954,6 +2405,10 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
   if (t == 0) {
     a.next_pre[lane] = npre;
     a.next_seq[lane] = next_seq;
+    if constexpr (ENV) {
+      E.nb[lane] = cur.nb;
+      E.seg[lane] = cur.seg;
+    }
 #pragma unroll
     for (int r = 0; r < kMaxRegions; ++r) {
       if (r < R) {
@@ -1967,7 +2422,8 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl) {
 
 template <int G, int SPT>
 cudaError_t region_launch_gs(const RArgs& a, const TelArgs& tl,
-                             int warps_per_block, cudaStream_t s) {
+                             const EnvArgs& E, int warps_per_block,
+                             cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
@@ -1975,28 +2431,29 @@ cudaError_t region_launch_gs(const RArgs& a, const TelArgs& tl,
                           (kLaneStride + kRSampleStride + kRTab) +
                       tel_smem(tl, lanes_per_block, kMarketPass);
   cudaError_t err = cudaFuncSetAttribute(
-      region_kernel<G, SPT, kTel>,
+      region_kernel<G, SPT, kTel, kEnv>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  region_kernel<G, SPT, kTel><<<grid, block, smem, s>>>(a, tl);
+  region_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
-cudaError_t region_launch_g(const RArgs& a, const TelArgs& tl, int group,
-                            int spt, int warps_per_block, cudaStream_t s) {
+cudaError_t region_launch_g(const RArgs& a, const TelArgs& tl,
+                            const EnvArgs& E, int group, int spt,
+                            int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return region_launch_gs<4, 1>(a, tl, warps_per_block, s);
-      case 2: return region_launch_gs<4, 2>(a, tl, warps_per_block, s);
-      case 4: return region_launch_gs<4, 4>(a, tl, warps_per_block, s);
-      case 8: return region_launch_gs<4, 8>(a, tl, warps_per_block, s);
+      case 1: return region_launch_gs<4, 1>(a, tl, E, warps_per_block, s);
+      case 2: return region_launch_gs<4, 2>(a, tl, E, warps_per_block, s);
+      case 4: return region_launch_gs<4, 4>(a, tl, E, warps_per_block, s);
+      case 8: return region_launch_gs<4, 8>(a, tl, E, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return region_launch_gs<8, 8>(a, tl, warps_per_block, s);
-      case 16: return region_launch_gs<16, 8>(a, tl, warps_per_block, s);
-      case 32: return region_launch_gs<32, 8>(a, tl, warps_per_block, s);
+      case 8: return region_launch_gs<8, 8>(a, tl, E, warps_per_block, s);
+      case 16: return region_launch_gs<16, 8>(a, tl, E, warps_per_block, s);
+      case 32: return region_launch_gs<32, 8>(a, tl, E, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -2035,22 +2492,56 @@ bool tel_args(const int64_t* tel_ptrs, const int32_t* tel_icfg,
          tl->n_locs <= kMaxLocs && tl->cap >= 0;
 }
 
+// the environment arguments of a launch: env_ptrs the 11 pointers of
+// EnvArgs in order, env_icfg n_segments, n_locs, panic_admit,
+// panic_choice, drain; false where they do not fit this build (the ENV
+// build needs them, the others take none) or the run's `n_locs`
+bool env_args(const int64_t* env_ptrs, const int32_t* env_icfg, int n_locs,
+              EnvArgs* E) {
+  *E = EnvArgs{};
+  if ((env_ptrs != nullptr) != kEnv) return false;
+  if (!kEnv) return true;
+  int i = 0;
+  E->t_end = reinterpret_cast<const float*>(env_ptrs[i++]);
+  E->kind = reinterpret_cast<const int32_t*>(env_ptrs[i++]);
+  E->price = reinterpret_cast<const float*>(env_ptrs[i++]);
+  E->hazard = reinterpret_cast<const float*>(env_ptrs[i++]);
+  E->avail = reinterpret_cast<const float*>(env_ptrs[i++]);
+  E->nb0 = reinterpret_cast<const float*>(env_ptrs[i++]);
+  E->seg0 = reinterpret_cast<const int32_t*>(env_ptrs[i++]);
+  E->nb = reinterpret_cast<float*>(env_ptrs[i++]);
+  E->seg = reinterpret_cast<int32_t*>(env_ptrs[i++]);
+  E->istats = reinterpret_cast<int32_t*>(env_ptrs[i++]);
+  E->fstats = reinterpret_cast<float*>(env_ptrs[i++]);
+  E->n_segments = env_icfg[0];
+  E->n_locs = env_icfg[1];
+  E->panic_admit = env_icfg[2];
+  E->panic_choice = env_icfg[3];
+  E->drain = env_icfg[4];
+  return E->n_segments >= 1 && E->n_locs == n_locs;
+}
+
 }  // namespace
 
 // ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
 // n_cols, job_code, spot_code, policy_code, wait_code, job_col, spot_col,
 // admit_col, job_n, spot_n, G (threads a lane), SPT (slots a thread),
 // warps a block; fcfg: job_c[4], spot_c[4]; tel_*: the telemetry
-// arguments (tel_args), null without the axis.  Launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is
-// not built, or telemetry arguments that do not fit this build).
+// arguments (tel_args), null without the axis; env_*: the environment's
+// (env_args), null without it.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
+// built, or telemetry or environment arguments that do not fit this
+// build).
 extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
                             const float* fcfg, const int64_t* tel_ptrs,
                             const int32_t* tel_icfg, const float* tel_fcfg,
+                            const int64_t* env_ptrs, const int32_t* env_icfg,
                             void* stream) {
   Args a;
   TelArgs tl;
-  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+  EnvArgs E;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
+      !env_args(env_ptrs, env_icfg, 1, &E))
     return static_cast<int>(cudaErrorInvalidValue);
   a.next_job0 = reinterpret_cast<const float*>(ptrs[0]);
   a.next_spot0 = reinterpret_cast<const float*>(ptrs[1]);
@@ -2096,7 +2587,7 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   if (a.n_cols < 0 || a.n_cols > kDraws || warps_per_block < 1 ||
       warps_per_block > 32 || group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_g(a, tl, group, spt, warps_per_block,
+  return static_cast<int>(launch_g(a, tl, E, group, spt, warps_per_block,
                                    static_cast<cudaStream_t>(stream)));
 }
 
@@ -2109,16 +2600,20 @@ extern "C" const char* sweep_error_string(int code) {
 // wait_code, choice_code, resume_code, preempt_on, any_exp_pool, job_col,
 // spot_col, admit_col, choice_col, pre_col, onpre_col, G, SPT, warps a
 // block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4];
-// tel_*: as sweep_launch's.  Launches on `stream` and returns
+// tel_*, env_*: as sweep_launch's.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
-// built, or telemetry arguments that do not fit this build).
+// built, or telemetry or environment arguments that do not fit this
+// build).
 extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
                              const float* fcfg, const int64_t* tel_ptrs,
                              const int32_t* tel_icfg, const float* tel_fcfg,
-                             void* stream) {
+                             const int64_t* env_ptrs,
+                             const int32_t* env_icfg, void* stream) {
   MArgs a;
   TelArgs tl;
-  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+  EnvArgs E;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
+      !env_args(env_ptrs, env_icfg, icfg[4], &E))
     return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -2187,7 +2682,8 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_pools > kMaxPools || warps_per_block < 1 || warps_per_block > 32 ||
       group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(market_launch_g(a, tl, group, spt, warps_per_block,
+  return static_cast<int>(market_launch_g(a, tl, E, group, spt,
+                                          warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }
 
@@ -2196,17 +2692,20 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
 // route_code, resume_code, preempt_on, any_exp_job, any_exp_spot,
 // job_col, spot_col, admit_col, route_col, pre_col, onpre_col, G, SPT,
 // warps a block, then offset[9], job_code[8], job_n[8], spot_code[8] and
-// spot_n[8]; fcfg: job_c[8][4], spot_c[8][4]; tel_*: as sweep_launch's.
-// Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a (G, SPT) that is not built, or telemetry
-// arguments that do not fit this build).
+// spot_n[8]; fcfg: job_c[8][4], spot_c[8][4]; tel_*, env_*: as
+// sweep_launch's.  Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a (G, SPT) that is not built, or telemetry or
+// environment arguments that do not fit this build).
 extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
                              const float* fcfg, const int64_t* tel_ptrs,
                              const int32_t* tel_icfg, const float* tel_fcfg,
-                             void* stream) {
+                             const int64_t* env_ptrs,
+                             const int32_t* env_icfg, void* stream) {
   RArgs a;
   TelArgs tl;
-  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl))
+  EnvArgs E;
+  if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
+      !env_args(env_ptrs, env_icfg, icfg[4], &E))
     return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -2278,6 +2777,7 @@ extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_regions > kMaxRegions || a.offset[a.n_regions] != a.n_slots ||
       warps_per_block < 1 || warps_per_block > 32 || group * spt < a.n_slots)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(region_launch_g(a, tl, group, spt, warps_per_block,
+  return static_cast<int>(region_launch_g(a, tl, E, group, spt,
+                                          warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }

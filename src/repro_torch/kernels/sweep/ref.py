@@ -11,8 +11,12 @@ runs its events with the engine's event body on ``(lanes, slots)``
 tensors, and ends with the order rebase.  With a
 :class:`~repro_torch.obs.Telemetry` (``tel``) each event is also folded
 into a telemetry block a window and the stats come back as a ``(base,
-telemetry)`` pair.  They are the kernels' oracles in the tests and on the
-card, and the executors the engine uses for tensors on the CPU.
+telemetry)`` pair.  With an environment timeline (``ep``,
+:meth:`~repro_torch.core.env.EnvTimeline.params`) the state is an
+``(engine state, EnvState)`` pair and the stats an outermost ``(...,
+EnvWindowStats)`` pair, as in the JAX package.  They are the kernels'
+oracles in the tests and on the card, and the executors the engine uses
+for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -26,101 +30,123 @@ from repro_torch.core.engine import (EngineState, MarketState,
                                      _market_event, _market_layout,
                                      _rebase_order, _region_event,
                                      _region_layout)
+from repro_torch.obs.shocks import env_zeros, stack_env_windows
 from repro_torch.obs.stats import stack_windows, telemetry_zeros
 
 
-def _zeros(base, tel, n_locs: int, lanes: int, device):
+def _zeros(base, tel, n_locs: int, lanes: int, device, env: bool = False):
     """A window's zero stats: the base block, paired with the telemetry
-    block when ``tel`` is on."""
-    if tel is None:
-        return base
-    return base, telemetry_zeros(tel, n_locs, lanes, device)
+    block when ``tel`` is on, then with the shock counters when ``env``
+    is."""
+    zeros = base
+    if tel is not None:
+        zeros = base, telemetry_zeros(tel, n_locs, lanes, device)
+    if env:
+        zeros = zeros, env_zeros(lanes, device)
+    return zeros
 
 
-def _stacked(cls, windows: list, tel):
+def _stacked(cls, windows: list, tel, env: bool = False):
     """Per-window stats stacked on a window axis after the lane axis."""
+    if env:
+        return (_stacked(cls, [w[0] for w in windows], tel),
+                stack_env_windows([w[1] for w in windows]))
     if tel is None:
         return cls(*(torch.stack(leaves, dim=1) for leaves in zip(*windows)))
     return (_stacked(cls, [w[0] for w in windows], None),
             stack_windows([w[1] for w in windows]))
 
 
+def _windows(plan, layout, state, zeros, event, rebase, env: bool):
+    """Run ``plan``'s windows: each draws the lanes' slab, runs its events
+    from ``zeros()`` and rebases the join order (the timeline cursor of an
+    env pair crosses windows untouched); returns the final state and the
+    per-window stats."""
+    windows = []
+    for n_ev in plan:
+        base = state[0] if env else state
+        key, slab = window_slab(base.key, n_ev, layout.n_cols)
+        base = base._replace(key=key)
+        state = (base, state[1]) if env else base
+        stats = zeros()
+        for e in range(n_ev):
+            state, stats = event(state, stats, slab[:, e])
+        state = (rebase(state[0]), state[1]) if env else rebase(state)
+        windows.append(stats)
+    return state, windows
+
+
 def batched_event_windows_ref(job, spot, kernel, rmax: int,
                               state: EngineState, params: dict,
                               k_cost: torch.Tensor, plan: tuple[int, ...],
-                              tel=None) -> tuple[EngineState, WindowStats]:
+                              tel=None, ep=None
+                              ) -> tuple[EngineState, WindowStats]:
     """Reference: ``(final_state, stats)`` with stats leaves ``(lanes, W)``,
     one float32/int32 window of sums per entry of ``plan`` (with ``tel``
     a ``(base, telemetry)`` pair, the telemetry leaves ``(lanes, W,
-    ...)``)."""
+    ...)``; with ``ep`` the state and the stats in env pairs)."""
     layout = _engine_layout(job, spot, kernel)
-    lanes, device = state.key.shape[0], state.ages.device
-    windows = []
-    for n_ev in plan:
-        key, slab = window_slab(state.key, n_ev, layout.n_cols)
-        state = state._replace(key=key)
-        stats = _zeros(WindowStats.zeros(lanes, device), tel, 1, lanes,
-                       device)
-        for e in range(n_ev):
-            state, stats = _engine_event(job, spot, kernel, rmax, layout,
-                                         state, stats, params, k_cost,
-                                         slab[:, e], tel)
-        state = _rebase_order(state)
-        windows.append(stats)
-    return state, _stacked(WindowStats, windows, tel)
+    env = ep is not None
+    base = state[0] if env else state
+    lanes, device = base.key.shape[0], base.ages.device
+    state, windows = _windows(
+        plan, layout, state,
+        lambda: _zeros(WindowStats.zeros(lanes, device), tel, 1, lanes,
+                       device, env),
+        lambda c, s, x: _engine_event(job, spot, kernel, rmax, layout, c, s,
+                                      params, k_cost, x, tel, ep),
+        _rebase_order, env)
+    return state, _stacked(WindowStats, windows, tel, env)
 
 
 def market_event_windows_ref(job, market, kernel, rmax: int,
                              preempt_on: bool, state: MarketState,
                              params: dict, mp: dict, k_cost: torch.Tensor,
-                             plan: tuple[int, ...], tel=None
+                             plan: tuple[int, ...], tel=None, ep=None
                              ) -> tuple[MarketState, MarketWindowStats]:
     """Reference of the market traversal: ``(final_state, stats)`` with
     stats leaves ``(lanes, W)`` and ``(lanes, W, P)`` for the pool fields
     (with ``tel`` a ``(base, telemetry)`` pair, the pools as the
-    telemetry's locations).  ``mp`` is the per-lane pools config
-    (``(lanes, P)`` leaves)."""
+    telemetry's locations; with ``ep`` the state and the stats in env
+    pairs).  ``mp`` is the per-lane pools config (``(lanes, P)``
+    leaves)."""
     layout = _market_layout(job, market, kernel, preempt_on)
-    lanes, device = state.key.shape[0], state.ages.device
-    windows = []
-    for n_ev in plan:
-        key, slab = window_slab(state.key, n_ev, layout.n_cols)
-        state = state._replace(key=key)
-        stats = _zeros(MarketWindowStats.zeros(lanes, market.n_pools,
-                                               device),
-                       tel, market.n_pools, lanes, device)
-        for e in range(n_ev):
-            state, stats = _market_event(job, market, kernel, rmax,
-                                         preempt_on, layout, state, stats,
-                                         params, mp, k_cost, slab[:, e], tel)
-        state = _rebase_order(state)
-        windows.append(stats)
-    return state, _stacked(MarketWindowStats, windows, tel)
+    env = ep is not None
+    base = state[0] if env else state
+    lanes, device = base.key.shape[0], base.ages.device
+    n = market.n_pools
+    state, windows = _windows(
+        plan, layout, state,
+        lambda: _zeros(MarketWindowStats.zeros(lanes, n, device), tel, n,
+                       lanes, device, env),
+        lambda c, s, x: _market_event(job, market, kernel, rmax, preempt_on,
+                                      layout, c, s, params, mp, k_cost, x,
+                                      tel, ep),
+        _rebase_order, env)
+    return state, _stacked(MarketWindowStats, windows, tel, env)
 
 
 def region_event_windows_ref(topo, kernel, preempt_on: bool,
                              state: RegionState, params: dict, rp: dict,
                              k_cost: torch.Tensor, plan: tuple[int, ...],
-                             tel=None
+                             tel=None, ep=None
                              ) -> tuple[RegionState, RegionWindowStats]:
     """Reference of the region traversal: ``(final_state, stats)`` with
     stats leaves ``(lanes, W)`` and ``(lanes, W, R)`` for the region
     fields (with ``tel`` a ``(base, telemetry)`` pair, the regions as the
-    telemetry's locations).  ``rp`` is the per-lane regions config
-    (``(lanes, R)`` leaves)."""
+    telemetry's locations; with ``ep`` the state and the stats in env
+    pairs).  ``rp`` is the per-lane regions config (``(lanes, R)``
+    leaves)."""
     layout = _region_layout(topo, kernel, preempt_on)
-    lanes, device = state.key.shape[0], state.ages.device
-    windows = []
-    for n_ev in plan:
-        key, slab = window_slab(state.key, n_ev, layout.n_cols)
-        state = state._replace(key=key)
-        stats = _zeros(RegionWindowStats.zeros(lanes, topo.n_regions,
-                                               device),
-                       tel, topo.n_regions, lanes, device)
-        for e in range(n_ev):
-            state, stats = _region_event(topo, kernel, preempt_on, layout,
-                                         state, stats, params, rp, k_cost,
-                                         slab[:, e], tel)
-        state = _rebase_order(state)
-        windows.append(stats)
-    return state, _stacked(RegionWindowStats, windows, tel)
+    env = ep is not None
+    base = state[0] if env else state
+    lanes, device = base.key.shape[0], base.ages.device
+    n = topo.n_regions
+    state, windows = _windows(
+        plan, layout, state,
+        lambda: _zeros(RegionWindowStats.zeros(lanes, n, device), tel, n,
+                       lanes, device, env),
+        lambda c, s, x: _region_event(topo, kernel, preempt_on, layout, c, s,
+                                      params, rp, k_cost, x, tel, ep),
+        _rebase_order, env)
+    return state, _stacked(RegionWindowStats, windows, tel, env)

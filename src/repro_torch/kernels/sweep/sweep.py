@@ -18,7 +18,16 @@ With a :class:`~repro_torch.obs.Telemetry` (``tel=``) each wrapper
 launches the kernel's telemetry instantiation instead, from a second
 library built from the same source (``TEL_LIBRARY``), and returns the
 ``(base, telemetry)`` pair; ``tel=None`` launches the instantiation
-without the fold.
+without the fold.  With an environment timeline (``ep=``, from
+:meth:`~repro_torch.core.env.EnvTimeline.params`; the state then an
+``(engine state, EnvState)`` pair) each wrapper launches the kernel's env
+instantiation (``ENV_LIBRARY``, or ``TEL_ENV_LIBRARY`` with both axes) and
+returns the state and the stats in env pairs.  A ``PanicKernel`` repairs
+choices against dead locations, which only the env build holds: a market
+or region run of one without a timeline where a location's rate is 0
+launches that build under the constant timeline and drops its counters;
+with every rate > 0 nothing is ever dead and the build without the env
+state runs.
 """
 from __future__ import annotations
 
@@ -37,12 +46,15 @@ from repro_torch.core.engine import (EngineState, MarketState,
                                      RegionWindowStats, WindowStats,
                                      _engine_layout, _market_layout,
                                      _region_layout)
-from repro_torch.core.market import NoticeAwareKernel, PoolChoiceKernel
+from repro_torch.core.env import EnvState, EnvTimeline, init_env_state
+from repro_torch.core.market import (NoticeAwareKernel, PanicKernel,
+                                     PoolChoiceKernel, peel_panic)
 from repro_torch.core.regions import RoutingKernel
 from repro_torch.core.policies import SingleSlotKernel, ThreePhaseKernel
 from repro_torch.core.waittime import (DeterministicWait, ExponentialWait,
                                        InfiniteWait, TwoPointWait)
 from repro_torch.kernels._build import KernelLibrary, load
+from repro_torch.obs.shocks import EnvWindowStats
 from repro_torch.obs.stats import (Telemetry, TelemetryWindowStats,
                                    bin_constants)
 
@@ -52,6 +64,16 @@ LIBRARY = KernelLibrary("sweep", _SOURCE, ("--fmad=false",))
 #: the same source's telemetry instantiations (``tel=``)
 TEL_LIBRARY = KernelLibrary("sweep_tel", _SOURCE,
                             ("--fmad=false", "-DSWEEP_TELEMETRY"))
+#: ... its environment-timeline instantiations (``ep=``)
+ENV_LIBRARY = KernelLibrary("sweep_env", _SOURCE,
+                            ("--fmad=false", "-DSWEEP_ENV"))
+#: ... and those with both axes
+TEL_ENV_LIBRARY = KernelLibrary(
+    "sweep_tel_env", _SOURCE,
+    ("--fmad=false", "-DSWEEP_TELEMETRY", "-DSWEEP_ENV"))
+#: the four builds, by (telemetry?, env?)
+LIBRARIES = {(False, False): LIBRARY, (True, False): TEL_LIBRARY,
+             (False, True): ENV_LIBRARY, (True, True): TEL_ENV_LIBRARY}
 
 #: slots a lane can hold: 32 threads of 8 slots, or 16 of 16
 MAX_RMAX = 256
@@ -72,11 +94,12 @@ SMALL_GROUP, SLOTS_A_THREAD = 4, 8
 
 
 @functools.cache
-def _library(tel: bool = False) -> ctypes.CDLL:
-    """The kernel library, with the telemetry instantiations or without."""
-    lib = load(TEL_LIBRARY if tel else LIBRARY)
+def _library(tel: bool = False, env: bool = False) -> ctypes.CDLL:
+    """The kernel library of the telemetry and env instantiations or of
+    those without."""
+    lib = load(LIBRARIES[tel, env])
     for fn in (lib.sweep_launch, lib.market_launch, lib.region_launch):
-        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.argtypes = [ctypes.c_void_p] * 9
         fn.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]
     lib.sweep_error_string.restype = ctypes.c_char_p
@@ -128,18 +151,62 @@ def _telemetry_outputs(tel: Telemetry | None, n_locs: int, lanes: int,
     return out, ptrs, icfg, fcfg
 
 
+def _env_outputs(ep: dict | None, es: EnvState | None, n_locs: int,
+                 lanes: int, w: int, device, panic=(0, 0, 0)):
+    """(outputs, pointers, int config) of the environment arguments the
+    kernel reads (``env_args`` in csrc/sweep.cu), or ``(None, None, None)``
+    without the axis.  The outputs are the final EnvState and the stacked
+    ``(lanes, W)`` EnvWindowStats; ``panic`` the PanicKernel flags
+    (admission gate, choice failover, drain)."""
+    if ep is None:
+        return None, None, None
+    f32, i32 = torch.float32, torch.int32
+    s = ep["t_end"].shape[0]
+    for name, x, dtype, shape in (
+            ("t_end", ep["t_end"], f32, (s,)), ("kind", ep["kind"], i32, (s,)),
+            ("price", ep["price"], f32, (s, n_locs)),
+            ("hazard", ep["hazard"], f32, (s, n_locs)),
+            ("avail", ep["avail"], f32, (s, n_locs)),
+            ("next_boundary", es.next_boundary, f32, (lanes,)),
+            ("seg", es.seg, i32, (lanes,))):
+        _check(f"env {name}", x, dtype, shape)
+    if bool(((es.seg < 0) | (es.seg >= s)).any()):
+        raise ValueError(f"sweep kernel: a lane's segment lies outside the "
+                         f"timeline's {s}")
+    es_out = EnvState(next_boundary=torch.empty(lanes, dtype=f32,
+                                                device=device),
+                      seg=torch.empty(lanes, dtype=i32, device=device))
+    istats = torch.empty(8, lanes, w, dtype=i32, device=device)
+    fstats = torch.empty(2, lanes, w, dtype=f32, device=device)
+    ptrs = np.array([x.data_ptr() for x in (
+        ep["t_end"], ep["kind"], ep["price"], ep["hazard"], ep["avail"],
+        es.next_boundary, es.seg, *es_out, istats, fstats)], np.int64)
+    icfg = np.array([s, n_locs, *panic], np.int32)
+    return (es_out, EnvWindowStats(*istats, *fstats)), ptrs, icfg
+
+
+def _with_env(out, stats, env_out, keep: bool = True):
+    """The wrapper's return: ``(state, stats)``, in env pairs where the
+    axis is on (``keep``: the caller passed a timeline)."""
+    if env_out is None or not keep:
+        return out, stats
+    es_out, estats = env_out
+    return (out, es_out), (stats, estats)
+
+
 def _launch(fn_name: str, what: str, tel, ptrs, icfg, fcfg, tel_args,
-            device) -> None:
+            env_args, device) -> None:
     """Launch ``fn_name`` of the library on the current stream; raises on
     an error (never falls back)."""
-    lib = _library(tel is not None)
+    lib = _library(tel is not None, env_args[0] is not None)
     tptrs, ticfg, tfcfg = (None if x is None else x.ctypes.data
                            for x in tel_args)
+    eptrs, eicfg = (None if x is None else x.ctypes.data for x in env_args)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(ptrs.ctypes.data, icfg.ctypes.data,
                                    fcfg.ctypes.data, tptrs, ticfg, tfcfg,
-                                   stream)
+                                   eptrs, eicfg, stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.sweep_error_string(rc).decode()}")
@@ -181,7 +248,9 @@ _WAIT_CODES = {InfiniteWait: (0, ()), TwoPointWait: (1, ("p", "value")),
 
 def _policy(kernel, params: dict, lanes: int, device):
     """(policy code, wait code, pa, pb): the kernel's per-lane params as
-    the two float32 arrays the CUDA kernel reads."""
+    the two float32 arrays the CUDA kernel reads (a ``PanicKernel`` admits
+    as its base)."""
+    kernel = peel_panic(kernel)
     zero = torch.zeros(lanes, dtype=torch.float32, device=device)
     if isinstance(kernel, ThreePhaseKernel):
         return 0, 0, params["r"], zero
@@ -243,7 +312,8 @@ def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
 
 def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
                           params: dict, k_cost: torch.Tensor,
-                          plan: tuple[int, ...], tel: Telemetry | None = None
+                          plan: tuple[int, ...], tel: Telemetry | None = None,
+                          ep: dict | None = None
                           ) -> tuple[EngineState, WindowStats]:
     """Run every lane through the windows of ``plan`` in one kernel launch.
 
@@ -252,10 +322,14 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     per-lane float32 params, ``k_cost`` the per-lane on-demand price.
     A lane runs on :func:`group_size` threads.
     Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` (with
-    ``tel`` a ``(base, telemetry)`` pair).
+    ``tel`` a ``(base, telemetry)`` pair; with ``ep`` the state and the
+    stats in env pairs).
     Raises if the kernel cannot be built or launched; it never falls back.
     """
     layout = _engine_layout(job, spot, kernel)
+    es = None
+    if ep is not None:
+        state, es = state
     lanes, device = state.key.shape[0], state.key.device
     if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
         raise ValueError(f"sweep kernel: need lanes >= 1 and 1 <= rmax <= "
@@ -318,16 +392,17 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     fcfg[:len(job_c)] = job_c
     fcfg[4:4 + len(spot_c)] = spot_c
     tstats, *tel_args = _telemetry_outputs(tel, 1, lanes, w, device)
+    env_out, *env_args = _env_outputs(ep, es, 1, lanes, w, device)
 
     _launch("sweep_launch", "sweep kernel", tel, ptrs, icfg, fcfg, tel_args,
-            device)
+            env_args, device)
     batched_event_windows.launches += 1
     stats = WindowStats(jobs_arrived=istats[0], jobs_completed=istats[1],
                         spot_served=istats[2], ondemand=istats[3],
                         cost_sum=fstats[0], delay_sum=fstats[1],
                         time_elapsed=fstats[2], empty_time=fstats[3],
                         spot_arrivals=istats[4], spot_found_empty=istats[5])
-    return out, stats if tel is None else (stats, tstats)
+    return _with_env(out, stats if tel is None else (stats, tstats), env_out)
 
 
 #: launches of the kernel since the count was last set to 0
@@ -345,7 +420,9 @@ def _market_policy(kernel, params: dict, lanes: int, device):
     """(admit code, wait code, choice code, resume code, pa, pb, ckpt):
     the market kernel's rules and per-lane params as csrc/sweep.cu's
     ``market_kernel`` reads them.  A legacy single-queue kernel joins pool
-    0 (choice 0) and defects on revocation (resume 0)."""
+    0 (choice 0) and defects on revocation (resume 0); a ``PanicKernel``
+    decides as its base (its repairs are :func:`_panic_flags`)."""
+    kernel = peel_panic(kernel)
     zero = torch.zeros(lanes, dtype=torch.float32, device=device)
     if isinstance(kernel, NoticeAwareKernel):
         ckpt = kernel.ckpt(params, zero).expand(lanes).contiguous()
@@ -356,6 +433,35 @@ def _market_policy(kernel, params: dict, lanes: int, device):
         choice, base = _CHOICE_CODES[kernel.choice], kernel.base
     admit, wait, pa, pb = _policy(base, params, lanes, device)
     return admit, wait, choice, 0, pa, pb, zero
+
+
+def _panic_flags(kernel, regions: bool = False) -> tuple[int, int, int]:
+    """PanicKernel's repairs as the kernel's flags: (admission gate on any
+    location alive, failover of the pool choice or the route, drain of
+    jobs queued on a dead pool).  An outer PanicKernel repairs its base's
+    choice (in the regions its route) and gates its admission; one inside a
+    routing kernel gates the admission alone (the route is the rule's); the
+    drain runs in the market only."""
+    if isinstance(kernel, PanicKernel):
+        drain = int(kernel.drain_dead and not regions)
+        return 1, 1, drain
+    if regions and isinstance(kernel, RoutingKernel):
+        inner = _panic_flags(kernel.base, regions)
+        return inner[0], 0, 0
+    return 0, 0, 0
+
+
+def _env_for_panic(ep, es, panic, rates: torch.Tensor, n_locs: int,
+                   lanes: int, device):
+    """``(ep, es, keep)``: a PanicKernel's run without a timeline where a
+    location's rate is 0 runs the env build under the constant timeline
+    (``keep`` False: its counters are dropped).  Where every rate is > 0
+    every location stays alive, every repair is the identity and the build
+    without the env state runs."""
+    if ep is not None or not any(panic) or bool((rates > 0).all()):
+        return ep, es, True
+    ep = EnvTimeline.constant().params(n_locs, device)
+    return ep, init_env_state(ep, lanes), False
 
 
 def _choice_col(kernel, layout, n_pools: int) -> int:
@@ -371,7 +477,7 @@ def _choice_col(kernel, layout, n_pools: int) -> int:
 def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                          state: MarketState, params: dict, mp: dict,
                          k_cost: torch.Tensor, plan: tuple[int, ...],
-                         tel: Telemetry | None = None
+                         tel: Telemetry | None = None, ep: dict | None = None
                          ) -> tuple[MarketState, MarketWindowStats]:
     """Run every market lane through the windows of ``plan`` in one launch.
 
@@ -389,7 +495,14 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     """
     layout = _market_layout(job, market, kernel, preempt_on)
     n_pools = market.n_pools
+    es = None
+    if ep is not None:
+        state, es = state
     lanes, device = state.key.shape[0], state.key.device
+    panic = _panic_flags(kernel)
+    ep, es, keep = _env_for_panic(ep, es, panic, mp["rate"], n_pools, lanes,
+                                  device)
+    kernel = peel_panic(kernel)
     if n_pools > MAX_POOLS:
         raise TooManyPoolsError(f"market kernel: {n_pools} pools exceed "
                                 f"{MAX_POOLS}")
@@ -479,9 +592,11 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                      warps_per_block(lanes, group, sms)]
                     + codes.tolist() + ns.tolist(), np.int32)
     tstats, *tel_args = _telemetry_outputs(tel, n_pools, lanes, w, device)
+    env_out, *env_args = _env_outputs(ep, es, n_pools, lanes, w, device,
+                                      panic)
 
     _launch("market_launch", "market kernel", tel, ptrs, icfg, fcfg,
-            tel_args, device)
+            tel_args, env_args, device)
     market_event_windows.launches += 1
     stats = MarketWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -490,7 +605,8 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
         spot_arrivals=istats[4], spot_found_empty=istats[5],
         resumed=istats[6], spot_cost=fstats[4], pool_served=pstats[0],
         pool_spot_arrivals=pstats[1], pool_preempted=pstats[2])
-    return out, stats if tel is None else (stats, tstats)
+    return _with_env(out, stats if tel is None else (stats, tstats), env_out,
+                     keep)
 
 
 #: launches of the market kernel since the count was last set to 0
@@ -505,7 +621,8 @@ class TooManyRegionsError(ValueError):
 
 def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
                          params: dict, rp: dict, k_cost: torch.Tensor,
-                         plan: tuple[int, ...], tel: Telemetry | None = None
+                         plan: tuple[int, ...], tel: Telemetry | None = None,
+                         ep: dict | None = None
                          ) -> tuple[RegionState, RegionWindowStats]:
     """Run every region lane through the windows of ``plan`` in one launch.
 
@@ -524,7 +641,14 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
     """
     layout = _region_layout(topo, kernel, preempt_on)
     n_regions, n_slots = topo.n_regions, topo.total_slots
+    es = None
+    if ep is not None:
+        state, es = state
     lanes, device = state.key.shape[0], state.key.device
+    panic = _panic_flags(kernel, regions=True)
+    ep, es, keep = _env_for_panic(ep, es, panic, rp["rate"], n_regions,
+                                  lanes, device)
+    kernel = peel_panic(kernel)
     if n_regions > MAX_REGIONS:
         raise TooManyRegionsError(f"region kernel: {n_regions} regions "
                                   f"exceed {MAX_REGIONS}")
@@ -619,9 +743,11 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
                     + spot_ns.tolist(), np.int32)
     fcfg = np.concatenate([job_c.reshape(-1), spot_c.reshape(-1)])
     tstats, *tel_args = _telemetry_outputs(tel, n_regions, lanes, w, device)
+    env_out, *env_args = _env_outputs(ep, es, n_regions, lanes, w, device,
+                                      panic)
 
     _launch("region_launch", "region kernel", tel, ptrs, icfg, fcfg,
-            tel_args, device)
+            tel_args, env_args, device)
     region_event_windows.launches += 1
     stats = RegionWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -632,7 +758,8 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
         region_served=rstats[0], region_spot_arrivals=rstats[1],
         region_preempted=rstats[2], region_jobs=rstats[3],
         region_routed=rstats[4])
-    return out, stats if tel is None else (stats, tstats)
+    return _with_env(out, stats if tel is None else (stats, tstats), env_out,
+                     keep)
 
 
 #: launches of the region kernel since the count was last set to 0

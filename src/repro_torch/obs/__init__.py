@@ -9,10 +9,16 @@ the CPU.  ``telemetry=None`` (the default) leaves every base statistic and
 every kernel launch as it was.
 
 * :mod:`repro_torch.obs.stats` — accumulators and host summaries.
+* :mod:`repro_torch.obs.shocks` — the shock counters of the
+  environment-timeline axis (``env=``): boundaries crossed, storms,
+  blackouts and spikes entered, shock dwell times, degraded admissions.
 * :mod:`repro_torch.obs.trace` — event rings and the Chrome/Perfetto
   exporter.
 * :mod:`repro_torch.obs.timing` — profiler spans.
 """
+from repro_torch.obs.shocks import (ENV_INT_STATS, EnvWindowStats, env_merge,
+                                    env_reduce, env_update, env_zeros,
+                                    summarize_env)
 from repro_torch.obs.stats import (EVENT_TYPES, TEL_INT_STATS, Telemetry,
                                    TelemetryWindowStats, sketch_quantile,
                                    summarize_telemetry, telemetry_merge,
@@ -23,14 +29,21 @@ from repro_torch.obs.trace import (TraceRecorder, device_trace_records,
                                    to_perfetto, write_perfetto)
 
 __all__ = [
+    "ENV_INT_STATS",
     "EVENT_TYPES",
+    "EnvWindowStats",
     "TEL_INT_STATS",
     "Telemetry",
     "TelemetryWindowStats",
     "TraceRecorder",
     "annotate",
     "device_trace_records",
+    "env_merge",
+    "env_reduce",
+    "env_update",
+    "env_zeros",
     "sketch_quantile",
+    "summarize_env",
     "summarize_telemetry",
     "telemetry_merge",
     "telemetry_reduce",

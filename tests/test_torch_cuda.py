@@ -29,7 +29,9 @@ distance between the plain version and its rounding twin
 (``ssd/ref.py::tc_tolerance``).  The sweep kernel with telemetry (the three
 traversals' telemetry instantiations): every field bitwise, floats and
 trace rings included, and the base statistics bitwise the same kernel's
-run without telemetry.
+run without telemetry.  The sweep kernel with the env state (the ENV and
+TEL+ENV builds, under the kernels and under PanicKernel): the final state,
+the stats and the shock counters bitwise.
 """
 import numpy as np
 import pytest
@@ -39,6 +41,7 @@ from _torch_parity import assert_close, attn_tol, cuda_device  # noqa: F401
 import repro_torch.core as T
 from repro_torch import obs
 from repro_torch.core import engine, threefry
+from repro_torch.core.env import init_env_state
 from repro_torch.kernels.decode_attention import (decode_attention_bh,
                                                   decode_attention_bh_ref)
 from repro_torch.kernels.decode_attention import \
@@ -512,6 +515,146 @@ def test_cuda_telemetry_launch_count(cuda_device):
     torch.cuda.synchronize()
     assert region_event_windows.launches == before + 1
     assert ts.ring_t is None and int(ts.events.sum()) == 4 * sum(args[7])
+
+
+def _env_timeline(n: int, t_run: float):
+    """A storm of every location, a blackout of location 0, a price spike
+    of the last, every location dark at once: boundaries inside a run of
+    ``t_run`` hours."""
+    tl = T.inject_storm(T.EnvTimeline.constant(), 0.05 * t_run,
+                        0.20 * t_run, hazard_mult=8.0)
+    tl = T.inject_blackout(tl, 0.25 * t_run, 0.40 * t_run, loc=0, n_locs=n)
+    tl = T.inject_price_spike(tl, 0.45 * t_run, 0.60 * t_run,
+                              price_mult=3.0, loc=n - 1, n_locs=n)
+    return T.inject_blackout(tl, 0.65 * t_run, 0.75 * t_run)
+
+
+def _t_run(stats) -> float:
+    """0.9 × the least time a lane of a run without a timeline covers."""
+    return 0.9 * float(stats.time_elapsed.double().sum(1).min())
+
+
+def _assert_tree_equal(ref, ker, name, path=""):
+    """Every leaf of two nested (state, stats) results bitwise."""
+    if ref is None and ker is None:
+        return
+    if isinstance(ref, tuple):
+        names = getattr(ref, "_fields", None) or range(len(ref))
+        for field, a, b in zip(names, ref, ker):
+            _assert_tree_equal(a, b, name, f"{path}.{field}")
+        return
+    assert torch.equal(ref, ker), f"{name}: {path}"
+
+
+def _panic(kernel, drain=False):
+    return T.PanicKernel(kernel, drain_dead=drain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", [None, TELS[1]], ids=["env", "env_tel"])
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if c[0] != "three_phase_gamma"],
+                         ids=lambda c: c[0])
+def test_cuda_env_single_queue_matches_plain_version(cuda_device, case, tel):
+    """The single queue with the env state (the ENV and TEL+ENV builds):
+    the final state, the stats and the shock counters bitwise the plain
+    version's."""
+    name, job, spot, kernel, rmax, params = case
+    lanes, plan = 13, engine._window_plan(1_500, 512, 128)
+    keys = threefry.split(threefry.key(7, cuda_device), lanes)
+    k = torch.full((lanes,), 10.0, device=cuda_device)
+    p = engine.lane_params(kernel, {
+        n: torch.as_tensor(np.resize(np.float32(v), lanes),
+                           device=cuda_device)
+        for n, v in params.items()}, k)
+    s0 = engine.init_engine_state(keys, job, spot, rmax)
+    _, off = batched_event_windows(job, spot, kernel, rmax, s0, p, k, plan)
+    ep = _env_timeline(1, _t_run(off)).params(1, cuda_device)
+    st = (engine.init_engine_state(keys, job, spot, rmax, ep),
+          init_env_state(ep, lanes))
+    args = (job, spot, kernel, rmax, st, p, k, plan, tel, ep)
+    ref, ker = batched_event_windows_ref(*args), batched_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].boundaries.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", [None, TELS[0]], ids=["env", "env_tel"])
+@pytest.mark.parametrize("panic", [False, True], ids=["base", "panic"])
+@pytest.mark.parametrize("case", [MARKET_CASES[i] for i in (1, 3, 4, 8)],
+                         ids=lambda c: c[0])
+def test_cuda_env_market_matches_plain_version(cuda_device, case, panic,
+                                               tel):
+    """The market with the env state, under its kernel and under
+    PanicKernel with ``drain_dead``: every field bitwise the plain
+    version's."""
+    name, market, kernel, rmax, params = case
+    kernel = _panic(kernel, drain=True) if panic else kernel
+    args, (_, off) = _market_run(cuda_device, market, kernel, rmax, params)
+    n = market.n_pools
+    ep = _env_timeline(n, _t_run(off)).params(n, cuda_device)
+    job, market, kernel, rmax, pre, s0, p, mp, k, plan = args
+    st = (engine.init_market_state(
+        threefry.split(threefry.key(11, cuda_device), s0.key.shape[0]), job,
+        market, rmax, mp, pre, ep), init_env_state(ep, s0.key.shape[0]))
+    args = (job, market, kernel, rmax, pre, st, p, mp, k, plan, tel, ep)
+    ref, ker = market_event_windows_ref(*args), market_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].boundaries.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tel", [None, TELS[1]], ids=["env", "env_tel"])
+@pytest.mark.parametrize("panic", [False, True], ids=["base", "panic"])
+@pytest.mark.parametrize("case", REGION_CASES, ids=lambda c: c[0])
+def test_cuda_env_regions_match_plain_version(cuda_device, case, panic, tel):
+    """The regions with the env state, under their kernel and under
+    PanicKernel (its route fails over): every field bitwise the plain
+    version's."""
+    name, topo, kernel, params = case
+    kernel = _panic(kernel) if panic else kernel
+    args, (_, off) = _region_run(cuda_device, topo, kernel, params)
+    n = topo.n_regions
+    ep = _env_timeline(n, _t_run(off)).params(n, cuda_device)
+    topo, kernel, pre, s0, p, rp, k, plan = args
+    lanes = s0.key.shape[0]
+    st = (engine.init_region_state(
+        threefry.split(threefry.key(11, cuda_device), lanes), topo, rp, pre,
+        ep), init_env_state(ep, lanes))
+    args = (topo, kernel, pre, st, p, rp, k, plan, tel, ep)
+    ref, ker = region_event_windows_ref(*args), region_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].boundaries.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True],
+                         ids=["all_alive", "cheapest_dead"])
+def test_cuda_env_launch_count_and_panic_without_a_timeline(cuda_device,
+                                                             dead):
+    """A PanicKernel run without a timeline launches once.  With every
+    pool's rate > 0 it runs the build without the env state and returns
+    its base's stats bitwise; with the cheapest pool's rate 0 it runs the
+    env build under the constant timeline, bitwise the plain version."""
+    args, (_, base) = _market_run(cuda_device, _HETERO, _NOTICE, 16,
+                                  {"r": [2.0]}, lanes=4)
+    mp = args[7]
+    if dead:
+        mp = {**mp, "rate": mp["rate"].clone()}
+        mp["rate"][:, 3] = 0.0
+    args = (*args[:2], _panic(_NOTICE, True), *args[3:7], mp, *args[8:])
+    before = market_event_windows.launches
+    ker = market_event_windows(*args)
+    torch.cuda.synchronize()
+    assert market_event_windows.launches == before + 1
+    if dead:
+        _assert_tree_equal(market_event_windows_ref(*args), ker,
+                           "panic without a timeline, a dead pool")
+    else:
+        _assert_tree_equal(base, ker[1], "panic without a timeline")
 
 
 def _normals(device, dtype, seed, *shapes):

@@ -56,6 +56,18 @@ assert out["loc_defects"].shape == (2, 2, 2)
 assert out["events"].sum() == 4 * 200
 recs = device_trace_records(out["trace"], out["trace"]["time_windows"])
 assert len(to_perfetto(recs)["traceEvents"]) > len(recs)
+from repro_torch.core import (PanicKernel, inject_blackout, inject_storm,
+                              EnvTimeline)
+tl = inject_blackout(inject_storm(EnvTimeline.constant(), 5.0, 20.0,
+                                  hazard_mult=4.0), 30.0, 60.0, loc=1,
+                     n_locs=2)
+out = run_market_sweep(Exponential(1 / 12), market,
+                       PanicKernel(NoticeAwareKernel(0.05), drain_dead=True),
+                       {{"r": np.array([1.0, 2.5])}}, n_events=200,
+                       n_seeds=2, rmax=8, key=repro_torch.key(0),
+                       device="cpu", env=tl)
+assert out["storms_observed"].shape == (2, 2)
+assert np.isfinite(out["avg_cost_job"]).all()
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)

@@ -577,21 +577,27 @@ def test_unported_options_raise_named_errors():
     kernel = market.NoticeAwareKernel(0.05)
     job = T.Exponential(LAM)
     kw = dict(n_events=100, key=threefry.key(0), device="cpu")
-    for bad in ({"rng": "split"}, {"env": object()}, {"work": object()},
-                {"shard": "lanes"}):
+    for bad in ({"rng": "split"}, {"work": object()}, {"shard": "lanes"}):
         with pytest.raises(NotImplementedError):
             T.run_market_sweep(job, tm, kernel, {"r": 1.0}, **kw, **bad)
-    # telemetry= is ported: a value of another type is refused
+    # telemetry= and env= are ported: a value of another type is refused
     with pytest.raises(TypeError, match="Telemetry"):
         T.run_market_sweep(job, tm, kernel, {"r": 1.0}, **kw,
                            telemetry=object())
+    with pytest.raises(TypeError, match="EnvTimeline"):
+        T.run_market_sweep(job, tm, kernel, {"r": 1.0}, **kw, env=object())
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_market_sweep(T.Gamma(12.0, 1.0), tm, kernel, {"r": 1.0}, **kw)
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_market_sim(job, T.SpotMarket.single(T.Gamma(2.0, 12.0)),
                          kernel, {"r": 1.0}, **kw)
-    with pytest.raises(NotImplementedError, match="PanicKernel"):
-        T.run_market_sim(job, tm, T.PanicKernel(kernel), {"r": 1.0}, **kw)
+    # PanicKernel is ported (env= blacks pools out): without a blackout it
+    # runs as its base; its keyed hook is the split stream's
+    np.testing.assert_equal(
+        T.run_market_sim(job, tm, T.PanicKernel(kernel), {"r": 1.0}, **kw),
+        T.run_market_sim(job, tm, kernel, {"r": 1.0}, **kw))
+    with pytest.raises(NotImplementedError, match="split stream"):
+        T.PanicKernel(kernel).admit_market({}, None, None, None)
     with pytest.raises(NotImplementedError, match="split stream"):
         kernel.admit_market({}, None, None, None)
     with pytest.raises(NotImplementedError, match="split stream"):

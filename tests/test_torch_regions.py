@@ -511,13 +511,14 @@ def test_unported_options_raise_named_errors():
     tt = both_topologies()[1]
     kernel = T.RoutingKernel(T.NoticeAwareKernel(0.05), "least_loaded")
     kw = dict(n_events=100, key=threefry.key(0), device="cpu")
-    for bad in ({"rng": "split"}, {"env": object()}, {"work": object()},
-                {"shard": "lanes"}):
+    for bad in ({"rng": "split"}, {"work": object()}, {"shard": "lanes"}):
         with pytest.raises(NotImplementedError):
             T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, **bad)
-    # telemetry= is ported: a value of another type is refused
+    # telemetry= and env= are ported: a value of another type is refused
     with pytest.raises(TypeError, match="Telemetry"):
         T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, telemetry=object())
+    with pytest.raises(TypeError, match="EnvTimeline"):
+        T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, env=object())
     gamma = T.RegionTopology(regions=(
         tt.regions[0], dataclasses.replace(tt.regions[1],
                                            job=T.Gamma(12.0, 1.0))))
@@ -526,9 +527,13 @@ def test_unported_options_raise_named_errors():
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_region_sim(T.RegionTopology.single(
             T.Exponential(LAM), T.Gamma(2.0, 12.0)), kernel, {"r": 1.0}, **kw)
-    with pytest.raises(NotImplementedError, match="PanicKernel"):
+    # PanicKernel is ported: inside a routing kernel, without a blackout,
+    # it runs as its base
+    np.testing.assert_equal(
         T.run_region_sim(tt, T.RoutingKernel(T.PanicKernel(
-            T.NoticeAwareKernel(0.05))), {"r": 1.0}, **kw)
+            T.NoticeAwareKernel(0.05))), {"r": 1.0}, **kw),
+        T.run_region_sim(tt, T.RoutingKernel(T.NoticeAwareKernel(0.05)),
+                         {"r": 1.0}, **kw))
     with pytest.raises(NotImplementedError, match="split stream"):
         T.RoutingKernel(T.ThreePhaseKernel(), "uniform").route(
             {}, None, None, None)

@@ -442,17 +442,22 @@ def test_entry_points_refuse_what_is_not_ported(name):
     args = entry_args(name)
     with pytest.raises(TypeError, match="Telemetry"):
         fn(*args, {"r": 1.0}, telemetry=R.Telemetry(), **kw)
-    with pytest.raises(NotImplementedError, match="PanicKernel"):
+    # env= is ported: a value of another type is refused
+    with pytest.raises(TypeError, match="EnvTimeline"):
         fn(*args, {"r": 1.0}, env=object(), **kw)
     with pytest.raises(NotImplementedError, match="CantBeLateKernel"):
         fn(*args, {"r": 1.0}, work=object(), **kw)
+    with pytest.raises(NotImplementedError, match="rng='split'"):
+        fn(*args, {"r": 1.0}, rng="split", **kw)
     if name.endswith("sweep"):
         with pytest.raises(NotImplementedError, match="lane sharding"):
             fn(*args, {"r": 1.0}, shard="lanes", **kw)
-    if name not in ("run_sim", "run_sweep"):
-        panic = T.PanicKernel(T.NoticeAwareKernel(0.05))
-        with pytest.raises(NotImplementedError, match="PanicKernel"):
-            fn(*args[:-1], panic, {"r": 1.0}, **kw)
+    # PanicKernel is ported: without a blackout it runs as its base
+    base = (T.ThreePhaseKernel() if name in ("run_sim", "run_sweep")
+            else args[-1])
+    np.testing.assert_equal(
+        fn(*args[:-1], T.PanicKernel(base), {"r": 1.0}, **kw),
+        fn(*args[:-1], base, {"r": 1.0}, **kw))
 
 
 def test_kernel_refuses_a_telemetry_wider_than_it_holds():
