@@ -7,23 +7,24 @@ seconds; the run ends with its total; any failure raises and exits
 nonzero):
 
 1. the card (``nvidia-smi`` name and power limit) and a CUDA device check;
-2. build the nine CUDA kernel libraries from
+2. build the thirteen CUDA kernel libraries from
    ``src/repro_torch/kernels/*/csrc`` (sweep with its three traversals,
-   the single queue, the market and the regions, four times: without the
-   telemetry fold and the environment timeline, with the fold
-   (``sweep_tel``), with the timeline (``sweep_env``) and with both
-   (``sweep_tel_env``); flash attention on the tensor cores and on the
-   CUDA cores, decode attention, SSD on the tensor cores and on the CUDA
-   cores), one ``nvcc`` each, all started together, with ptxas's
-   registers, shared memory and spills (the two tensor-core kernels and
-   the twenty-eight region builds must spill nothing, and ptxas must not
-   serialise flash's wgmma);
+   the single queue, the market and the regions, eight times: with and
+   without each of the telemetry fold (``sweep_tel``), the environment
+   timeline (``sweep_env``) and the work state (``sweep_work``), and
+   their pairs and triple (``sweep_tel_env``, ``sweep_tel_work``,
+   ``sweep_env_work``, ``sweep_tel_env_work``); flash attention on the
+   tensor cores and on the CUDA cores, decode attention, SSD on the tensor
+   cores and on the CUDA cores), one ``nvcc`` each, all started together,
+   with ptxas's registers, shared memory and spills (the two tensor-core
+   kernels and the 112 market and region builds must spill nothing, and
+   ptxas must not serialise flash's wgmma);
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
-   the lane count leaves a ragged block), rmax 8 and 1, 6,000 events with
-   2,048-event windows and a 512-event burn-in, and from a join order a
-   hair below INT32_MAX: integer statistics bitwise, float sums to rtol
+   the lane count leaves a ragged block), rmax 8 and 1, 3,000 events (a
+   512-event burn-in, a 2,048-event window and a tail), and from a join
+   order a hair below INT32_MAX (20 windows of 128 events): integer statistics bitwise, float sums to rtol
    1e-5 (the port's tolerance against the JAX package; see
    tests/test_torch_sweep.py); then the lane-group layouts: rmax 2, 16,
    32, 33, 64, 65 and 256 and a Gamma(12) job (14 slab columns) at rmax 8,
@@ -213,7 +214,7 @@ nonzero):
    ring's exact quantiles, and lane 0's Perfetto trace well-formed;
 21. the sweep kernel's three traversals with the environment timeline
    (``env=``, the ``sweep_env`` and ``sweep_tel_env`` builds) against their
-   plain versions on the card at cut depth (320 events, each timeline
+   plain versions on the card at cut depth (256 events, each timeline
    scaled so that its boundaries land inside: a storm, blackouts of one
    location or of every location in turn, a price spike, every location
    dark at once, a storm that lowers a hazard), on every (G, slots a
@@ -240,13 +241,41 @@ nonzero):
    blackout time within their float32 rounding bound of the segments'
    length, and the ledgers of PERF.md §2; the kernel against its plain
    version with the env state and ``Telemetry()`` on the main-path inputs
-   over 512 events (the timeline scaled into them), every field bitwise.
+   over 512 events (the timeline scaled into them), every field bitwise;
+23. the sweep kernel's three traversals with the work state (``work=``,
+   the four ``*_work`` builds) against their plain versions on the card
+   at cut depth (48 events): each of work alone, with telemetry, with the
+   env timeline and with both, × the three checkpoint modes (never,
+   notice, periodic), on the traversal's (G, slots a thread) layouts in
+   turn, with and without ``CantBeLateKernel``: every field bitwise, the
+   final work state and the survival ledger included; and ``WorkModel()``
+   on each work build, its state and stats bitwise the build's without
+   the work state;
+24. the three main-path fleets at full width with the work state: the
+   kernel under ``WorkModel()`` (base stats bitwise phase 20's off run)
+   and under benchmarks/deadline_bench.py's priced model
+   (``WorkModel.on_notice(0.2, total_work=3, restart_overhead=0.5,
+   deadline=120, od_time=10)``), one timed run each, the on/off ratios
+   against phase 20's off runs; the market again under the priced model
+   with ``CantBeLateKernel`` (buffer 0.2 h: its misses at most its resumes
+   at every lane and fewer than without it; buffer 5.2 h, which covers a
+   resume's drop of slack: no miss at any lane) and under a model without
+   restart overhead (work lost = recomputed at every lane and window);
+   every finished job on time or late, every admission finished or still
+   queued, at every lane; each entry point with the launch count set to 0
+   just before and read just after (one launch), equal to the summary of
+   the kernel's own call; the kernel against its plain version with the
+   priced model and ``Telemetry()`` over 256 events; tests/test_work.py's
+   k80 tournament at one lane through ``run_market_sim``, the base kernel
+   and the safety net each equal to the plain version on every key, no
+   miss under the safety net, its cost below the all-on-demand floor.
 
 The next-to-last line is a JSON object describing the five ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
 with each route's time and launches; the sweep's three traversals as
 three entries, each with its telemetry time, bound, on/off ratio and
-launches, and its env time, bound, on/off ratios and launches); the last
+launches, its env time, bound, on/off ratios and launches, and its work
+time, bound, on/off ratios and launches); the last
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -272,22 +301,26 @@ from repro_torch.core.arrivals import (BathtubGCP, Deterministic,  # noqa: E402
                                        Exponential, Gamma, Uniform)
 from repro_torch.core.clocks import window_slab_keys  # noqa: E402
 from repro_torch.core.cost import theorem1_cost  # noqa: E402
+from repro_torch.core.cost import all_ondemand_cost  # noqa: E402
 from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
                                      RegionWindowStats, WindowStats,
                                      _broadcast_config_params,
+                                     _broadcast_market_params,
                                      _engine_layout, _flat_lane_args,
-                                     _lane_tensors, _market_layout,
+                                     _lane0, _lane_tensors, _market_layout,
                                      _region_layout, _config_tensors,
                                      _window_plan, init_engine_state,
                                      init_market_state, init_region_state,
                                      lane_params, market_lane_params,
-                                     run_market_sweep, run_region_sweep,
+                                     run_market_sim, run_market_sweep,
+                                     run_region_sweep,
                                      run_sweep, summarize, summarize_market,
                                      summarize_region)
 from repro_torch.core.env import (SEG_BLACKOUT, SEG_STORM,  # noqa: E402
                                   EnvTimeline, Regime, init_env_state,
                                   inject_blackout, inject_price_spike,
-                                  inject_storm, markov_timeline)
+                                  inject_storm, markov_timeline,
+                                  timeline_from_trace)
 from repro_torch.core.lp import (market_knapsack_lp,  # noqa: E402
                                  region_knapsack_lp)
 from repro_torch.core.market import (NoticeAwareKernel,  # noqa: E402
@@ -300,6 +333,8 @@ from repro_torch.core.policies import (SingleSlotKernel,  # noqa: E402
 from repro_torch.core.waittime import (DeterministicWait,  # noqa: E402
                                        ExponentialWait, InfiniteWait,
                                        TwoPointWait)
+from repro_torch.core.work import (CantBeLateKernel,  # noqa: E402
+                                   WorkModel, init_work_state)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.sweep import sweep  # noqa: E402
 from repro_torch.kernels.sweep.ref import (  # noqa: E402
@@ -529,7 +564,7 @@ PARITY_CASES = [
 
 def phase_parity() -> float:
     worst = 0.0
-    plan = _window_plan(6_000, 2_048, 512)
+    plan = _window_plan(3_000, 2_048, 512)
     for name, job, spot, kernel, rmax, params, lanes in PARITY_CASES:
         init_job = Exponential(LAM) if isinstance(job, Gamma) else job
         state0, p, k = fleet(init_job, spot, kernel, rmax, params, lanes, 7)
@@ -546,7 +581,7 @@ def phase_parity() -> float:
     # the join order starts a hair below INT32_MAX: without the per-window
     # rebase it would wrap within a few windows
     job = spot = Exponential(1.0)
-    kernel, rmax, plan = ThreePhaseKernel(), 8, _window_plan(4_000, 128, 0)
+    kernel, rmax, plan = ThreePhaseKernel(), 8, _window_plan(2_560, 128, 0)
     state0, p, k = fleet(job, spot, kernel, rmax, {"r": 6.0}, 96, 2)
     high = state0._replace(next_seq=state0.next_seq + (2**31 - 10_000))
     _, ref = batched_event_windows_ref(job, spot, kernel, rmax, high, p, k,
@@ -587,7 +622,7 @@ LAYOUT_CASES = [
 ]
 #: windows of 999 events: no multiple of a draw pass (21, 32 or 4 events
 #: at 3, 2 or 14 columns), after a 250-event burn-in
-LAYOUT_PLAN = _window_plan(2_997, 999, 250)
+LAYOUT_PLAN = _window_plan(1_998, 999, 250)
 LAYOUT_LANES = 45  # no multiple of 32/G for G < 32
 
 
@@ -781,9 +816,10 @@ TEL_PTXAS: dict[str, dict[tuple[int, int], str]] = {}
 def sweep_ptxas(report: str, kernel: str = "sweep_kernel"
                 ) -> dict[tuple[int, int], str]:
     """(G, SPT) -> ptxas's registers and spills line of that instantiation
-    of ``kernel`` (``sweep_kernel<G, SPT, TEL, ENV>``, ``market_kernel`` or
-    ``region_kernel``, mangled ``ILiGELiSPTELbTELELbENVE``; a library holds
-    one TEL and one ENV)."""
+    of ``kernel`` (``sweep_kernel<G, SPT, TEL, ENV, WORK>``,
+    ``market_kernel`` or ``region_kernel``, mangled
+    ``ILiGELiSPTELbTELELbENVELbWORKE``; a library holds one TEL, one ENV
+    and one WORK)."""
     out, key = {}, None
     pattern = re.compile(rf"{kernel}ILi(\d+)ELi(\d+)E")
     for line in report.splitlines():
@@ -820,11 +856,14 @@ def phase_build() -> None:
               flush=True)
         if res.library in builds:
             # one instantiation a (G, slots a thread) the wrapper can pick
-            tel, env = builds[res.library]
+            tel, env, work = builds[res.library]
             tables = {name: sweep_ptxas(res.ptxas, name)
                       for name in ("sweep_kernel", "market_kernel",
                                    "region_kernel")}
-            if env:
+            if work:
+                WORK_PTXAS.update({(tel, env, n): t
+                                   for n, t in tables.items()})
+            elif env:
                 ENV_PTXAS.update({(tel, n): t for n, t in tables.items()})
             elif tel:
                 TEL_PTXAS.update(tables)
@@ -835,14 +874,16 @@ def phase_build() -> None:
             for name, table in tables.items():
                 for key, line in sorted(table.items()):
                     print(f"  {name}<G {key[0]}, SPT {key[1]}, TEL "
-                          f"{str(tel).lower()}, ENV {str(env).lower()}>: "
-                          f"{line}", flush=True)
-            # the region builds must not spill, in any of the four builds
-            for key, line in tables["region_kernel"].items():
-                if not no_spill(line):
-                    raise AssertionError(f"region_kernel<G {key[0]}, SPT "
-                                         f"{key[1]}, TEL {tel}, ENV {env}>: "
-                                         f"{line}")
+                          f"{str(tel).lower()}, ENV {str(env).lower()}, WORK "
+                          f"{str(work).lower()}>: {line}", flush=True)
+            # the market and region builds must not spill, in any of the
+            # eight builds
+            for name in ("market_kernel", "region_kernel"):
+                for key, line in tables[name].items():
+                    if not no_spill(line):
+                        raise AssertionError(
+                            f"{name}<G {key[0]}, SPT {key[1]}, TEL {tel}, "
+                            f"ENV {env}, WORK {work}>: {line}")
             continue
         for line in res.ptxas.splitlines():
             if any(w in line for w in ("Used", "spill", "Compiling",
@@ -870,7 +911,8 @@ def phase_build() -> None:
           f"B, on the CUDA cores {ssd_mod.smem_bytes(SSD_Q)} B (Q {SSD_Q}); "
           f"the sweep's telemetry slice a lane at 64 bins "
           f"{tel_slice_bytes(64, 64)} B (single queue), "
-          f"{tel_slice_bytes(64, 16)} B (market, regions)", flush=True)
+          f"{tel_slice_bytes(64, 16)} B (market, regions); its work slice a "
+          f"lane of 64 slots {4 * (3 * 64 + 1)} B", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2042,7 +2084,7 @@ MARKET_CASES = [
      SpotMarket.single(Uniform(0.0, 48.0), price=0.4, hazard=0.05),
      SingleSlotKernel(wait=ExponentialWait(0.5)), 1, {}, None),
 ]
-MARKET_PLAN = _window_plan(1_000, 512, 128)
+MARKET_PLAN = _window_plan(700, 512, 128)
 MARKET_LANES = 96  # a ragged last block at G 4 (32 lanes a block)
 #: every (G, slots a thread) the wrapper can pick, by rmax
 MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
@@ -2477,7 +2519,7 @@ REGION_CASES = [
 ]
 #: a burn-in, a window and a tail, none a multiple of a draw pass (rows
 #: of 4 to 9 or 16 columns take 16, 12, 10, 9, 8, 7 or 4 events a pass)
-REGION_PLAN = _window_plan(700, 383, 97)
+REGION_PLAN = _window_plan(501, 383, 97)
 REGION_LANES = 94  # no multiple of 32/G: a ragged last warp at every G
 #: total slots whose wrapper picks are every (G, slots a thread) built
 REGION_LAYOUT_SLOTS = (2, 8, 16, 32, 64, 100, 256)
@@ -2892,12 +2934,15 @@ def tel_bytes_moved(lanes: int, plan, tel: Telemetry, n_locs: int) -> int:
 
 
 def tel_bound_ms(loop: str, lanes: int, plan, tel: Telemetry | None,
-                 rmax: int = 64, env: bool = False) -> tuple[float, str]:
+                 rmax: int = 64, env: bool = False, work: bool = False,
+                 safety: bool = False) -> tuple[float, str]:
     """:func:`bound_ms` of a main-path fleet's traversal (``loop``: single,
     market or region), with the fold's operations and bytes where ``tel``
-    is given, and the env state's (:func:`env_ops_per_lane_event`; the
-    cursor read and written, ten shock sums a window written) with
-    ``env``."""
+    is given, the env state's (:func:`env_ops_per_lane_event`; the cursor
+    read and written, ten shock sums a window written) with ``env``, and
+    the work state's (:func:`work_ops_per_lane_event`, with the safety net
+    where ``safety``; four floats a slot read and written, ten ledger sums
+    a window written) with ``work``."""
     w = len(plan)
     if loop == "single":
         n_cols = _engine_layout(JOB, SPOT, ThreePhaseKernel()).n_cols
@@ -2923,6 +2968,10 @@ def tel_bound_ms(loop: str, lanes: int, plan, tel: Telemetry | None,
         ops = tuple(a + b for a, b in zip(ops, env_ops_per_lane_event(
             loop, n_locs, slots)))
         n_bytes += lanes * (2 * 8 + w * 10 * 4)
+    if work:
+        ops = tuple(a + b for a, b in zip(ops, work_ops_per_lane_event(
+            loop, slots, safety)))
+        n_bytes += lanes * (2 * 4 * 4 * slots + w * 10 * 4)
     return bound_ms(lanes, plan, ops, n_bytes)
 
 
@@ -2985,13 +3034,13 @@ def tel_line(tel: Telemetry, ts) -> str:
 def phase_telemetry_parity() -> None:
     """Each traversal with telemetry against its plain version on the card,
     on a named subset of its parity configurations at their depths: the
-    single queue's three_phase (rmax 8) and single_slot (3,000 events,
-    2,048-event windows after 512), the market's heterogeneous_notice and
+    single queue's three_phase (rmax 8) and single_slot (2,000 events,
+    1,024-event windows after 512), the market's heterogeneous_notice and
     eight_pools_mixed (MARKET_PLAN), the regions' least_loaded and
     eight_regions (REGION_PLAN), each with one of the two telemetries:
     every field bitwise, and the base stats bitwise the kernel's own run
     without telemetry."""
-    plan = _window_plan(3_000, 2_048, 512)
+    plan = _window_plan(2_000, 1_024, 512)
     for (name, job, spot, kernel, rmax, params, lanes), tel in (
             (PARITY_CASES[0], TEL_RING), (PARITY_CASES[2], TEL_NARROW)):
         state0, p, k = fleet(job, spot, kernel, rmax, params, lanes, 7)
@@ -3295,9 +3344,8 @@ def phase_telemetry_main_path(entries: dict[str, dict]) -> dict:
 # ---------------------------------------------------------------------------
 #: ptxas's report of each env instantiation, by (telemetry?, kernel name)
 ENV_PTXAS: dict[tuple[bool, str], dict[tuple[int, int], str]] = {}
-#: the parity phase's plan: a burn-in, two windows and a tail (320 events,
-#: no window a multiple of a draw pass)
-ENV_PLAN = _window_plan(256, 100, 64)
+#: the parity phase's plan: a burn-in, two windows and a tail (256 events)
+ENV_PLAN = _window_plan(206, 75, 50)
 ENV_LANES = 70  # a ragged last warp at every G
 #: every (G, slots a thread) pick, by rmax (the region topologies' totals)
 ENV_LAYOUT_RMAX = (4, 8, 16, 32, 64, 128, 256)
@@ -3384,7 +3432,7 @@ def env_region_topology(slots: int) -> RegionTopology:
 
 def phase_env_parity() -> None:
     """Each traversal with the env state against its plain version on the
-    card, at cut depth (ENV_PLAN, 320 events; the timelines scaled so that
+    card, at cut depth (ENV_PLAN, 256 events; the timelines scaled so that
     their boundaries land inside): every (G, slots a thread) the wrapper
     can pick, the blackout of every location, PanicKernel on and off, its
     drain, a kernel without PanicKernel under it, and env with telemetry
@@ -3810,6 +3858,487 @@ def phase_env_main_path(entries: dict[str, dict], offs: dict) -> None:
               f"bitwise", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the work structure: the three traversals with the work state
+# (sweep.WORK_LIBRARY, and its telemetry and env twins)
+# ---------------------------------------------------------------------------
+#: ptxas's report of each work instantiation, by (telemetry?, env?, kernel
+#: name)
+WORK_PTXAS: dict[tuple[bool, bool, str], dict[tuple[int, int], str]] = {}
+#: the parity phase's plan: a burn-in, two windows and a tail (48 events,
+#: no window a multiple of a draw pass)
+WORK_PLAN = _window_plan(37, 15, 11)
+#: the depth at which the work state with telemetry is held to, and timed
+#: beside, its plain version on the main-path inputs
+WORK_CUT_PLAN = (256,)
+WORK_LANES = 70  # a ragged last warp at every G
+#: a model of each checkpoint mode whose every ledger column moves within
+#: WORK_PLAN at unit rates: three units a job, priced restarts, a deadline
+#: a few services long
+WORK_PARITY = {
+    mode: make(total_work=3.0, restart_overhead=0.5, deadline=8.0,
+               od_time=1.0)
+    for mode, make in (
+        ("never", WorkModel.never),
+        ("notice", functools.partial(WorkModel.on_notice, 0.05)),
+        ("periodic", functools.partial(WorkModel.periodic, 1.0, 0.25)))}
+#: the axes each work configuration runs with: (telemetry, env?)
+WORK_AXES = ((None, False), (TEL_RING, False), (None, True),
+             (TEL_NARROW, True))
+#: benchmarks/deadline_bench.py::_priced(): the main path's work model
+WORK_PRICED = WorkModel.on_notice(0.2, total_work=3.0, restart_overhead=0.5,
+                                  deadline=120.0, od_time=10.0)
+#: ... without restart overhead or checkpoints: work lost = recomputed
+WORK_FREE = WorkModel.never(total_work=3.0, deadline=120.0, od_time=10.0)
+#: the main path's safety net over the market main path's kernel, with the
+#: 0.2 h buffer of benchmarks/deadline_bench.py's tournament, and with one
+#: that covers the largest drop of slack a resume can make there (the
+#: restart overhead × od_time = 5 h: the cheapest pool's 2 h notice always
+#: fits the 0.2 h checkpoint, so no progress is lost)
+WORK_NET_KERNEL = CantBeLateKernel(MARKET_KERNEL, slack_buffer=0.2)
+WORK_COVER_KERNEL = CantBeLateKernel(MARKET_KERNEL, slack_buffer=5.2)
+#: tests/test_work.py's tournament on the committed k80 trace
+K80_TRACE = ROOT / "tests" / "data" / "spot_trace_k80.json"
+K80_WORK = WorkModel.on_notice(0.05, total_work=1.0, restart_overhead=0.2,
+                               deadline=2.5, od_time=0.5)
+K80_KERNEL = NoticeAwareKernel(checkpoint_time=0.05)
+
+
+def work_counts(ws) -> str:
+    """What a run's survival ledger saw, for the phase's lines."""
+    s = {f: int(getattr(ws, f).sum()) for f in (
+        "admitted", "finished", "misses", "checkpoints", "panics")}
+    return (", ".join(f"{k} {v}" for k, v in s.items())
+            + f", work lost {float(ws.work_lost.double().sum()):g}")
+
+
+def work_state0(state, n_slots: int):
+    """The carry paired (outermost) with every lane's zero work state."""
+    base = state if hasattr(state, "key") else state[0]
+    return state, init_work_state(n_slots, base.key.shape[0], DEVICE)
+
+
+def work_parity_single(rmax: int, env: bool, i: int):
+    """(kernel fn, plain fn, head given a kernel, state, tail, slots, the
+    configuration's kernel, ep) of a single-queue work configuration."""
+    job, spot, kernel = Exponential(1.0), Exponential(0.8), ThreePhaseKernel()
+    state0, p, k = fleet(job, spot, kernel, rmax,
+                         {"r": np.linspace(0.5, 6.0, WORK_LANES)},
+                         WORK_LANES, 5 + i)
+    st, ep = state0, None
+    if env:
+        t_run = env_t_run(lambda: sweep.batched_event_windows(
+            job, spot, kernel, rmax, state0, p, k, WORK_PLAN))
+        keys = threefry.split(threefry.key(5 + i, DEVICE), WORK_LANES)
+        st, ep = with_env(state0, env_parity_timeline(1, t_run), 1,
+                          lambda ep: init_engine_state(keys, job, spot, rmax,
+                                                       ep))
+    return (sweep.batched_event_windows, batched_event_windows_ref,
+            lambda kern: (job, spot, kern, rmax), st, (p, k), rmax, kernel,
+            ep)
+
+
+def work_parity_market(rmax: int, env: bool, i: int):
+    """:func:`work_parity_single`'s tuple for a market configuration: 2-4
+    pools of unit-scale rates, hazards 0.15-0.25, notices 0 and 0.3 (the
+    notice-mode checkpoint fits every other pool); under the env timeline
+    every pool blacked out in turn and PanicKernel's drain on."""
+    n = 2 + i % 3
+    job = Exponential(1.0)
+    market = spot_market(tuple(0.9 - 0.1 * j for j in range(n)),
+                         tuple(0.15 + 0.05 * (j % 3) for j in range(n)),
+                         tuple(0.3 * (j % 2) for j in range(n)),
+                         [Exponential(0.8 / n)] * n)
+    kernel = NoticeAwareKernel(0.05, "cheapest" if i % 2 else
+                               "least_loaded")
+    if env:
+        kernel = PanicKernel(kernel, drain_dead=True)
+    keys, p, k, mp = lane_inputs(market.params(),
+                                 {"r": np.linspace(0.5, 6.0, WORK_LANES)},
+                                 WORK_LANES, 6 + i)
+    state0 = init_market_state(keys, job, market, rmax, mp, True)
+    p = market_lane_params(kernel, p, k)
+    st, ep = state0, None
+    if env:
+        t_run = env_t_run(lambda: sweep.market_event_windows(
+            job, market, kernel, rmax, True, state0, p, mp, k, WORK_PLAN))
+        st, ep = with_env(state0, env_parity_timeline(n, t_run, True), n,
+                          lambda ep: init_market_state(keys, job, market,
+                                                       rmax, mp, True, ep))
+    return (sweep.market_event_windows, market_event_windows_ref,
+            lambda kern: (job, market, kern, rmax, True), st, (p, mp, k),
+            rmax, kernel, ep)
+
+
+def work_parity_region(slots: int, env: bool, i: int):
+    """:func:`work_parity_single`'s tuple for a region configuration: three
+    regions of a ragged partition under least_loaded routing; under the
+    env timeline every region blacked out in turn and PanicKernel's route
+    failover on."""
+    topo = env_region_topology(slots)
+    kernel = RoutingKernel(NoticeAwareKernel(checkpoint_time=0.05),
+                           "least_loaded")
+    if env:
+        kernel = PanicKernel(kernel)
+    topo, _, pre, state0, p, rp, k = region_fleet(
+        topo, kernel, {"r": np.linspace(0.5, 6.0, WORK_LANES)}, WORK_LANES,
+        8 + i)
+    st, ep = state0, None
+    if env:
+        t_run = env_t_run(lambda: sweep.region_event_windows(
+            topo, kernel, pre, state0, p, rp, k, WORK_PLAN))
+        keys = threefry.split(threefry.key(8 + i, DEVICE), WORK_LANES)
+        st, ep = with_env(state0, env_parity_timeline(topo.n_regions, t_run,
+                                                      True),
+                          topo.n_regions, lambda ep: init_region_state(
+                              keys, topo, rp, pre, ep))
+    return (sweep.region_event_windows, region_event_windows_ref,
+            lambda kern: (topo, kern, pre), st, (p, rp, k), slots, kernel,
+            ep)
+
+
+def phase_work_parity() -> None:
+    """Each traversal with the work state against its plain version on the
+    card, at cut depth (WORK_PLAN, 48 events): each of the four axes
+    (work alone, with telemetry, with the env timeline, with both) × the
+    three checkpoint modes, on the traversal's (G, slots a thread) layouts
+    in turn, with and without ``CantBeLateKernel``: every field bitwise,
+    floats, the final work state and the survival ledger included.  And
+    ``WorkModel()`` on the work builds: the state and the stats bitwise the
+    build's without the work state, on each axis of each traversal."""
+    for loop, build in (("single", work_parity_single),
+                        ("market", work_parity_market),
+                        ("region", work_parity_region)):
+        seen = {"misses": 0, "panics": 0, "checkpoints": 0, "lost": 0.0}
+        cases = [(a, m) for a in WORK_AXES for m in WORK_PARITY]
+        for i, ((tel, env), mode) in enumerate(cases):
+            rmax = ENV_LAYOUT_RMAX[i % len(ENV_LAYOUT_RMAX)]
+            fn, plain, head, st, tail, slots, kernel, ep = build(rmax, env, i)
+            work = WORK_PARITY[mode]
+            for net in (False, True):
+                kern = CantBeLateKernel(kernel, 0.2) if net else kernel
+                args = (*head(kern), work_state0(st, slots), *tail,
+                        WORK_PLAN, tel, ep, work, work.params(DEVICE))
+                ref = plain(*args)
+                ker = fn(*args)
+                torch.cuda.synchronize()
+                g, spt = picked_layout(slots)
+                what = (f"work {loop} {mode}{' + telemetry' if tel else ''}"
+                        f"{' + env' if env else ''}"
+                        f"{' + CantBeLateKernel' if net else ''}, "
+                        f"{'rmax' if loop != 'region' else 'slots'} {slots} "
+                        f"(G {g}, {spt} slots a thread)")
+                hold_all(what, ref, ker)
+                ws = ker[1][1]
+                seen["misses"] += int(ws.misses.sum()) if not net else 0
+                seen["panics"] += int(ws.panics.sum())
+                seen["checkpoints"] += int(ws.checkpoints.sum())
+                seen["lost"] += float(ws.work_lost.double().sum())
+                print(f"{what}, {WORK_LANES} lanes, plan {WORK_PLAN}: "
+                      f"{work_counts(ws)}; every field bitwise", flush=True)
+            if mode != "never":
+                continue
+            # the identity model on the work build: the build without it
+            args = (*head(kernel), st, *tail, WORK_PLAN, tel, ep)
+            fin_off, off = fn(*args)
+            identity = WorkModel()
+            fin_id, on = fn(*head(kernel), work_state0(st, slots), *tail,
+                            WORK_PLAN, tel, ep, identity,
+                            identity.params(DEVICE))
+            torch.cuda.synchronize()
+            hold_all(f"work {loop} identity model", (fin_off, off),
+                     (fin_id[0], on[0]))
+            print(f"work {loop} WorkModel(){' + telemetry' if tel else ''}"
+                  f"{' + env' if env else ''}: state and stats bitwise the "
+                  f"build without the work state", flush=True)
+        need = ("panics", "checkpoints") + (
+            ("misses",) if loop == "single" else ("misses", "lost"))
+        if not all(seen[n] > 0 for n in need):
+            raise AssertionError(f"work {loop}: the parity runs left a "
+                                 f"ledger column still: {seen}")
+
+
+def work_ops_per_lane_event(loop: str, slots: int,
+                            safety: bool) -> tuple[int, int]:
+    """(INT32, FP32) operations the work state adds to a lane-event,
+    counted from csrc/sweep.cu's work code.  Every loop: the serve's slot
+    (3 shared loads and their address, 4 INT32) and its arithmetic
+    (remainder, debt, spill, progress, work done, completion, the periodic
+    test: 13 FP32), the defector's remainder (2 FP32), the writes of the
+    served and joining slots (2 INT32 addresses), the ledger's miss tests
+    (3 products and sums, 4 compares: 10 FP32; 8 INT32 masks) and its
+    counters (6 INT32, 5 FP32 adds).  The market and regions: each slot's
+    life (1 FP32 add, 1 select at a join), its three one-hot reads at the
+    defecting, serving and revoked slot (3 INT32 compares, 3 FP32 selects
+    a slot), and the rollback (the revoked slot's 3 loads and its
+    address, the notice bit, the checkpoint, loss and overhead: 4 INT32,
+    6 FP32).  With the safety net: each slot's panic clock (2 loads, 8
+    FP32: difference, clamp, sum, product, three differences, clamp), its
+    race with the budget (2 FP32) and its bit (2 INT32), and the
+    defector's bit (2 INT32)."""
+    n_int, n_fp = 4 + 2 + 8 + 6, 13 + 2 + 10 + 5
+    if loop != "single":
+        n_int += 3 * slots + 4
+        n_fp += 5 * slots + 6
+    if safety:
+        n_int += 4 * slots + 2
+        n_fp += 10 * slots
+    return n_int, n_fp
+
+
+def work_fleets():
+    """The three main-path fleets with the work state: (name, loop, the
+    kernel's call given a work model and a kernel (None: the main path's),
+    the entry point's call given the same, the launch counter's owner, the
+    summary function, the final queue length of a final state)."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    key = threefry.key(MAIN_SEED)
+    kw = dict(k=K_GRID[None, :], n_events=N_EVENTS, key=key,
+              n_seeds=N_SEEDS, burn_in=BURN_IN)
+    _, kernel, params, rmax = MAIN_PATHS[0]
+    state0, p, k = main_inputs(kernel, params, rmax)
+    margs = market_main_inputs()
+    rargs = region_main_inputs()
+    slots = BENCH_TOPOLOGY.total_slots
+    return plan, [
+        ("three_phase", "single",
+         lambda work, kern=None: sweep.batched_event_windows(
+             JOB, SPOT, kern or kernel, rmax, work_state0(state0, rmax), p, k,
+             plan, None, None, work, work.params(DEVICE)),
+         lambda work, kern=None: run_sweep(
+             JOB, SPOT, kern or kernel, params, rmax=rmax, work=work, **kw),
+         sweep.batched_event_windows, summarize, lambda s: s.qlen),
+        ("market", "market",
+         lambda work, kern=None: sweep.market_event_windows(
+             *margs[:2], kern or margs[2], *margs[3:5],
+             work_state0(margs[5], 64), *margs[6:], plan, None, None, work,
+             work.params(DEVICE)),
+         lambda work, kern=None: run_market_sweep(
+             JOB, BENCH_MARKET, kern or MARKET_KERNEL,
+             {"r": R_GRID[:, None]}, rmax=64, work=work, **kw),
+         sweep.market_event_windows, summarize_market, lambda s: s.qlen),
+        ("region", "region",
+         lambda work, kern=None: sweep.region_event_windows(
+             rargs[0], kern or rargs[1], rargs[2],
+             work_state0(rargs[3], slots), *rargs[4:], plan, None, None,
+             work, work.params(DEVICE)),
+         lambda work, kern=None: run_region_sweep(
+             BENCH_TOPOLOGY, kern or REGION_KERNEL, {"r": R_GRID[:, None]},
+             work=work, **kw),
+         sweep.region_event_windows, summarize_region,
+         lambda s: s.qlen.sum(1))]
+
+
+def work_ledgers(fin, stats, queue) -> dict[str, bool]:
+    """The survival identities at every lane and window of a kernel's own
+    run (cold start, burn-in included): every finished job on time or
+    late, and every admission finished or still queued."""
+    ws = stats[1]
+    admitted = ws.admitted.long().sum(1)
+    finished = ws.finished.long().sum(1)
+    return {
+        "ontime + misses = finished": bool(torch.equal(
+            ws.ontime + ws.misses, ws.finished)),
+        "admitted - finished = final queue": bool(torch.equal(
+            admitted - finished, queue(fin[0]).long()))}
+
+
+def k80_tournament(kernel, plain: bool = False) -> dict:
+    """tests/test_work.py's tournament on the card at one lane, through
+    ``run_market_sim`` (the kernel) or, with ``plain``, the market's plain
+    version on the same inputs on the card."""
+    d = json.loads(K80_TRACE.read_text())
+    tl = timeline_from_trace(d["times"], d["avail"])
+    market = SpotMarket(pools=tuple(
+        SpotPool(Exponential(r), price=q["price"], hazard=q["hazard"],
+                 notice=q["notice"]) for r, q in zip((0.8, 0.6), d["pools"])))
+    job, key = Exponential(1.2), threefry.key(7)
+    run = dict(n_events=2_500, burn_in=0, chunk_events=1_024)
+    if not plain:
+        return run_market_sim(job, market, kernel, {"r": 2.0}, k=5.0,
+                              key=key, env=tl, work=K80_WORK, **run)
+    mp = _config_tensors(_broadcast_market_params(market, {}, ()), DEVICE)
+    ep = tl.params(market.n_pools, DEVICE)
+    state = init_market_state(key.to(DEVICE)[None], job, market, 64, mp,
+                              market.preemptible, ep)
+    state = work_state0((state, init_env_state(ep, 1)), 64)
+    k = torch.full((1,), np.float32(5.0), device=DEVICE)
+    p = market_lane_params(kernel, {"r": torch.tensor([2.0],
+                                                      device=DEVICE)}, k)
+    _, stats = market_event_windows_ref(
+        job, market, kernel, 64, market.preemptible, state, p, mp, k,
+        _window_plan(2_500, 1_024, 0), None, ep, K80_WORK,
+        K80_WORK.params(DEVICE))
+    out = summarize_market(_lane0(stats, None, True, True), None, tl,
+                           K80_WORK)
+    return {n: float(v) if np.ndim(v) == 0 else v for n, v in out.items()}
+
+
+def phase_work_main_path(entries: dict[str, dict], offs: dict) -> None:
+    """The three main-path fleets at full width with the work state: the
+    kernel under ``WorkModel()`` (its base stats bitwise the off run of
+    :func:`phase_telemetry_main_path`, in ``offs``) and under the priced
+    model (benchmarks/deadline_bench.py), one timed run each, their on/off
+    ratios against the off runs; the market again under the priced model
+    with the safety net (``CantBeLateKernel``, buffer 0.2 h: its misses at
+    most its resumes at every lane, fewer than the base kernel's; buffer
+    5.2 h, which covers a resume's drop of slack: no miss at any lane) and
+    under the model without restart overhead (work lost = recomputed at
+    every lane and window); the survival identities at every lane; each
+    entry point under the priced model with the launch count set to 0 just
+    before and read just after (one launch), equal to the summary of the
+    kernel's own call; the kernel against its plain version with the
+    priced model and ``Telemetry()`` on the main-path inputs over
+    WORK_CUT_PLAN; then tests/test_work.py's k80 tournament at one lane,
+    the kernel against its plain version for the base kernel and the
+    safety net: every key equal, no miss under the safety net, and its
+    cost below the all-on-demand floor."""
+    plan, fleets = work_fleets()
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    for name, loop, kernel_call, entry_call, owner, summary, queue in fleets:
+        entry = entries[loop]
+        off, off_ms, _ = offs[name]
+        id_ms, (_, id_stats) = cuda_ms(lambda: kernel_call(WorkModel()))
+        hold_base(f"{name} identity model", off, id_stats[0],
+                  "base, work off vs the identity model")
+        ms, (fin, stats) = cuda_ms(lambda: kernel_call(WORK_PRICED))
+        checks = work_ledgers(fin, stats, queue)
+        b_ms, b_by = tel_bound_ms(loop, lanes, plan, None, work=True)
+        entry.update({
+            "work_ms": ms, "work_off_ms": off_ms, "work_ratio": ms / off_ms,
+            "work_identity_ms": id_ms, "work_identity_ratio": id_ms / off_ms,
+            "work_bound_ms": b_ms, "work_bound_by": b_by})
+        extra = ""
+        if loop == "market":
+            net_ms, (fin_n, net) = cuda_ms(
+                lambda: kernel_call(WORK_PRICED, WORK_NET_KERNEL))
+            checks.update({f"safety net: {k}": v for k, v in
+                           work_ledgers(fin_n, net, queue).items()})
+            misses = net[1].misses.long().sum(1)
+            resumed = net[0].resumed.long().sum(1)
+            checks["safety net: misses <= resumes"] = bool(
+                (misses <= resumed).all())
+            checks["safety net: fewer misses than without"] = int(
+                misses.sum()) < int(stats[1].misses.long().sum())
+            _, cover = kernel_call(WORK_PRICED, WORK_COVER_KERNEL)
+            checks["covering buffer: no miss"] = int(
+                cover[1].misses.sum()) == 0
+            _, free = kernel_call(WORK_FREE)
+            checks["no overhead: lost = recomputed"] = bool(torch.equal(
+                free[1].work_lost, free[1].work_recomputed)) and float(
+                    free[1].work_lost.double().sum()) > 0
+            nb_ms, _ = tel_bound_ms(loop, lanes, plan, None, work=True,
+                                    safety=True)
+            entry.update({"work_net_ms": net_ms,
+                          "work_net_ratio": net_ms / off_ms,
+                          "work_net_bound_ms": nb_ms})
+            extra = (f"; safety net (buffer 0.2 h) {net_ms:.1f} ms = "
+                     f"{net_ms / off_ms:.4f} of off (bound {nb_ms:.1f} ms), "
+                     f"{work_counts(net[1])}; buffer 5.2 h: "
+                     f"{work_counts(cover[1])}; no overhead: "
+                     f"{work_counts(free[1])}")
+        print(f"work main-size kernel {name}: {lanes} lanes × {sum(plan)} "
+              f"events, off {off_ms:.1f} ms (the telemetry phase's), "
+              f"WorkModel() {id_ms:.1f} ms = {id_ms / off_ms:.4f} of off "
+              f"(base stats bitwise the off run), priced {ms:.1f} ms = "
+              f"{ms / off_ms:.4f} of off (bound with the work state "
+              f"{b_ms:.1f} ms, {b_by}: {100 * b_ms / ms:.1f}%), "
+              f"{work_counts(stats[1])}{extra}", flush=True)
+
+        owner.launches = 0
+        t0 = time.perf_counter()
+        out = entry_call(WORK_PRICED)
+        wall = time.perf_counter() - t0
+        launches = owner.launches
+        entry["work_launches"] = entry.get("work_launches", 0) + launches
+        if launches != 1:
+            raise AssertionError(f"work {name}: the entry point launched the "
+                                 f"kernel {launches} times")
+        base, ws = stats
+        want = summary((type(base)(*(x[:, 1:] for x in base)),
+                        type(ws)(*(x[:, 1:] for x in ws))), None, None,
+                       WORK_PRICED)
+        for field, v in want.items():
+            if not np.array_equal(out[field], np.reshape(
+                    v, np.shape(out[field]))):
+                raise AssertionError(f"work {name}: {field} differs from the "
+                                     f"kernel's own call")
+        checks["entry point: ontime + misses = finished"] = np.array_equal(
+            out["jobs_ontime"] + out["deadline_misses"], out["jobs_finished"])
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"work {name}: {what} fails")
+        print(f"work main path {name}: entry point {wall:.3f} s wall, kernel "
+              f"launches {launches}, equal to the kernel's own call; "
+              f"{', '.join(checks)} at every lane", flush=True)
+
+    # WORK_CUT_PLAN: kernel and plain version with the priced model and
+    # Telemetry() on the main-path inputs
+    _, kernel, params, rmax = MAIN_PATHS[0]
+    state0, p, k = main_inputs(kernel, params, rmax)
+    margs = market_main_inputs()
+    rargs = region_main_inputs()
+    slots = BENCH_TOPOLOGY.total_slots
+    wk = WORK_PRICED.params(DEVICE)
+    for loop, fn, plain, args in (
+            ("single", sweep.batched_event_windows, batched_event_windows_ref,
+             (JOB, SPOT, kernel, rmax, work_state0(state0, rmax), p, k)),
+            ("market", sweep.market_event_windows, market_event_windows_ref,
+             (*margs[:5], work_state0(margs[5], 64), *margs[6:])),
+            ("region", sweep.region_event_windows, region_event_windows_ref,
+             (*rargs[:3], work_state0(rargs[3], slots), *rargs[4:]))):
+        call = (*args, WORK_CUT_PLAN, TEL_MAIN, None, WORK_PRICED, wk)
+        fn(*call)  # warm-up
+        cut_ms, ker = cuda_ms(lambda: fn(*call), 3)
+        plain_ms, ref = cuda_ms(lambda: plain(*call))
+        hold_all(f"work {loop} cut depth", ref, ker)
+        b_ms, _ = tel_bound_ms(loop, lanes, WORK_CUT_PLAN, TEL_MAIN,
+                               work=True)
+        entries[loop].update(work_cut_ms=cut_ms, work_cut_bound_ms=b_ms,
+                             work_plain_ms=plain_ms)
+        print(f"work cut depth {loop}: {lanes} lanes, plan {WORK_CUT_PLAN}, "
+              f"the priced model and Telemetry(): kernel {cut_ms:.3f} ms "
+              f"(bound {b_ms:.4f} ms), plain {plain_ms:.1f} ms; "
+              f"{work_counts(ker[1][1])}; every field bitwise", flush=True)
+
+    results = {}
+    for label, kern in (("base", K80_KERNEL),
+                        ("safety net", CantBeLateKernel(K80_KERNEL,
+                                                        slack_buffer=0.2))):
+        sweep.market_event_windows.launches = 0
+        got = k80_tournament(kern)
+        if sweep.market_event_windows.launches != 1:
+            raise AssertionError("k80: run_market_sim did not launch the "
+                                 "market kernel once")
+        ref = k80_tournament(kern, plain=True)
+        for field, v in ref.items():
+            if not np.array_equal(np.asarray(got[field]), np.asarray(v)):
+                raise AssertionError(f"k80 {label}: {field} kernel "
+                                     f"{got[field]} vs plain {v}")
+        results[label] = got
+    base, safe = results["base"], results["safety net"]
+    floor = all_ondemand_cost(5.0, 1)
+    if not (base["deadline_misses"] > 0 and safe["deadline_misses"] == 0
+            and safe["panic_entries"] > 0 and safe["avg_cost"] < floor):
+        raise AssertionError(f"k80: base {base['deadline_misses']} misses, "
+                             f"safety net {safe['deadline_misses']} misses, "
+                             f"{safe['panic_entries']} panics, avg_cost "
+                             f"{safe['avg_cost']} (floor {floor})")
+    entries["market"].update(k80_base_misses=int(base["deadline_misses"]),
+                             k80_net_misses=int(safe["deadline_misses"]),
+                             k80_net_panics=int(safe["panic_entries"]),
+                             k80_net_avg_cost=safe["avg_cost"])
+    print(f"work k80 tournament (one lane, 2,500 events, the committed "
+          f"trace): base kernel {int(base['deadline_misses'])} misses of "
+          f"{int(base['jobs_finished'])} finished, avg_cost "
+          f"{base['avg_cost']:.6g}; safety net "
+          f"{int(safe['deadline_misses'])} misses of "
+          f"{int(safe['jobs_finished'])}, {int(safe['panic_entries'])} "
+          f"panic entries, avg_cost {safe['avg_cost']:.6g} (all-on-demand "
+          f"floor {floor}); kernel and plain version equal on every key",
+          flush=True)
+
+
 #: (phase, wall seconds) of this run, in order
 PHASE_SECONDS: list[tuple[str, float]] = []
 
@@ -3912,6 +4441,9 @@ def main() -> int:
 
     timed(phase_env_parity)
     timed(phase_env_main_path, main_entries, offs)
+
+    timed(phase_work_parity)
+    timed(phase_work_main_path, main_entries, offs)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, "
           f"{sum(s for _, s in PHASE_SECONDS):.1f} s in its "

@@ -26,7 +26,12 @@ The single-queue slice of :mod:`repro.core`:
                            ``telemetry=Telemetry(...)`` on all of them adds
                            the :mod:`repro_torch.obs` sketches, counters and
                            trace rings, ``env=EnvTimeline(...)`` the
-                           environment timeline and its shock counters)
+                           environment timeline and its shock counters,
+                           ``work=WorkModel(...)`` the work structure and
+                           the survival ledger)
+  * work structure       — :mod:`repro_torch.core.work` (``WorkModel``:
+                           multi-unit jobs, restart overhead, checkpoints,
+                           deadlines; ``CantBeLateKernel``, the safety net)
 """
 from repro_torch.core.analytic import (
     mm1n_pi,
@@ -102,6 +107,7 @@ from repro_torch.core.policies import (
     SingleSlotPolicy,
     ThreePhaseKernel,
     ThreePhasePolicy,
+    deadline_slack,
     three_phase_admit_prob,
 )
 from repro_torch.core.waittime import (
@@ -110,10 +116,18 @@ from repro_torch.core.waittime import (
     InfiniteWait,
     TwoPointWait,
 )
+from repro_torch.core.work import (
+    CantBeLateKernel,
+    WorkModel,
+    WorkState,
+    init_work_state,
+    restart_overhead_from_timing,
+)
 from repro_torch.obs.stats import Telemetry
 
 __all__ = [
-    "ArrivalProcess", "BathtubGCP", "DEFAULT_CHUNK_EVENTS", "Deterministic",
+    "ArrivalProcess", "BathtubGCP", "CantBeLateKernel",
+    "DEFAULT_CHUNK_EVENTS", "Deterministic",
     "DeterministicWait", "EngineState", "EnvTimeline", "Exponential",
     "ExponentialWait",
     "Gamma", "INT_STATS", "InfiniteWait", "MarketState",
@@ -123,12 +137,14 @@ __all__ = [
     "SingleSlotKernel", "SingleSlotPolicy", "SpotMarket", "SpotPool",
     "Telemetry", "ThreePhaseKernel", "ThreePhasePolicy", "TwoPointWait",
     "Uniform",
-    "WindowStats", "as_market", "as_topology", "checkpoint_within_notice",
-    "choose_region", "choose_region_u", "cost_lower_bound", "host_route",
+    "WindowStats", "WorkModel", "WorkState", "as_market", "as_topology", "checkpoint_within_notice",
+    "choose_region", "choose_region_u", "cost_lower_bound", "deadline_slack",
+    "host_route",
     "init_engine_state", "init_market_state", "init_region_state",
+    "init_work_state",
     "inject_blackout", "inject_price_spike", "inject_storm",
     "markov_timeline", "mm1n_pi", "prob_A_le_S", "region_cost_lower_bound",
-    "region_knapsack_lp", "run_market_sim", "run_market_sweep",
+    "region_knapsack_lp", "restart_overhead_from_timing", "run_market_sim", "run_market_sweep",
     "run_region_sim", "run_region_sweep", "run_sim", "run_sweep",
     "summarize", "summarize_market", "summarize_region", "theorem1_cost",
     "theorem1_region_cost", "theorem2_cost", "theorem5_cost",

@@ -30,8 +30,12 @@ Optional axes on every entry point: ``telemetry=`` (:mod:`repro_torch.obs`)
 and ``env=`` (an :class:`~repro_torch.core.env.EnvTimeline`: segment
 boundaries join the event race, the segment's multipliers scale prices,
 hazards and spot supply, and the shock counters of
-:mod:`repro_torch.obs.shocks` ride outermost of the stats); ``work=`` is
-not ported yet.
+:mod:`repro_torch.obs.shocks` ride outermost of the stats) and ``work=``
+(a :class:`~repro_torch.core.work.WorkModel`: every job carries units of
+work, restart overhead and checkpoints, the work state rides outermost of
+the carry and the survival ledger of :mod:`repro_torch.obs.survival`
+outermost of the stats; a :class:`~repro_torch.core.work.CantBeLateKernel`
+adds the per-job slack watchdog).
 
 Executors: the device picks one.  A fleet on a GPU runs through the
 hand-written batched-event kernel of its traversal
@@ -57,14 +61,18 @@ from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
 from repro_torch.core.env import (EnvState, EnvTimeline, clock_rescale,
                                   env_row, init_env_state, inv_avail)
 from repro_torch.core.market import (PanicKernel, PoolChoiceKernel,
-                                     PoolState, as_market, peel_panic)
+                                     PoolState, as_market,
+                                     checkpoint_within_notice, peel_panic)
 from repro_torch.core.regions import RegionView, RoutingKernel, as_topology
-from repro_torch.core.policies import SingleSlotKernel
+from repro_torch.core.policies import SingleSlotKernel, deadline_slack
 from repro_torch.core.waittime import INF
+from repro_torch.core.work import (CantBeLateKernel, WorkModel, WorkState,
+                                   init_work_state, peel_safety_net)
 from repro_torch.device import resolve_device
 from repro_torch.obs.shocks import env_update, summarize_env
 from repro_torch.obs.stats import (Telemetry, drop_windows, lane,
                                    summarize_telemetry, telemetry_update)
+from repro_torch.obs.survival import summarize_survival, survival_update
 from repro_torch.obs.timing import annotate
 
 _ORDER_MAX = 2**31 - 1
@@ -144,7 +152,8 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
                   rmax: int, layout: SlabLayout, carry: EngineState,
                   stats: WindowStats, params: dict, k_cost: torch.Tensor,
                   x: torch.Tensor, tel: Telemetry | None = None,
-                  ep: dict | None = None
+                  ep: dict | None = None, work: WorkModel | None = None,
+                  wk: dict | None = None
                   ) -> tuple[EngineState, WindowStats]:
     """One merged event (job arrival / spot slot / wait deadline) for every
     lane; ``x`` is this event's ``(lanes, n_cols)`` slab row.  With ``tel``
@@ -154,7 +163,16 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     an ``(EngineState, EnvState)`` pair and the stats an outermost
     ``(stats, EnvWindowStats)`` pair: the segment boundary joins the race
     as the highest-priority event, the segment's availability scales the
-    spot clock and its price multiplier the price of a spot serve."""
+    spot clock and its price multiplier the price of a spot serve.  With a
+    work model (``work``, its :meth:`WorkModel.params` ``wk``) the carry
+    is an outermost ``(carry, WorkState)`` pair and the stats an outermost
+    ``(stats, SurvivalWindowStats)`` pair: a serve pays one unit, overhead
+    first, and completes the job only when its remainder clears (the
+    single queue has no preemption, so nothing rolls back here)."""
+    wk_c = None
+    if work is not None:
+        carry, wk_c = carry
+        stats, wstats = stats
     if ep is not None:
         carry, env_c = carry
         stats, estats = stats
@@ -165,6 +183,8 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     iota = torch.arange(rmax, device=carry.ages.device)
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
+    budgets_masked, armed = _panic_clock(kernel, work, wk, wk_c, carry.occ,
+                                         budgets_masked)
     deadline, defect_slot = torch.min(budgets_masked, dim=1)
 
     dt = torch.minimum(torch.minimum(carry.next_job, carry.next_spot),
@@ -192,12 +212,16 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     has_job = carry.qlen > 0
     served = is_spot & has_job
     wait_served = torch.where(iota == serve_slot[:, None], ages, 0.0).sum(1)
+    complete_serve = served
+    if work is not None:
+        rem_tot, ws, done_inc, ckpt_taken, complete_serve = _work_serve(
+            work, wk, wk_c, served, serve_slot, iota)
 
     # ---- deadline: the minimal-budget job defects to on-demand ----
     defected = is_deadline  # deadline < INF implies an occupied slot
     age_defect = torch.where(iota == defect_slot[:, None], ages, 0.0).sum(1)
 
-    leave = served | defected
+    leave = complete_serve | defected
     leave_slot = torch.where(served, serve_slot, defect_slot)
 
     join_mask = admit[:, None] & (iota == join_slot[:, None])
@@ -208,6 +232,8 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     budgets = torch.where(join_mask, budget, budgets)
     occ = (carry.occ | join_mask) & (~leave_mask)
     order = torch.where(join_mask, carry.next_seq[:, None], carry.order)
+    if work is not None:
+        ws = _work_join(ws, wk_c, join_mask, dt)
 
     job_draw = job.sample_u(layout.uniforms(x, layout.job))
     spot_draw = spot.sample_u(layout.uniforms(x, layout.spot))
@@ -270,12 +296,22 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
             loc=torch.zeros_like(new_carry.qlen), n_locs=1,
             qlen=new_carry.qlen)
         out_stats = (new_stats, tstats)
-    if ep is None:
-        return new_carry, out_stats
-    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
-                                dt, is_job, od_now, served,
-                                torch.zeros_like(served))
-    return (new_carry, new_env), (out_stats, estats)
+    out_carry = new_carry
+    if ep is not None:
+        estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg,
+                                    seg_new, dt, is_job, od_now, served,
+                                    torch.zeros_like(served))
+        out_carry, out_stats = (new_carry, new_env), (out_stats, estats)
+    if work is None:
+        return out_carry, out_stats
+    zero = torch.zeros_like(dt)
+    wstats = _work_ledger(
+        wk, wstats, wk_c, rem_tot, dt, iota, is_job=is_job, od_now=od_now,
+        complete_serve=complete_serve, defected=defected, defect_pre=None,
+        serve_slot=serve_slot, defect_slot=defect_slot,
+        pre_slot=defect_slot, armed=armed, ckpt_taken=ckpt_taken,
+        done_inc=done_inc, lost=zero, oh_inc=zero)
+    return (out_carry, ws), (out_stats, wstats)
 
 
 def _env_step(ep: dict, env_c: EnvState, estats, is_boundary, seg, seg_new,
@@ -293,6 +329,124 @@ def _env_step(ep: dict, env_c: EnvState, estats, is_boundary, seg, seg_new,
             env_c.next_boundary - dt),
         seg=seg_new)
     return estats, new_env
+
+
+# ---------------------------------------------------------------------------
+# the work axis, shared by the three event bodies (the JAX bodies' work
+# branches, in their order of operations)
+# ---------------------------------------------------------------------------
+def _at(v: torch.Tensor, idx: torch.Tensor, iota: torch.Tensor
+        ) -> torch.Tensor:
+    """``v[lane, idx[lane]]`` as the JAX bodies take it: the sum of a
+    one-hot select."""
+    return torch.where(iota == idx[:, None], v, 0.0).sum(1)
+
+
+def _panic_clock(kernel, work, wk, wk_c, occ, budgets_masked):
+    """The can't-be-late watchdog: ``(budgets_masked, armed)`` with each
+    occupied slot's panic clock (its slack, clamped at 0) joined to the
+    budget race, so that a panic is a defection through the deadline
+    machinery; ``armed`` marks the slots whose panic clock beat their
+    budget.  Unchanged, with ``armed`` None, without a safety net."""
+    if work is None or not getattr(kernel, "safety_net", False):
+        return budgets_masked, None
+    buf = np.float32(getattr(kernel, "slack_buffer", 0.0))
+    rem_all = wk_c.oh + torch.clamp_min(wk["total_work"] - wk_c.prog, 0.0)
+    panic_at = torch.clamp_min(
+        deadline_slack(wk["deadline"], wk_c.life, rem_all, wk["od_time"],
+                       buf), 0.0)
+    panic_at = torch.where(occ, panic_at, INF)
+    return torch.minimum(budgets_masked, panic_at), panic_at < budgets_masked
+
+
+def _work_serve(work, wk, wk_c: WorkState, served, serve_slot, iota):
+    """A serve's unit of work: overhead debt first, the rest into progress,
+    a periodic checkpoint where one falls due.  Returns ``(rem_tot,
+    work state, work done, checkpoint taken?, complete_serve)``; a serve
+    completes its job only where the remaining total clears."""
+    total = wk["total_work"]
+    serve_vec = served[:, None] & (iota == serve_slot[:, None])
+    rem_tot = wk_c.oh + (total - wk_c.prog)
+    rem_serve = _at(rem_tot, serve_slot, iota)
+    oh_new = torch.where(serve_vec, torch.clamp_min(wk_c.oh - 1.0, 0.0),
+                         wk_c.oh)
+    spill = torch.clamp_min(1.0 - wk_c.oh, 0.0)
+    prog_new = torch.where(serve_vec, torch.minimum(wk_c.prog + spill, total),
+                           wk_c.prog)
+    done_inc = torch.where(serve_vec, prog_new - wk_c.prog, 0.0).sum(1)
+    ckpt_new, taken = wk_c.ckpt, torch.zeros_like(served)
+    if work.ckpt == "periodic":
+        take_vec = (serve_vec & (rem_tot > 1.0)
+                    & (prog_new - wk_c.ckpt >= wk["ckpt_period"]))
+        ckpt_new = torch.where(take_vec, prog_new, wk_c.ckpt)
+        oh_new = oh_new + torch.where(take_vec, wk["ckpt_cost"], 0.0)
+        taken = take_vec.any(dim=1)
+    return (rem_tot, WorkState(prog_new, oh_new, ckpt_new, wk_c.life),
+            done_inc, taken, served & (rem_serve <= 1.0))
+
+
+def _work_rollback(work, wk, ws: WorkState, resume, pre_slot, notice,
+                   iota):
+    """A resume rolls the revoked job back to its checkpoint and bills the
+    restart overhead; in notice mode the checkpoint first saves the
+    current progress iff it fits the firing location's ``notice``.
+    Returns ``(work state, lost, overhead charged, checkpoint taken?)``."""
+    if work.ckpt == "notice":
+        saved = resume & checkpoint_within_notice(wk["ckpt_time"], notice)
+    else:
+        saved = torch.zeros_like(resume)
+    prog_p = _at(ws.prog, pre_slot, iota)
+    ckpt_p = _at(ws.ckpt, pre_slot, iota)
+    ckpt_val = torch.where(saved, torch.maximum(ckpt_p, prog_p), ckpt_p)
+    resume_vec = resume[:, None] & (iota == pre_slot[:, None])
+    overhead = wk["restart_overhead"]
+    ws = ws._replace(
+        prog=torch.where(resume_vec, ckpt_val[:, None], ws.prog),
+        oh=torch.where(resume_vec, overhead, ws.oh),
+        ckpt=torch.where(resume_vec, ckpt_val[:, None], ws.ckpt))
+    lost = torch.where(resume, torch.clamp_min(prog_p - ckpt_val, 0.0), 0.0)
+    oh_inc = torch.where(resume, overhead, 0.0)
+    return ws, lost, oh_inc, resume & saved
+
+
+def _work_join(ws: WorkState, wk_c: WorkState, join_mask, dt) -> WorkState:
+    """Every slot's life ages by ``dt``; a joining job starts from zero."""
+    return WorkState(prog=torch.where(join_mask, 0.0, ws.prog),
+                     oh=torch.where(join_mask, 0.0, ws.oh),
+                     ckpt=torch.where(join_mask, 0.0, ws.ckpt),
+                     life=torch.where(join_mask, 0.0,
+                                      wk_c.life + dt[:, None]))
+
+
+def _work_ledger(wk, wstats, wk_c: WorkState, rem_tot, dt, iota, *, is_job,
+                 od_now, complete_serve, defected, defect_pre, serve_slot,
+                 defect_slot, pre_slot, armed, ckpt_taken, done_inc, lost,
+                 oh_inc):
+    """The survival ledger's fold of one event.  A job finishes at its last
+    served unit or when it migrates to on-demand, whose finish time is its
+    life at the migration plus its pre-event remainder × ``od_time``
+    (``defect_pre`` None in the single queue, which has no preemption)."""
+    life = wk_c.life + dt[:, None]
+    od, dl = wk["od_time"], wk["deadline"]
+
+    def late(slot):
+        return _at(life, slot, iota) + _at(rem_tot, slot, iota) * od > dl
+
+    miss = ((od_now & (wk["total_work"] * od > dl))
+            | (defected & late(defect_slot)))
+    finished = od_now | complete_serve | defected
+    if defect_pre is not None:
+        miss = miss | (defect_pre & late(pre_slot))
+        finished = finished | defect_pre
+    miss = miss | (complete_serve & (_at(life, serve_slot, iota) > dl))
+    panic = torch.zeros_like(defected)
+    if armed is not None:
+        panic = defected & ((iota == defect_slot[:, None]) & armed).any(dim=1)
+    return survival_update(
+        wstats, admitted=is_job, finished=finished, missed=miss,
+        checkpoint=ckpt_taken, panic=panic, work_done=done_inc,
+        work_lost=lost, work_recomputed=lost + oh_inc,
+        overhead_paid=oh_inc)
 
 
 def _rebase_order(state: EngineState) -> EngineState:
@@ -335,8 +489,9 @@ def _engine_layout(job: ArrivalProcess, spot: ArrivalProcess,
 def lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
     """The kernel's per-lane params dict: a single-slot kernel whose wait
     parameters are not swept gets its wait family's own values (through a
-    ``PanicKernel``, which admits as its base)."""
-    kernel = peel_panic(kernel)
+    ``CantBeLateKernel`` or a ``PanicKernel``, which admit as their
+    base)."""
+    kernel = peel_panic(peel_safety_net(kernel)[0])
     if isinstance(kernel, SingleSlotKernel) and "wait" not in params:
         wait = {name: torch.full_like(k_cost, np.float32(v))
                 for name, v in kernel.wait.params().items()}
@@ -384,7 +539,8 @@ def _merge_telemetry(out: dict, telemetry: Telemetry, tstats,
 
 
 def summarize(stats: WindowStats, telemetry: Telemetry | None = None,
-              env: EnvTimeline | None = None) -> dict:
+              env: EnvTimeline | None = None,
+              work: WorkModel | None = None) -> dict:
     """Reduce (…, n_windows) sums in float64; derive long-run stats.
 
     Leading batch axes pass through: every value in the returned dict is a
@@ -393,9 +549,15 @@ def summarize(stats: WindowStats, telemetry: Telemetry | None = None,
     gains :func:`repro_torch.obs.summarize_telemetry`'s keys (the base keys
     unchanged).  With ``env``, ``stats`` is wrapped in an outermost
     ``(stats, EnvWindowStats)`` pair and the dict gains
-    :func:`repro_torch.obs.summarize_env`'s shock counters.  Raises
+    :func:`repro_torch.obs.summarize_env`'s shock counters.  With ``work``
+    the survival ledger rides outermost of all, ``(stats,
+    SurvivalWindowStats)``, and the dict gains
+    :func:`repro_torch.obs.summarize_survival`'s job-level keys.  Raises
     :class:`NonFiniteStatsError` when a reduced statistic is NaN/inf.
     """
+    wstats = None
+    if work is not None:
+        stats, wstats = stats
     estats = None
     if env is not None:
         stats, estats = stats
@@ -426,6 +588,8 @@ def summarize(stats: WindowStats, telemetry: Telemetry | None = None,
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
     if estats is not None:
         out.update(summarize_env(estats))
+    if wstats is not None:
+        out.update(summarize_survival(wstats))
     return out
 
 
@@ -449,12 +613,16 @@ def _reshape_sweep(out: dict, grid_shape: tuple, n_seeds: int) -> dict:
 
 
 def _without_burn_in(stats, burn_in: int, tel: Telemetry | None,
-                     env: bool = False):
-    """Stats (or the ``(base, telemetry)`` pair, and the outermost ``(...,
-    env)`` pair with ``env``) of ``(lanes, windows, ...)`` without the
-    burn-in window."""
+                     env: bool = False, work: bool = False):
+    """Stats (or the ``(base, telemetry)`` pair, the ``(..., env)`` pair
+    around it with ``env`` and the outermost ``(..., survival)`` pair with
+    ``work``) of ``(lanes, windows, ...)`` without the burn-in window."""
     if not burn_in:
         return stats
+    if work:
+        inner, wstats = stats
+        return (_without_burn_in(inner, burn_in, tel, env),
+                type(wstats)(*(x[:, 1:] for x in wstats)))
     if env:
         inner, estats = stats
         return (_without_burn_in(inner, burn_in, tel),
@@ -466,8 +634,12 @@ def _without_burn_in(stats, burn_in: int, tel: Telemetry | None,
     return type(stats)(*(x[:, 1:] for x in stats))
 
 
-def _lane0(stats, tel: Telemetry | None, env: bool = False):
+def _lane0(stats, tel: Telemetry | None, env: bool = False,
+           work: bool = False):
     """The first lane's stats (or pairs), the lane axis dropped."""
+    if work:
+        inner, wstats = stats
+        return (_lane0(inner, tel, env), type(wstats)(*(x[0] for x in wstats)))
     if env:
         inner, estats = stats
         return _lane0(inner, tel), type(estats)(*(x[0] for x in estats))
@@ -523,28 +695,35 @@ def _check_run_shape(name: str, n_events: int, burn_in: int) -> None:
             f"{name}: burn_in must be >= 0 events, got {burn_in}")
 
 
-def _env_carry(state, ep: dict | None):
+def _carry(state, ep: dict | None, work: WorkModel | None, n_slots: int):
     """The initial carry: the state, paired with every lane's timeline
-    cursor when the env axis is on."""
-    if ep is None:
-        return state
-    return state, init_env_state(ep, state.key.shape[0])
+    cursor when the env axis is on, then (outermost) with a zero work
+    state of ``n_slots`` slots when the work axis is on."""
+    lanes, device = state.key.shape[0], state.key.device
+    if ep is not None:
+        state = state, init_env_state(ep, lanes)
+    if work is not None:
+        state = state, init_work_state(n_slots, lanes, device)
+    return state
 
 
 def _run_lanes(job, spot, kernel, rmax, plan, burn_in, params, k_cost,
-               keys, tel: Telemetry | None = None, ep: dict | None = None):
+               keys, tel: Telemetry | None = None, ep: dict | None = None,
+               work: WorkModel | None = None, wk: dict | None = None):
     """Flat lanes through the executor of their device; returns (lanes,
     windows) stats (a ``(base, telemetry)`` pair with ``tel``, inside an
-    outermost ``(..., env)`` pair with ``ep``) without the burn-in
-    window."""
+    ``(..., env)`` pair with ``ep`` and an outermost ``(..., survival)``
+    pair with ``work``) without the burn-in window."""
     # imported here: the kernels package builds on this module's state types
     from repro_torch.kernels.sweep import batched_events
 
-    state0 = _env_carry(init_engine_state(keys, job, spot, rmax, ep), ep)
+    state0 = _carry(init_engine_state(keys, job, spot, rmax, ep), ep, work,
+                    rmax)
     _, stats = batched_events(job, spot, kernel, rmax, state0,
                               lane_params(kernel, params, k_cost), k_cost,
-                              plan, tel, ep)
-    return _without_burn_in(stats, burn_in, tel, ep is not None)
+                              plan, tel, ep, work, wk)
+    return _without_burn_in(stats, burn_in, tel, ep is not None,
+                            work is not None)
 
 
 def _lane_tensors(params: dict, k, device):
@@ -589,11 +768,13 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     sketches, the event counters and, with ``trace_cap``, the event rings
     (``"trace"``); ``env`` (a :class:`repro_torch.core.env.EnvTimeline`)
     runs the horizon through a piecewise-constant environment and adds the
-    shock counters (:func:`repro_torch.obs.summarize_env`); ``work`` is not
-    ported and raises.
+    shock counters (:func:`repro_torch.obs.summarize_env`); ``work`` (a
+    :class:`repro_torch.core.work.WorkModel`) gives every job a work
+    structure and adds the survival ledger
+    (:func:`repro_torch.obs.summarize_survival`).
     """
     params = {} if params is None else params
-    _check_options("run_sim", (job, spot), telemetry, env, work)
+    _check_options("run_sim", (job, spot), telemetry, env, work, kernel)
     device = _resolve(device, impl, rng, "run_sim", (job, spot))
     _check_run_shape("run_sim", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -603,12 +784,14 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(1, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_sim[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_f,
-                           k_f, key.to(device)[None], telemetry, ep)
+                           k_f, key.to(device)[None], telemetry, ep, work,
+                           wk)
+    stats = _lane0(stats, telemetry, ep is not None, work is not None)
     return {name: _scalar_or_array(v)
-            for name, v in summarize(_lane0(stats, telemetry, ep is not None),
-                                     telemetry, env).items()}
+            for name, v in summarize(stats, telemetry, env, work).items()}
 
 
 def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
@@ -636,15 +819,17 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     adds the telemetry summary at every grid point, through the same
     kernel launch; ``env`` (an :class:`~repro_torch.core.env.EnvTimeline`)
     adds the shock counters at every grid point, through the same launch;
-    ``work`` and ``shard``/``mesh`` are not ported and raise.
+    ``work`` (a :class:`~repro_torch.core.work.WorkModel`) adds the
+    survival ledger, through the same launch; ``shard``/``mesh`` are not
+    ported and raise.
 
     Returns :func:`summarize`'s dict with every value shaped
     ``grid_shape + (n_seeds,)`` (plus a trailing bin, type or location
     axis for the telemetry vectors, and ``(windows, cap)`` for the trace).
     """
     params = {} if params is None else params
-    _check_options("run_sweep", (job, spot), telemetry, env, work, shard,
-                   mesh)
+    _check_options("run_sweep", (job, spot), telemetry, env, work, kernel,
+                   shard, mesh)
     device = _resolve(device, impl, rng, "run_sweep", (job, spot))
     _check_run_shape("run_sweep", n_events, burn_in)
     params_f, k_f, grid_shape = _lane_tensors(params, k, device)
@@ -653,10 +838,11 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(1, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_sweep[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_l,
-                           k_l, keys_l, telemetry, ep)
-    return _reshape_sweep(summarize(stats, telemetry, env), grid_shape,
+                           k_l, keys_l, telemetry, ep, work, wk)
+    return _reshape_sweep(summarize(stats, telemetry, env, work), grid_shape,
                           n_seeds)
 
 
@@ -809,7 +995,8 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
                   preempt_on: bool, layout: SlabLayout, carry: MarketState,
                   stats: MarketWindowStats, params: dict, mp: dict,
                   k_cost: torch.Tensor, x: torch.Tensor,
-                  tel: Telemetry | None = None, ep: dict | None = None
+                  tel: Telemetry | None = None, ep: dict | None = None,
+                  work: WorkModel | None = None, wk: dict | None = None
                   ) -> tuple[MarketState, MarketWindowStats]:
     """One merged event (job arrival / pool spot slot / pool preemption /
     wait deadline) for every lane; ``x`` is this event's slab row.  The
@@ -819,7 +1006,14 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     effective price and hazard are the base × the segment's row, their
     spot supply × the availability, and the kernel's :class:`PoolState`
     sees the effective market, a zero ``rate`` the blackout signal
-    ``PanicKernel`` keys on), without its work branch."""
+    ``PanicKernel`` keys on) and its work branch (``work``/``wk``, as in
+    :func:`_engine_event`; here a resume rolls the job back to its
+    checkpoint and owes the restart overhead, and the ledger prices every
+    rollback)."""
+    wk_c = None
+    if work is not None:
+        carry, wk_c = carry
+        stats, wstats = stats
     if ep is not None:
         carry, env_c = carry
         stats, estats = stats
@@ -836,6 +1030,8 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     iota_p = torch.arange(market.n_pools, device=device)
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
+    budgets_masked, armed = _panic_clock(kernel, work, wk, wk_c, carry.occ,
+                                         budgets_masked)
     deadline, defect_slot = torch.min(budgets_masked, dim=1)
     min_spot, spot_pool = torch.min(carry.next_spot, dim=1)
     nj = carry.next_job
@@ -896,6 +1092,10 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     served = is_spot & has_elig
     wait_served = torch.where(iota == serve_slot[:, None], ages, 0.0).sum(1)
     price_s = _pick(price, spot_pool)
+    complete_serve = served
+    if work is not None:
+        rem_tot, ws, done_inc, ckpt_taken, complete_serve = _work_serve(
+            work, wk, wk_c, served, serve_slot, iota)
 
     # ---- pool preemption: revoke the FIFO-oldest job on that pool ----
     no = torch.zeros_like(is_spot)
@@ -917,12 +1117,19 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         pre_pool = pre_slot = torch.zeros_like(spot_pool)
         pre_hit = resume = defect_pre = no
         age_pre = price_p = torch.zeros_like(dt)
+    if work is not None:
+        lost = oh_inc = torch.zeros_like(dt)
+        if preempt_on:
+            ws, lost, oh_inc, saved = _work_rollback(
+                work, wk, ws, resume, pre_slot, _pick(mp["notice"], pre_pool),
+                iota)
+            ckpt_taken = ckpt_taken | saved
 
     # ---- deadline: the minimal-budget job defects to on-demand ----
     defected = is_deadline
     age_defect = torch.where(iota == defect_slot[:, None], ages, 0.0).sum(1)
 
-    leave = served | defected | defect_pre
+    leave = complete_serve | defected | defect_pre
     leave_slot = torch.where(served, serve_slot,
                              torch.where(defected, defect_slot, pre_slot))
     join_mask = admit[:, None] & (iota == join_slot[:, None])
@@ -937,6 +1144,8 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     pool = torch.where(join_mask, pool_choice[:, None], carry.pool)
     order = torch.where(join_mask | resume_mask, carry.next_seq[:, None],
                         carry.order)
+    if work is not None:
+        ws = _work_join(ws, wk_c, join_mask, dt)
 
     fire_s = is_spot[:, None] & (iota_p == spot_pool[:, None])
     u_spot = layout.uniforms(x, layout.spot)
@@ -1011,11 +1220,21 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
             cost_valid=served | od_now | defected | pre_hit,
             loc=loc, n_locs=market.n_pools, qlen=new_carry.qlen)
         out_stats = (new_stats, tstats)
-    if ep is None:
-        return new_carry, out_stats
-    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
-                                dt, is_job, od_now, served, resume)
-    return (new_carry, new_env), (out_stats, estats)
+    out_carry = new_carry
+    if ep is not None:
+        estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg,
+                                    seg_new, dt, is_job, od_now, served,
+                                    resume)
+        out_carry, out_stats = (new_carry, new_env), (out_stats, estats)
+    if work is None:
+        return out_carry, out_stats
+    wstats = _work_ledger(
+        wk, wstats, wk_c, rem_tot, dt, iota, is_job=is_job, od_now=od_now,
+        complete_serve=complete_serve, defected=defected,
+        defect_pre=defect_pre, serve_slot=serve_slot,
+        defect_slot=defect_slot, pre_slot=pre_slot, armed=armed,
+        ckpt_taken=ckpt_taken, done_inc=done_inc, lost=lost, oh_inc=oh_inc)
+    return (out_carry, ws), (out_stats, wstats)
 
 
 def _boundary(env_c: EnvState, dt: torch.Tensor, events: tuple):
@@ -1087,23 +1306,30 @@ def _market_layout(job: ArrivalProcess, market, kernel,
 def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
     """:func:`lane_params` of the single-queue kernel a market or region
     kernel admits through (the base of a ``RoutingKernel`` and of a
-    ``PoolChoiceKernel`` or a ``PanicKernel``, or a legacy kernel)."""
-    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel, PanicKernel)):
+    ``PoolChoiceKernel``, a ``PanicKernel`` or a ``CantBeLateKernel``, or a
+    legacy kernel)."""
+    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel, PanicKernel,
+                              CantBeLateKernel)):
         kernel = kernel.base
     return lane_params(kernel, params, k_cost)
 
 
 def summarize_market(stats: MarketWindowStats,
                      telemetry: Telemetry | None = None,
-                     env: EnvTimeline | None = None) -> dict:
+                     env: EnvTimeline | None = None,
+                     work: WorkModel | None = None) -> dict:
     """:func:`summarize`'s dict plus the market's: preemptions, resumed
     legs, spot spend, per-job averages over final completions (spot
     service or on-demand: a resumed leg is not one), and per-pool arrays
     (a trailing pool axis).  Scalar fields reduce the last (window) axis,
     pool fields the one before it.  With ``telemetry``, ``stats`` is the
     ``(base, telemetry)`` pair and the telemetry keys are appended; with
-    ``env`` the env block rides outermost and the shock counters are
-    appended."""
+    ``env`` the env block rides around them and the shock counters are
+    appended; with ``work`` the survival ledger rides outermost of all and
+    its job-level keys are appended."""
+    wstats = None
+    if work is not None:
+        stats, wstats = stats
     estats = None
     if env is not None:
         stats, estats = stats
@@ -1136,6 +1362,8 @@ def summarize_market(stats: MarketWindowStats,
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
     if estats is not None:
         out.update(summarize_env(estats))
+    if wstats is not None:
+        out.update(summarize_survival(wstats))
     return out
 
 
@@ -1180,11 +1408,11 @@ def _broadcast_market_params(market, overrides: dict,
                                     overrides, grid_shape)
 
 
-def _check_options(name: str, procs, telemetry, env, work,
+def _check_options(name: str, procs, telemetry, env, work, kernel,
                    shard: str = "none", mesh=None) -> None:
-    """The ``telemetry=`` and ``env=`` types, and named errors for the
-    options the port does not serve yet; ``procs`` are the run's arrival
-    processes."""
+    """The ``telemetry=``, ``env=`` and ``work=`` types, a safety-net
+    kernel without a work model, and named errors for the options the port
+    does not serve yet; ``procs`` are the run's arrival processes."""
     if telemetry is not None and not isinstance(telemetry, Telemetry):
         raise TypeError(f"{name}: telemetry must be a "
                         f"repro_torch.obs.Telemetry or None, got "
@@ -1193,11 +1421,14 @@ def _check_options(name: str, procs, telemetry, env, work,
         raise TypeError(f"{name}: env must be a "
                         f"repro_torch.core.env.EnvTimeline or None, got "
                         f"{env!r}")
-    if work is not None:
-        raise NotImplementedError(
-            f"{name}: work= (the work model, with CantBeLateKernel and "
-            "obs/survival.py, ROADMAP.md \"Next slices\" item 6) is not "
-            "ported yet; the port runs work=None")
+    if work is not None and not isinstance(work, WorkModel):
+        raise TypeError(f"{name}: work must be a "
+                        f"repro_torch.core.work.WorkModel or None, got "
+                        f"{work!r}")
+    if work is None and getattr(kernel, "safety_net", False):
+        raise ValueError(
+            f"{name}: a safety-net kernel (CantBeLateKernel) tracks per-job "
+            "slack and needs the work axis: pass work=WorkModel(...)")
     if shard != "none" or mesh is not None:
         raise NotImplementedError(
             f"{name}: shard={shard!r}/mesh= (lane sharding) is not ported "
@@ -1205,27 +1436,29 @@ def _check_options(name: str, procs, telemetry, env, work,
     _refuse_gamma(name, procs)
 
 
-def _check_market_options(name: str, market, telemetry, env, work,
+def _check_market_options(name: str, market, telemetry, env, work, kernel,
                           shard: str = "none", mesh=None) -> None:
     _check_options(name, [p.arrival for p in market.pools], telemetry, env,
-                   work, shard, mesh)
+                   work, kernel, shard, mesh)
 
 
 def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
                       params, mp, k_cost, keys,
-                      tel: Telemetry | None = None, ep: dict | None = None):
+                      tel: Telemetry | None = None, ep: dict | None = None,
+                      work: WorkModel | None = None, wk: dict | None = None):
     """Flat market lanes through the executor of their device; returns
     (lanes, windows[, P]) stats (a ``(base, telemetry)`` pair with
-    ``tel``, inside an outermost ``(..., env)`` pair with ``ep``) without
-    the burn-in window."""
+    ``tel``, inside an ``(..., env)`` pair with ``ep`` and an outermost
+    ``(..., survival)`` pair with ``work``) without the burn-in window."""
     from repro_torch.kernels.sweep import market_events
 
-    state0 = _env_carry(init_market_state(keys, job, market, rmax, mp,
-                                         preempt_on, ep), ep)
+    state0 = _carry(init_market_state(keys, job, market, rmax, mp,
+                                      preempt_on, ep), ep, work, rmax)
     _, stats = market_events(job, market, kernel, rmax, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), mp,
-                             k_cost, plan, tel, ep)
-    return _without_burn_in(stats, burn_in, tel, ep is not None)
+                             k_cost, plan, tel, ep, work, wk)
+    return _without_burn_in(stats, burn_in, tel, ep is not None,
+                            work is not None)
 
 
 def _one_lane(params: dict, device) -> dict:
@@ -1262,7 +1495,8 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     """
     market = as_market(market)
     params = {} if params is None else params
-    _check_market_options("run_market_sim", market, telemetry, env, work)
+    _check_market_options("run_market_sim", market, telemetry, env, work,
+                          kernel)
     device = _resolve(device, impl, rng, "run_market_sim", (job,))
     _check_run_shape("run_market_sim", n_events, burn_in)
     if np.ndim(k) != 0:
@@ -1275,13 +1509,14 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(market.n_pools, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_market_sim[{device.type}]"):
         stats = _run_market_lanes(job, market, kernel, rmax,
                                   market.preemptible, plan, burn_in,
                                   params_f, mp, k_f, key.to(device)[None],
-                                  telemetry, ep)
-    out = summarize_market(_lane0(stats, telemetry, ep is not None),
-                           telemetry, env)
+                                  telemetry, ep, work, wk)
+    out = summarize_market(_lane0(stats, telemetry, ep is not None,
+                                  work is not None), telemetry, env, work)
     return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
@@ -1304,8 +1539,8 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     for a market without hazards.  ``device``, ``impl``, ``rng`` and
     ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
     hand-written market kernel, a CPU fleet its plain version.  ``env`` as
-    in :func:`run_sweep` (its per-loc rows are the pools'); ``work`` and
-    ``shard`` are not ported and raise.
+    in :func:`run_sweep` (its per-loc rows are the pools') and ``work``
+    as in :func:`run_sweep`; ``shard`` is not ported and raises.
 
     Returns :func:`summarize_market`'s dict: scalar statistics shaped
     ``grid_shape + (n_seeds,)``, pool statistics ``grid_shape + (n_seeds,
@@ -1315,7 +1550,7 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     n = market.n_pools
     params = {} if params is None else params
     _check_market_options("run_market_sweep", market, telemetry, env, work,
-                          shard, mesh)
+                          kernel, shard, mesh)
     device = _resolve(device, impl, rng, "run_market_sweep", (job,))
     _check_run_shape("run_market_sweep", n_events, burn_in)
     _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
@@ -1339,11 +1574,12 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(n, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_market_sweep[{device.type}]"):
         stats = _run_market_lanes(job, market, kernel, rmax, preempt_on,
                                   plan, burn_in, params_l, mp_l, k_l, keys_l,
-                                  telemetry, ep)
-    return _reshape_sweep(summarize_market(stats, telemetry, env),
+                                  telemetry, ep, work, wk)
+    return _reshape_sweep(summarize_market(stats, telemetry, env, work),
                           grid_shape, n_seeds)
 
 
@@ -1507,7 +1743,8 @@ def _kernel_route_slab(kernel, params, qlens, view: RegionView,
 def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
                   carry: RegionState, stats: RegionWindowStats, params: dict,
                   rp: dict, k_cost: torch.Tensor, x: torch.Tensor,
-                  tel: Telemetry | None = None, ep: dict | None = None
+                  tel: Telemetry | None = None, ep: dict | None = None,
+                  work: WorkModel | None = None, wk: dict | None = None
                   ) -> tuple[RegionState, RegionWindowStats]:
     """One merged event (job arrival in some region / region spot slot /
     region preemption / wait deadline) for every lane; ``x`` is this
@@ -1515,7 +1752,12 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
     stream with its telemetry fold (``tel``: the stats are a ``(base,
     telemetry)`` pair) and its environment branch (``ep``, as in
     :func:`_market_event` with the regions as the locations; the job
-    clocks are never modulated), without its work branch."""
+    clocks are never modulated) and its work branch (``work``/``wk``, as
+    in :func:`_market_event`; a rollback reads the region's notice)."""
+    wk_c = None
+    if work is not None:
+        carry, wk_c = carry
+        stats, wstats = stats
     if ep is not None:
         carry, env_c = carry
         stats, estats = stats
@@ -1533,6 +1775,8 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
     slot_region = _slot_region_iota(topo, iota_s)
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
+    budgets_masked, armed = _panic_clock(kernel, work, wk, wk_c, carry.occ,
+                                         budgets_masked)
     deadline, defect_slot = torch.min(budgets_masked, dim=1)
     min_job, home = torch.min(carry.next_job, dim=1)
     min_spot, spot_region = torch.min(carry.next_spot, dim=1)
@@ -1595,6 +1839,10 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
     wait_served = torch.where(iota_s == serve_slot[:, None], ages,
                               0.0).sum(1)
     price_s = _pick(price, spot_region)
+    complete_serve = served
+    if work is not None:
+        rem_tot, ws, done_inc, ckpt_taken, complete_serve = _work_serve(
+            work, wk, wk_c, served, serve_slot, iota_s)
 
     # ---- region preemption: revoke the FIFO-oldest job queued there ----
     no = torch.zeros_like(is_spot)
@@ -1616,13 +1864,20 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
         pre_region = pre_slot = torch.zeros_like(spot_region)
         pre_hit = resume = defect_pre = no
         age_pre = price_p = torch.zeros_like(dt)
+    if work is not None:
+        lost = oh_inc = torch.zeros_like(dt)
+        if preempt_on:
+            ws, lost, oh_inc, saved = _work_rollback(
+                work, wk, ws, resume, pre_slot,
+                _pick(rp["notice"], pre_region), iota_s)
+            ckpt_taken = ckpt_taken | saved
 
     # ---- deadline: the minimal-budget job defects to on-demand ----
     defected = is_deadline
     age_defect = torch.where(iota_s == defect_slot[:, None], ages,
                              0.0).sum(1)
 
-    leave = served | defected | defect_pre
+    leave = complete_serve | defected | defect_pre
     leave_slot = torch.where(served, serve_slot,
                              torch.where(defected, defect_slot, pre_slot))
     leave_region = slot_region[leave_slot]
@@ -1637,6 +1892,8 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
     occ = (carry.occ | join_mask) & (~leave_mask)
     order = torch.where(join_mask | resume_mask, carry.next_seq[:, None],
                         carry.order)
+    if work is not None:
+        ws = _work_join(ws, wk_c, join_mask, dt)
 
     fire_j = is_job[:, None] & (iota_r == home[:, None])
     fire_s = is_spot[:, None] & (iota_r == spot_region[:, None])
@@ -1720,11 +1977,21 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
             cost_valid=served | od_now | defected | pre_hit,
             loc=loc, n_locs=topo.n_regions, qlen=new_carry.qlen.sum(dim=1))
         out_stats = (new_stats, tstats)
-    if ep is None:
-        return new_carry, out_stats
-    estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg, seg_new,
-                                dt, is_job, od_now, served, resume)
-    return (new_carry, new_env), (out_stats, estats)
+    out_carry = new_carry
+    if ep is not None:
+        estats, new_env = _env_step(ep, env_c, estats, is_boundary, seg,
+                                    seg_new, dt, is_job, od_now, served,
+                                    resume)
+        out_carry, out_stats = (new_carry, new_env), (out_stats, estats)
+    if work is None:
+        return out_carry, out_stats
+    wstats = _work_ledger(
+        wk, wstats, wk_c, rem_tot, dt, iota_s, is_job=is_job, od_now=od_now,
+        complete_serve=complete_serve, defected=defected,
+        defect_pre=defect_pre, serve_slot=serve_slot,
+        defect_slot=defect_slot, pre_slot=pre_slot, armed=armed,
+        ckpt_taken=ckpt_taken, done_inc=done_inc, lost=lost, oh_inc=oh_inc)
+    return (out_carry, ws), (out_stats, wstats)
 
 
 def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
@@ -1748,7 +2015,8 @@ def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
 
 def summarize_region(stats: RegionWindowStats,
                      telemetry: Telemetry | None = None,
-                     env: EnvTimeline | None = None) -> dict:
+                     env: EnvTimeline | None = None,
+                     work: WorkModel | None = None) -> dict:
     """:func:`summarize`'s dict plus the region's: preemptions, resumed
     legs, spot spend, per-job averages over final completions, the routing
     flow (``routed_home``, ``cross_region_frac``: the share of admissions
@@ -1756,7 +2024,12 @@ def summarize_region(stats: RegionWindowStats,
     Scalar fields reduce the last (window) axis, region fields the one
     before it.  With ``telemetry``, ``stats`` is the ``(base, telemetry)``
     pair and the telemetry keys are appended; with ``env`` the env block
-    rides outermost and the shock counters are appended."""
+    rides around them and the shock counters are appended; with ``work``
+    the survival ledger rides outermost of all and its job-level keys are
+    appended."""
+    wstats = None
+    if work is not None:
+        stats, wstats = stats
     estats = None
     if env is not None:
         stats, estats = stats
@@ -1799,32 +2072,36 @@ def summarize_region(stats: RegionWindowStats,
         _merge_telemetry(out, telemetry, tstats, stats.time_elapsed)
     if estats is not None:
         out.update(summarize_env(estats))
+    if wstats is not None:
+        out.update(summarize_survival(wstats))
     return out
 
 
 def _run_region_lanes(topo, kernel, preempt_on, plan, burn_in, params, rp,
                       k_cost, keys, tel: Telemetry | None = None,
-                      ep: dict | None = None):
+                      ep: dict | None = None, work: WorkModel | None = None,
+                      wk: dict | None = None):
     """Flat region lanes through the executor of their device; returns
     (lanes, windows[, R]) stats (a ``(base, telemetry)`` pair with
-    ``tel``, inside an outermost ``(..., env)`` pair with ``ep``) without
-    the burn-in window."""
+    ``tel``, inside an ``(..., env)`` pair with ``ep`` and an outermost
+    ``(..., survival)`` pair with ``work``) without the burn-in window."""
     from repro_torch.kernels.sweep import region_events
 
-    state0 = _env_carry(init_region_state(keys, topo, rp, preempt_on, ep),
-                       ep)
+    state0 = _carry(init_region_state(keys, topo, rp, preempt_on, ep), ep,
+                    work, topo.total_slots)
     _, stats = region_events(topo, kernel, preempt_on, state0,
                              market_lane_params(kernel, params, k_cost), rp,
-                             k_cost, plan, tel, ep)
-    return _without_burn_in(stats, burn_in, tel, ep is not None)
+                             k_cost, plan, tel, ep, work, wk)
+    return _without_burn_in(stats, burn_in, tel, ep is not None,
+                            work is not None)
 
 
-def _check_region_run(name: str, topo, telemetry, env, work, shard, mesh,
-                      device, impl, rng, n_events, burn_in):
+def _check_region_run(name: str, topo, kernel, telemetry, env, work, shard,
+                      mesh, device, impl, rng, n_events, burn_in):
     """The options checks of the two region entry points; returns the
     device."""
     _check_options(name, [p for r in topo.regions for p in (r.job, r.spot)],
-                   telemetry, env, work, shard, mesh)
+                   telemetry, env, work, kernel, shard, mesh)
     device = _resolve(device, impl, rng, name)
     _check_run_shape(name, n_events, burn_in)
     return device
@@ -1848,9 +2125,9 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
     """
     topology = as_topology(topology)
     params = {} if params is None else params
-    device = _check_region_run("run_region_sim", topology, telemetry, env,
-                               work, "none", None, device, impl, rng,
-                               n_events, burn_in)
+    device = _check_region_run("run_region_sim", topology, kernel,
+                               telemetry, env, work, "none", None, device,
+                               impl, rng, n_events, burn_in)
     if np.ndim(k) != 0:
         raise ValueError(f"run_region_sim: k must be a scalar, got shape "
                          f"{np.shape(k)}")
@@ -1860,14 +2137,15 @@ def run_region_sim(topology, kernel, params=None, *, k: float = 10.0,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(topology.n_regions, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_region_sim[{device.type}]"):
         stats = _run_region_lanes(
             topology, kernel, topology.preemptible, plan, burn_in,
             _one_lane(params, device), rp,
             torch.full((1,), np.float32(k), device=device),
-            key.to(device)[None], telemetry, ep)
-    out = summarize_region(_lane0(stats, telemetry, ep is not None),
-                           telemetry, env)
+            key.to(device)[None], telemetry, ep, work, wk)
+    out = summarize_region(_lane0(stats, telemetry, ep is not None,
+                                  work is not None), telemetry, env, work)
     return {name: _scalar_or_array(v) for name, v in out.items()}
 
 
@@ -1894,8 +2172,8 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     override turns the preemption path on.  ``device``, ``impl``, ``rng``
     and ``telemetry`` as in :func:`run_sweep`: a GPU fleet runs the
     hand-written region kernel, a CPU fleet its plain version.  ``env`` as
-    in :func:`run_sweep` (its per-loc rows are the regions'); ``work`` and
-    ``shard`` are not ported and raise.
+    in :func:`run_sweep` (its per-loc rows are the regions') and
+    ``work`` as in :func:`run_sweep`; ``shard`` is not ported and raises.
 
     Returns :func:`summarize_region`'s dict: scalar statistics shaped
     ``grid_shape + (n_seeds,)``, region statistics ``grid_shape +
@@ -1904,9 +2182,9 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     topology = as_topology(topology)
     n = topology.n_regions
     params = {} if params is None else params
-    device = _check_region_run("run_region_sweep", topology, telemetry, env,
-                               work, shard, mesh, device, impl, rng,
-                               n_events, burn_in)
+    device = _check_region_run("run_region_sweep", topology, kernel,
+                               telemetry, env, work, shard, mesh, device,
+                               impl, rng, n_events, burn_in)
     _check_loc_overrides("run_region_sweep", n, "region", prices=prices,
                          hazards=hazards, notices=notices,
                          spot_scales=spot_scales, job_scales=job_scales)
@@ -1934,9 +2212,10 @@ def run_region_sweep(topology, kernel, params=None, *, k=10.0,
     chunk = n_events if chunk_events is None else min(chunk_events, n_events)
     plan = _window_plan(n_events, chunk, burn_in)
     ep = None if env is None else env.params(n, device)
+    wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_region_sweep[{device.type}]"):
         stats = _run_region_lanes(topology, kernel, preempt_on, plan,
                                   burn_in, params_l, rp_l, k_l, keys_l,
-                                  telemetry, ep)
-    return _reshape_sweep(summarize_region(stats, telemetry, env),
+                                  telemetry, ep, work, wk)
+    return _reshape_sweep(summarize_region(stats, telemetry, env, work),
                           grid_shape, n_seeds)

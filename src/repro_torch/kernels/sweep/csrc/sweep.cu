@@ -74,6 +74,12 @@
 // ENV, with its own define, SWEEP_ENV: so the source builds four ways (no
 // flag, TEL, ENV, TEL and ENV) and env=None launches code without it.  See
 // "The environment timeline" below.
+//
+// The work structure (the work= axis, repro/core/work.py and
+// repro/obs/survival.py, threaded through each of the three JAX event
+// bodies) is a third template flag, WORK, with its own define, SWEEP_WORK:
+// the source builds eight ways, and work=None launches code without it.
+// See "The work structure" below.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -86,6 +92,11 @@ constexpr bool kTel = false;
 constexpr bool kEnv = true;
 #else
 constexpr bool kEnv = false;
+#endif
+#ifdef SWEEP_WORK
+constexpr bool kWork = true;
+#else
+constexpr bool kWork = false;
 #endif
 
 namespace {
@@ -672,6 +683,209 @@ __device__ __forceinline__ void env_flush(const EnvArgs& E, EnvCounts& n,
   n = EnvCounts{};
 }
 
+// ---------------------------------------------------------------------------
+// The work structure (repro/core/work.py and repro/obs/survival.py; plain
+// version repro_torch/core/engine.py's event bodies with work=, run by
+// ../ref.py)
+// ---------------------------------------------------------------------------
+// A slot's work state is four floats: progress, restart-overhead debt, the
+// checkpointed progress and the life since admission.  Only life changes at
+// every slot on every event (life + dt, reset at a join), so it lives in
+// registers beside the ages; in the single queue it is the ages themselves
+// (both start at zero, gain dt at every slot on every event and reset at a
+// join only: the wrapper checks that the initial states agree).  Progress,
+// debt and checkpoint change only at the event's served, revoked or joining
+// slot, so they live in the lane's slice of shared memory (slot t * SPT + j
+// at j * G + t, so that the G threads' own slots are neighbouring words),
+// where every thread of the group reads the event's slots by broadcast and
+// every thread writes a changed slot, the same value (the group agrees on
+// the event, so no sync is needed).  The work model's seven floats, the
+// checkpoint mode and the safety net are run constants: uniform branches.
+// With the safety net (CantBeLateKernel) each occupied slot's panic clock,
+// max(deadline - life - (oh + max(total - prog, 0)) * od_time - buffer, 0),
+// joins its budget in the deadline race, in the same pass over the slots,
+// and a bit a slot marks where it won.  The ledger's six counters and four
+// sums are held as the base sums are, on every thread of the group, and
+// written with the window's other sums.
+enum CkptMode { kCkptNever = 0, kCkptNotice = 1, kCkptPeriodic = 2 };
+
+struct WorkArgs {
+  const float* prog0;  // lanes x slots: the initial work state
+  const float* oh0;
+  const float* ckpt0;
+  const float* life0;
+  float* prog;         // lanes x slots: the final work state
+  float* oh;
+  float* ckpt;
+  float* life;
+  int32_t* istats;     // 6 x lanes x windows: admitted, finished, misses,
+                       // ontime, checkpoints, panics
+  float* fstats;       // 4 x lanes x windows: work done, lost, recomputed,
+                       // overhead paid
+  int mode, safety;
+  float total, overhead, ckpt_time, period, ckpt_cost, deadline, od_time,
+      buffer;
+};
+
+// floats of a lane's work slice: progress, debt and checkpoint of its
+// `slots` (G * SPT) slots; odd, so the lanes of a warp spread over the banks
+__host__ __device__ __forceinline__ int work_stride(int slots) {
+  return 3 * slots + 1;
+}
+
+// where slot s's progress lies in the slice (debt and checkpoint follow
+// at + G * SPT and + 2 G * SPT)
+template <int G, int SPT>
+__device__ __forceinline__ int work_index(int s) {
+  return (s & (SPT - 1)) * G + s / SPT;
+}
+
+// a window's ledger (the same on every thread of a group)
+struct WorkCounts {
+  int admitted = 0, finished = 0, misses = 0, ontime = 0, checkpoints = 0;
+  int panics = 0;
+  float done = 0.f, lost = 0.f, recomputed = 0.f, overhead = 0.f;
+};
+
+// a slot's panic clock under the safety net: its slack, clamped at 0
+__device__ __forceinline__ float panic_clock(const WorkArgs& W, float life,
+                                             float prog, float oh) {
+  const float rem = oh + fmaxf(W.total - prog, 0.f);
+  const float slack = W.deadline - life - rem * W.od_time - W.buffer;
+  return slack > 0.f ? slack : 0.f;
+}
+
+// a serve's unit of work on a slot's (prog, oh, ckpt): debt first, the rest
+// into progress, a periodic checkpoint where one falls due; `complete`
+// where the slot's remaining total clears
+struct WorkServe {
+  float prog, oh, ckpt, done;
+  bool complete, taken;
+};
+
+__device__ __forceinline__ WorkServe work_serve(const WorkArgs& W,
+                                                bool served, float prog,
+                                                float oh, float ckpt) {
+  WorkServe r;
+  const float rem = oh + (W.total - prog);
+  r.oh = fmaxf(oh - 1.f, 0.f);
+  r.prog = fminf(prog + fmaxf(1.f - oh, 0.f), W.total);
+  r.done = served ? r.prog - prog : 0.f;
+  r.ckpt = ckpt;
+  r.taken = W.mode == kCkptPeriodic && served && rem > 1.f &&
+            r.prog - ckpt >= W.period;
+  if (r.taken) {
+    r.ckpt = r.prog;
+    r.oh = r.oh + W.ckpt_cost;
+  }
+  r.complete = served && rem <= 1.f;
+  return r;
+}
+
+// write slot index k's (prog, oh, ckpt) in the slice (n = G * SPT)
+__device__ __forceinline__ void work_put(float* wsl, int n, int k,
+                                         float prog, float oh, float ckpt) {
+  wsl[k] = prog;
+  wsl[n + k] = oh;
+  wsl[2 * n + k] = ckpt;
+}
+
+// fold one event into the ledger: a job finishes at its last served unit
+// or when it migrates to on-demand (its life at the migration plus its
+// pre-event remainder x od_time), and misses where that passes the
+// deadline
+__device__ __forceinline__ void work_fold(
+    const WorkArgs& W, WorkCounts& c, bool is_job, bool od_now,
+    bool complete, bool defected, bool defect_pre, float life_def,
+    float rem_def, float life_pre, float rem_pre, float life_srv, bool panic,
+    bool taken, float done, float lost, float oh_inc) {
+  const float dl = W.deadline, od = W.od_time;
+  const bool miss = (od_now && W.total * od > dl) ||
+                    (defected && life_def + rem_def * od > dl) ||
+                    (defect_pre && life_pre + rem_pre * od > dl) ||
+                    (complete && life_srv > dl);
+  const bool fin = od_now || complete || defected || defect_pre;
+  c.admitted += is_job;
+  c.finished += fin;
+  c.misses += fin && miss;
+  c.ontime += fin && !miss;
+  c.checkpoints += taken;
+  c.panics += panic;
+  c.done = c.done + done;
+  c.lost = c.lost + lost;
+  c.recomputed = c.recomputed + (lost + oh_inc);
+  c.overhead = c.overhead + oh_inc;
+}
+
+// the lane's slice (after `before` floats of the block's shared memory),
+// loaded with its slots' initial (prog, oh, ckpt); padding slots are zero.
+// The first pass's __syncwarp makes it visible to the group.
+template <int G, int SPT>
+__device__ __forceinline__ float* work_slice(const WorkArgs& W, float* smem,
+                                             size_t before, int lane_in_block,
+                                             int lane, int R, int s0, int t) {
+  constexpr int n = G * SPT;
+  float* wsl = smem + before + lane_in_block * work_stride(n);
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    float p = 0.f, h = 0.f, c = 0.f;
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
+      p = W.prog0[o];
+      h = W.oh0[o];
+      c = W.ckpt0[o];
+    }
+    work_put(wsl, n, j * G + t, p, h, c);
+  }
+  return wsl;
+}
+
+// the final work state of this thread's slots (life from `life`)
+template <int G, int SPT>
+__device__ __forceinline__ void work_store(const WorkArgs& W,
+                                           const float* wsl,
+                                           const float (&life)[SPT],
+                                           int lane, int R, int s0, int t) {
+  constexpr int n = G * SPT;
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) {
+    if (s0 + j < R) {
+      const size_t o = static_cast<size_t>(lane) * R + s0 + j;
+      const int k = j * G + t;
+      W.prog[o] = wsl[k];
+      W.oh[o] = wsl[n + k];
+      W.ckpt[o] = wsl[2 * n + k];
+      W.life[o] = life[j];
+    }
+  }
+}
+
+// window `o` of the ledger outputs (n = lanes * windows); the group's first
+// thread writes; then the counts start again
+__device__ __forceinline__ void work_flush(const WorkArgs& W, WorkCounts& c,
+                                           size_t o, size_t nw, bool write) {
+  if (write) {
+    W.istats[0 * nw + o] = c.admitted;
+    W.istats[1 * nw + o] = c.finished;
+    W.istats[2 * nw + o] = c.misses;
+    W.istats[3 * nw + o] = c.ontime;
+    W.istats[4 * nw + o] = c.checkpoints;
+    W.istats[5 * nw + o] = c.panics;
+    W.fstats[0 * nw + o] = c.done;
+    W.fstats[1 * nw + o] = c.lost;
+    W.fstats[2 * nw + o] = c.recomputed;
+    W.fstats[3 * nw + o] = c.overhead;
+  }
+  c = WorkCounts{};
+}
+
+// the bit of slot s in the per-thread masks `bits` (bit j: slot t * SPT + j)
+template <int G, int SPT>
+__device__ __forceinline__ bool slot_bit(const LaneGroup<G>& grp,
+                                         unsigned bits, int s) {
+  return (grp.from(bits, s / SPT) >> (s & (SPT - 1))) & 1u;
+}
+
 // the G threads of the lane at `shift` in the warp, for the syncs of a
 // crossing (a branch the other lanes of the warp may not take)
 template <int G>
@@ -679,9 +893,9 @@ __device__ __forceinline__ unsigned group_mask(int shift) {
   return G == 32 ? kFull : ((1u << G) - 1u) << shift;
 }
 
-template <int G, int SPT, bool TEL, bool ENV>
-__global__ void sweep_kernel(const Args a, const TelArgs tl,
-                             const EnvArgs E) {
+template <int G, int SPT, bool TEL, bool ENV, bool WORK>
+__global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
+                             const WorkArgs Wk) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -715,6 +929,17 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
     inv_cur = inv_avail(E.avail[cur.seg]);
     price_cur = E.price[cur.seg];
   }
+  // the work structure: the lane's slice and its ledger (life is the ages)
+  constexpr int wn = G * SPT;
+  float* wsl = nullptr;
+  WorkCounts wc;
+  if constexpr (WORK)
+    wsl = work_slice<G, SPT>(
+        Wk, smem,
+        lanes_per_block * (kLaneStride + kSampleStride) +
+            (TEL ? size_t(lanes_per_block) * tel_stride(tl.n_bins, kDraws)
+                 : 0),
+        lane_in_block, lane, R, s0, t);
 
   float nj = a.next_job0[lane], ns = a.next_spot0[lane];
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
@@ -760,10 +985,21 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
 
         // pre-event slot reductions: deadline, first free, FIFO-oldest
         int bkey[SPT], okey[SPT];
+        unsigned armed = 0;  // bit j: slot s0 + j's panic clock won
 #pragma unroll
         for (int j = 0; j < SPT; ++j) {
           const bool o = (occ >> j) & 1u;
-          bkey[j] = __float_as_int(o ? budgets[j] : kInf);
+          float b = o ? budgets[j] : kInf;
+          if constexpr (WORK) {
+            if (Wk.safety && o) {
+              const int k = j * G + t;
+              const float pk =
+                  panic_clock(Wk, ages[j], wsl[k], wsl[wn + k]);
+              armed |= static_cast<unsigned>(pk < b) << j;
+              b = fminf(b, pk);
+            }
+          }
+          bkey[j] = __float_as_int(b);
           okey[j] = o ? order[j] : kOrderMax;
         }
         int bmin = bkey[0], omin = okey[0];
@@ -813,7 +1049,19 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
         const bool has_job = qlen > 0;
         const bool served = is_spot && has_job;
         const bool defected = is_deadline;
-        const bool leave = served || defected;
+        // a serve completes its job only where the remaining work clears
+        WorkServe sv{};
+        sv.complete = served;
+        float rem_def = 0.f;
+        if constexpr (WORK) {
+          const int ks = work_index<G, SPT>(si), kd = work_index<G, SPT>(di);
+          sv = work_serve(Wk, served, wsl[ks], wsl[wn + ks],
+                          wsl[2 * wn + ks]);
+          rem_def = wsl[wn + kd] + (Wk.total - wsl[kd]);
+          if (served) work_put(wsl, wn, ks, sv.prog, sv.oh, sv.ckpt);
+          if (admit) work_put(wsl, wn, work_index<G, SPT>(fi), 0.f, 0.f, 0.f);
+        }
+        const bool leave = sv.complete || defected;
         const int leave_slot = served ? si : di;
 
 #pragma unroll
@@ -869,6 +1117,15 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
         }
         next_seq += admit;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
+        if constexpr (WORK) {
+          // a panic: the defecting slot's panic clock won (a shuffle every
+          // thread of the warp runs: the safety net is a run constant)
+          const bool panic =
+              Wk.safety && slot_bit<G, SPT>(grp, armed, di) && defected;
+          work_fold(Wk, wc, is_job, od_now, sv.complete, defected, false,
+                    age_defect, rem_def, 0.f, 0.f, wait_served, panic,
+                    sv.taken, sv.done, 0.f, 0.f);
+        }
 
         if constexpr (TEL) {
           TelEvent ev;
@@ -912,6 +1169,9 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
     if constexpr (ENV)
       env_flush(E, ec, static_cast<size_t>(lane) * W + w,
                 static_cast<size_t>(L) * W, t == 0 && live);
+    if constexpr (WORK)
+      work_flush(Wk, wc, static_cast<size_t>(lane) * W + w,
+                 static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -927,6 +1187,7 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl,
       a.order[o] = order[j];
     }
   }
+  if constexpr (WORK) work_store<G, SPT>(Wk, wsl, ages, lane, R, s0, t);
   if (t == 0) {
     a.next_job[lane] = nj;
     a.next_spot[lane] = ns;
@@ -946,39 +1207,49 @@ size_t tel_smem(const TelArgs& tl, int lanes_per_block, int pass) {
               : 0;
 }
 
+// ... and for the work slices of lanes of `slots` slots (G * SPT), which
+// follow the telemetry slices (none without the axis)
+size_t work_smem(int lanes_per_block, int slots) {
+  return kWork ? sizeof(float) * lanes_per_block * work_stride(slots) : 0;
+}
+
 template <int G, int SPT>
 cudaError_t launch_gs(const Args& a, const TelArgs& tl, const EnvArgs& E,
-                      int warps_per_block, cudaStream_t s) {
+                      const WorkArgs& Wk, int warps_per_block,
+                      cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem =
       sizeof(float) * lanes_per_block * (kLaneStride + kSampleStride) +
-      tel_smem(tl, lanes_per_block, kDraws);
+      tel_smem(tl, lanes_per_block, kDraws) +
+      work_smem(lanes_per_block, G * SPT);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<G, SPT, kTel, kEnv>,
+      sweep_kernel<G, SPT, kTel, kEnv, kWork>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sweep_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
+  sweep_kernel<G, SPT, kTel, kEnv, kWork><<<grid, block, smem, s>>>(a, tl, E,
+                                                                   Wk);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
 cudaError_t launch_g(const Args& a, const TelArgs& tl, const EnvArgs& E,
-                     int group, int spt, int warps_per_block,
+                     const WorkArgs& Wk, int group, int spt,
+                     int warps_per_block,
                      cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return launch_gs<4, 1>(a, tl, E, warps_per_block, s);
-      case 2: return launch_gs<4, 2>(a, tl, E, warps_per_block, s);
-      case 4: return launch_gs<4, 4>(a, tl, E, warps_per_block, s);
-      case 8: return launch_gs<4, 8>(a, tl, E, warps_per_block, s);
+      case 1: return launch_gs<4, 1>(a, tl, E, Wk, warps_per_block, s);
+      case 2: return launch_gs<4, 2>(a, tl, E, Wk, warps_per_block, s);
+      case 4: return launch_gs<4, 4>(a, tl, E, Wk, warps_per_block, s);
+      case 8: return launch_gs<4, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return launch_gs<8, 8>(a, tl, E, warps_per_block, s);
-      case 16: return launch_gs<16, 8>(a, tl, E, warps_per_block, s);
-      case 32: return launch_gs<32, 8>(a, tl, E, warps_per_block, s);
+      case 8: return launch_gs<8, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 16: return launch_gs<16, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 32: return launch_gs<32, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -1224,9 +1495,9 @@ __device__ __forceinline__ void market_sample_pass(
   }
 }
 
-template <int G, int SPT, bool TEL, bool ENV>
+template <int G, int SPT, bool TEL, bool ENV, bool WORK>
 __global__ void market_kernel(const MArgs a, const TelArgs tl,
-                              const EnvArgs E) {
+                              const EnvArgs E, const WorkArgs Wk) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -1271,6 +1542,7 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
   __syncwarp();
   int fixed_choice = 0;  // cheapest / fastest: first index on ties
   unsigned within = 0;   // bit p: a checkpoint fits pool p's notice
+  unsigned wwithin = 0;  // ... the work model's checkpoint (the base notice)
   {
     const float ck = a.ckpt[lane];
     float best = 0.f;
@@ -1285,6 +1557,9 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
           if (p == 0 || v > best) { best = v; fixed_choice = p; }
         }
         within |= static_cast<unsigned>(ck <= a.notice[lp + p]) << p;
+        if constexpr (WORK)
+          wwithin |= static_cast<unsigned>(Wk.ckpt_time <= a.notice[lp + p])
+                     << p;
       }
     }
   }
@@ -1300,6 +1575,25 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
     sg = loc_segment(E, cur.seg, P, a.price + lp, a.hazard + lp, a.rate + lp,
                      a.scale + lp, a.choice_code, tab, cum, inv, t == 0);
     __syncwarp();
+  }
+
+  // the work structure: the lane's slice, its ledger and the slots' lives
+  constexpr int wn = G * SPT;
+  float* wsl = nullptr;
+  WorkCounts wc;
+  float life[WORK ? SPT : 1];
+  if constexpr (WORK) {
+    wsl = work_slice<G, SPT>(
+        Wk, smem,
+        lanes_per_block * (kLaneStride + kMSampleStride + kTab) +
+            (TEL ? size_t(lanes_per_block) *
+                       tel_stride(tl.n_bins, kMarketPass)
+                 : 0),
+        lane_in_block, lane, R, s0, t);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j)
+      life[j] = s0 + j < R ? Wk.life0[static_cast<size_t>(lane) * R + s0 + j]
+                           : 0.f;
   }
 
   float nj = a.next_job0[lane], npre = a.next_pre0[lane];
@@ -1406,12 +1700,22 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
         // pool, the oldest of the revoked pool, the first free slot
         int bkey[SPT], skey[SPT], pkey[SPT];
         bool any_s = false, any_p = false;
+        unsigned armed = 0;  // bit j: slot s0 + j's panic clock won
 #pragma unroll
         for (int j = 0; j < SPT; ++j) {
           const bool o = (occ >> j) & 1u;
           const bool es = o && pool[j] == spot_pool;
           const bool ep = o && pool[j] == pre_pool;
-          bkey[j] = __float_as_int(o ? budgets[j] : kInf);
+          float b = o ? budgets[j] : kInf;
+          if constexpr (WORK) {
+            if (Wk.safety && o) {
+              const int k = j * G + t;
+              const float pk = panic_clock(Wk, life[j], wsl[k], wsl[wn + k]);
+              armed |= static_cast<unsigned>(pk < b) << j;
+              b = fminf(b, pk);
+            }
+          }
+          bkey[j] = __float_as_int(b);
           skey[j] = es ? order[j] : kOrderMax;
           pkey[j] = ep ? order[j] : kOrderMax;
           any_s |= es;
@@ -1502,13 +1806,22 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
         }
         const bool defect_pre = pre_hit && !resume;
         const bool defected = is_deadline;
-        const bool leave = served || defected || defect_pre;
+        // a serve completes its job only where the remaining work clears
+        WorkServe sv{};
+        sv.complete = served;
+        if constexpr (WORK) {
+          const int ks = work_index<G, SPT>(si);
+          sv = work_serve(Wk, served, wsl[ks], wsl[wn + ks],
+                          wsl[2 * wn + ks]);
+        }
+        const bool leave = sv.complete || defected || defect_pre;
         const int leave_slot = served ? si : (defected ? di : pi);
 
 #pragma unroll
         for (int j = 0; j < SPT; ++j) {
           ages[j] = ages[j] + dt;
           budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+          if constexpr (WORK) life[j] = life[j] + dt;
         }
         const float wait_served = slot_value<G, SPT>(grp, ages, si);
         const float age_defect = slot_value<G, SPT>(grp, ages, di);
@@ -1532,6 +1845,39 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
                             : (is_pre ? pre_pool
                                       : (is_deadline ? dpool : choice));
         }
+        // the work: the ledger's slot values (lives after dt, pre-event
+        // remainders), the serve's write, a resume's rollback to its
+        // checkpoint (saved first, in notice mode, where it fits the pool's
+        // notice), a join's zero state
+        float life_def = 0.f, life_pre = 0.f, life_srv = 0.f;
+        float rem_def = 0.f, rem_pre = 0.f, lost = 0.f, oh_inc = 0.f;
+        bool taken = sv.taken, panic = false;
+        if constexpr (WORK) {
+          life_def = slot_value<G, SPT>(grp, life, di);
+          life_srv = slot_value<G, SPT>(grp, life, si);
+          panic = Wk.safety && slot_bit<G, SPT>(grp, armed, di) && defected;
+          const int kd = work_index<G, SPT>(di);
+          rem_def = wsl[wn + kd] + (Wk.total - wsl[kd]);
+          if (a.preempt_on) {
+            life_pre = slot_value<G, SPT>(grp, life, pi);
+            const int kp = work_index<G, SPT>(pi);
+            const float prog_p = wsl[kp], ckpt_p = wsl[2 * wn + kp];
+            rem_pre = wsl[wn + kp] + (Wk.total - prog_p);
+            const bool saved = resume && Wk.mode == kCkptNotice &&
+                               ((wwithin >> pre_pool) & 1u);
+            const float ckpt_val = saved ? fmaxf(ckpt_p, prog_p) : ckpt_p;
+            if (resume) {
+              work_put(wsl, wn, kp, ckpt_val, Wk.overhead, ckpt_val);
+              lost = fmaxf(prog_p - ckpt_val, 0.f);
+              oh_inc = Wk.overhead;
+            }
+            taken = taken || saved;
+          }
+          if (served)
+            work_put(wsl, wn, work_index<G, SPT>(si), sv.prog, sv.oh,
+                     sv.ckpt);
+          if (admit) work_put(wsl, wn, work_index<G, SPT>(fi), 0.f, 0.f, 0.f);
+        }
         const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
         const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
 #pragma unroll
@@ -1541,6 +1887,7 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
             budgets[j] = budget;
             order[j] = next_seq;
             pool[j] = choice;
+            if constexpr (WORK) life[j] = 0.f;
           } else if (j == resume_j) {
             ages[j] = 0.f;
             budgets[j] = kInf;
@@ -1622,6 +1969,10 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
         }
         next_seq += admit || resume;
         qlen += static_cast<int>(admit) - static_cast<int>(leave);
+        if constexpr (WORK)
+          work_fold(Wk, wc, is_job, od_now, sv.complete, defected,
+                    defect_pre, life_def, rem_def, life_pre, rem_pre,
+                    life_srv, panic, taken, sv.done, lost, oh_inc);
 
         if constexpr (TEL) {
           TelEvent ev;
@@ -1683,6 +2034,9 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
     if constexpr (ENV)
       env_flush(E, ec, static_cast<size_t>(lane) * W + w,
                 static_cast<size_t>(L) * W, t == 0 && live);
+    if constexpr (WORK)
+      work_flush(Wk, wc, static_cast<size_t>(lane) * W + w,
+                 static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
   }
@@ -1699,6 +2053,7 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
       a.order[o] = order[j];
     }
   }
+  if constexpr (WORK) work_store<G, SPT>(Wk, wsl, life, lane, R, s0, t);
   if (t == 0) {
     a.next_job[lane] = nj;
     a.next_pre[lane] = npre;
@@ -1716,38 +2071,40 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
 
 template <int G, int SPT>
 cudaError_t market_launch_gs(const MArgs& a, const TelArgs& tl,
-                             const EnvArgs& E, int warps_per_block,
-                             cudaStream_t s) {
+                             const EnvArgs& E, const WorkArgs& Wk,
+                             int warps_per_block, cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem = sizeof(float) * lanes_per_block *
                           (kLaneStride + kMSampleStride + kTab) +
-                      tel_smem(tl, lanes_per_block, kMarketPass);
+                      tel_smem(tl, lanes_per_block, kMarketPass) +
+                      work_smem(lanes_per_block, G * SPT);
   cudaError_t err = cudaFuncSetAttribute(
-      market_kernel<G, SPT, kTel, kEnv>,
+      market_kernel<G, SPT, kTel, kEnv, kWork>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  market_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
+  market_kernel<G, SPT, kTel, kEnv, kWork><<<grid, block, smem, s>>>(a, tl, E,
+                                                                    Wk);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
 cudaError_t market_launch_g(const MArgs& a, const TelArgs& tl,
-                            const EnvArgs& E, int group, int spt,
-                            int warps_per_block, cudaStream_t s) {
+                            const EnvArgs& E, const WorkArgs& Wk, int group,
+                            int spt, int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return market_launch_gs<4, 1>(a, tl, E, warps_per_block, s);
-      case 2: return market_launch_gs<4, 2>(a, tl, E, warps_per_block, s);
-      case 4: return market_launch_gs<4, 4>(a, tl, E, warps_per_block, s);
-      case 8: return market_launch_gs<4, 8>(a, tl, E, warps_per_block, s);
+      case 1: return market_launch_gs<4, 1>(a, tl, E, Wk, warps_per_block, s);
+      case 2: return market_launch_gs<4, 2>(a, tl, E, Wk, warps_per_block, s);
+      case 4: return market_launch_gs<4, 4>(a, tl, E, Wk, warps_per_block, s);
+      case 8: return market_launch_gs<4, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return market_launch_gs<8, 8>(a, tl, E, warps_per_block, s);
-      case 16: return market_launch_gs<16, 8>(a, tl, E, warps_per_block, s);
-      case 32: return market_launch_gs<32, 8>(a, tl, E, warps_per_block, s);
+      case 8: return market_launch_gs<8, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 16: return market_launch_gs<16, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 32: return market_launch_gs<32, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -1937,9 +2294,9 @@ __device__ __forceinline__ void region_sample_pass(
   }
 }
 
-template <int G, int SPT, bool TEL, bool ENV>
+template <int G, int SPT, bool TEL, bool ENV, bool WORK>
 __global__ void region_kernel(const RArgs a, const TelArgs tl,
-                              const EnvArgs E) {
+                              const EnvArgs E, const WorkArgs Wk) {
   extern __shared__ float smem[];
   const LaneGroup<G> grp(threadIdx.x & 31);
   const int t = grp.t;
@@ -1989,6 +2346,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
   __syncwarp();
   int fixed_route = 0;  // cheapest / fastest: first index on ties
   unsigned within = 0;  // bit r: a checkpoint fits region r's notice
+  unsigned wwithin = 0;  // ... the work model's checkpoint (the base notice)
   {
     const float ck = a.ckpt[lane];
     float best = 0.f;
@@ -2003,6 +2361,9 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
           if (r == 0 || v > best) { best = v; fixed_route = r; }
         }
         within |= static_cast<unsigned>(ck <= a.notice[lr + r]) << r;
+        if constexpr (WORK)
+          wwithin |= static_cast<unsigned>(Wk.ckpt_time <= a.notice[lr + r])
+                     << r;
       }
     }
   }
@@ -2029,6 +2390,24 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
     ns[r] = r < R ? a.next_spot0[lr + r] : kInf;
     qr[r] = r < R ? a.qlen0[lr + r] : 0;
     qtot += qr[r];
+  }
+  // the work structure: the lane's slice, its ledger and the slots' lives
+  constexpr int wn = G * SPT;
+  float* wsl = nullptr;
+  WorkCounts wc;
+  float life[WORK ? SPT : 1];
+  if constexpr (WORK) {
+    wsl = work_slice<G, SPT>(
+        Wk, smem,
+        lanes_per_block * (kLaneStride + kRSampleStride + kRTab) +
+            (TEL ? size_t(lanes_per_block) *
+                       tel_stride(tl.n_bins, kMarketPass)
+                 : 0),
+        lane_in_block, lane, S, s0, t);
+#pragma unroll
+    for (int j = 0; j < SPT; ++j)
+      life[j] = s0 + j < S ? Wk.life0[static_cast<size_t>(lane) * S + s0 + j]
+                           : 0.f;
   }
   float npre = a.next_pre0[lane];
   int next_seq = a.next_seq0[lane];
@@ -2117,9 +2496,20 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
         const unsigned p_bits = occ & region_bits<SPT>(off, pre_r, s0);
         const unsigned free_bits = ~occ & region_bits<SPT>(off, target, s0);
         int bkey[SPT], skey[SPT], pkey[SPT];
+        unsigned armed = 0;  // bit j: slot s0 + j's panic clock won
 #pragma unroll
         for (int j = 0; j < SPT; ++j) {
-          bkey[j] = __float_as_int((occ >> j) & 1u ? budgets[j] : kInf);
+          const bool o = (occ >> j) & 1u;
+          float b = o ? budgets[j] : kInf;
+          if constexpr (WORK) {
+            if (Wk.safety && o) {
+              const int k = j * G + t;
+              const float pk = panic_clock(Wk, life[j], wsl[k], wsl[wn + k]);
+              armed |= static_cast<unsigned>(pk < b) << j;
+              b = fminf(b, pk);
+            }
+          }
+          bkey[j] = __float_as_int(b);
           skey[j] = (s_bits >> j) & 1u ? order[j] : kOrderMax;
           pkey[j] = (p_bits >> j) & 1u ? order[j] : kOrderMax;
         }
@@ -2197,7 +2587,15 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
         }
         const bool defect_pre = pre_hit && !resume;
         const bool defected = is_deadline;
-        const bool leave = served || defected || defect_pre;
+        // a serve completes its job only where the remaining work clears
+        WorkServe sv{};
+        sv.complete = served;
+        if constexpr (WORK) {
+          const int ks = work_index<G, SPT>(si);
+          sv = work_serve(Wk, served, wsl[ks], wsl[wn + ks],
+                          wsl[2 * wn + ks]);
+        }
+        const bool leave = sv.complete || defected || defect_pre;
         const int leave_slot = served ? si : (defected ? di : pi);
         int leave_r = served ? spot_r : pre_r;  // the region it leaves
         if (defected) {
@@ -2211,6 +2609,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
         for (int j = 0; j < SPT; ++j) {
           ages[j] = ages[j] + dt;
           budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+          if constexpr (WORK) life[j] = life[j] + dt;
         }
         const float wait_served = slot_value<G, SPT>(grp, ages, si);
         const float age_defect = slot_value<G, SPT>(grp, ages, di);
@@ -2218,6 +2617,37 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
         if (a.preempt_on) {
           age_pre = slot_value<G, SPT>(grp, ages, pi);
           price_p = tab[pre_r];
+        }
+        // the work, as the market's (a resume's checkpoint fits the
+        // region's notice)
+        float life_def = 0.f, life_pre = 0.f, life_srv = 0.f;
+        float rem_def = 0.f, rem_pre = 0.f, lost = 0.f, oh_inc = 0.f;
+        bool taken = sv.taken, panic = false;
+        if constexpr (WORK) {
+          life_def = slot_value<G, SPT>(grp, life, di);
+          life_srv = slot_value<G, SPT>(grp, life, si);
+          panic = Wk.safety && slot_bit<G, SPT>(grp, armed, di) && defected;
+          const int kd = work_index<G, SPT>(di);
+          rem_def = wsl[wn + kd] + (Wk.total - wsl[kd]);
+          if (a.preempt_on) {
+            life_pre = slot_value<G, SPT>(grp, life, pi);
+            const int kp = work_index<G, SPT>(pi);
+            const float prog_p = wsl[kp], ckpt_p = wsl[2 * wn + kp];
+            rem_pre = wsl[wn + kp] + (Wk.total - prog_p);
+            const bool saved = resume && Wk.mode == kCkptNotice &&
+                               ((wwithin >> pre_r) & 1u);
+            const float ckpt_val = saved ? fmaxf(ckpt_p, prog_p) : ckpt_p;
+            if (resume) {
+              work_put(wsl, wn, kp, ckpt_val, Wk.overhead, ckpt_val);
+              lost = fmaxf(prog_p - ckpt_val, 0.f);
+              oh_inc = Wk.overhead;
+            }
+            taken = taken || saved;
+          }
+          if (served)
+            work_put(wsl, wn, work_index<G, SPT>(si), sv.prog, sv.oh,
+                     sv.ckpt);
+          if (admit) work_put(wsl, wn, work_index<G, SPT>(fi), 0.f, 0.f, 0.f);
         }
         const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
         const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
@@ -2227,6 +2657,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
             ages[j] = 0.f;
             budgets[j] = budget;
             order[j] = next_seq;
+            if constexpr (WORK) life[j] = 0.f;
           } else if (j == resume_j) {
             ages[j] = 0.f;
             budgets[j] = kInf;
@@ -2319,6 +2750,10 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
         }
         next_seq += admit || resume;
         qtot += static_cast<int>(admit) - static_cast<int>(leave);
+        if constexpr (WORK)
+          work_fold(Wk, wc, is_job, od_now, sv.complete, defected,
+                    defect_pre, life_def, rem_def, life_pre, rem_pre,
+                    life_srv, panic, taken, sv.done, lost, oh_inc);
 
         if constexpr (TEL) {
           TelEvent ev;
@@ -2387,6 +2822,9 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
     if constexpr (ENV)
       env_flush(E, ec, static_cast<size_t>(lane) * W + w,
                 static_cast<size_t>(L) * W, t == 0 && live);
+    if constexpr (WORK)
+      work_flush(Wk, wc, static_cast<size_t>(lane) * W + w,
+                 static_cast<size_t>(L) * W, t == 0 && live);
 
     rebase_order<G, SPT>(grp, occ, order, next_seq, s0, S);
   }
@@ -2402,6 +2840,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
       a.order[o] = order[j];
     }
   }
+  if constexpr (WORK) work_store<G, SPT>(Wk, wsl, life, lane, S, s0, t);
   if (t == 0) {
     a.next_pre[lane] = npre;
     a.next_seq[lane] = next_seq;
@@ -2422,38 +2861,40 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
 
 template <int G, int SPT>
 cudaError_t region_launch_gs(const RArgs& a, const TelArgs& tl,
-                             const EnvArgs& E, int warps_per_block,
-                             cudaStream_t s) {
+                             const EnvArgs& E, const WorkArgs& Wk,
+                             int warps_per_block, cudaStream_t s) {
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
   const size_t smem = sizeof(float) * lanes_per_block *
                           (kLaneStride + kRSampleStride + kRTab) +
-                      tel_smem(tl, lanes_per_block, kMarketPass);
+                      tel_smem(tl, lanes_per_block, kMarketPass) +
+                      work_smem(lanes_per_block, G * SPT);
   cudaError_t err = cudaFuncSetAttribute(
-      region_kernel<G, SPT, kTel, kEnv>,
+      region_kernel<G, SPT, kTel, kEnv, kWork>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  region_kernel<G, SPT, kTel, kEnv><<<grid, block, smem, s>>>(a, tl, E);
+  region_kernel<G, SPT, kTel, kEnv, kWork><<<grid, block, smem, s>>>(a, tl, E,
+                                                                    Wk);
   return cudaGetLastError();
 }
 
 // the (G, SPT) pairs sweep.py::group_size picks, and no other
 cudaError_t region_launch_g(const RArgs& a, const TelArgs& tl,
-                            const EnvArgs& E, int group, int spt,
-                            int warps_per_block, cudaStream_t s) {
+                            const EnvArgs& E, const WorkArgs& Wk, int group,
+                            int spt, int warps_per_block, cudaStream_t s) {
   if (group == 4) {
     switch (spt) {
-      case 1: return region_launch_gs<4, 1>(a, tl, E, warps_per_block, s);
-      case 2: return region_launch_gs<4, 2>(a, tl, E, warps_per_block, s);
-      case 4: return region_launch_gs<4, 4>(a, tl, E, warps_per_block, s);
-      case 8: return region_launch_gs<4, 8>(a, tl, E, warps_per_block, s);
+      case 1: return region_launch_gs<4, 1>(a, tl, E, Wk, warps_per_block, s);
+      case 2: return region_launch_gs<4, 2>(a, tl, E, Wk, warps_per_block, s);
+      case 4: return region_launch_gs<4, 4>(a, tl, E, Wk, warps_per_block, s);
+      case 8: return region_launch_gs<4, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   } else if (spt == 8) {
     switch (group) {
-      case 8: return region_launch_gs<8, 8>(a, tl, E, warps_per_block, s);
-      case 16: return region_launch_gs<16, 8>(a, tl, E, warps_per_block, s);
-      case 32: return region_launch_gs<32, 8>(a, tl, E, warps_per_block, s);
+      case 8: return region_launch_gs<8, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 16: return region_launch_gs<16, 8>(a, tl, E, Wk, warps_per_block, s);
+      case 32: return region_launch_gs<32, 8>(a, tl, E, Wk, warps_per_block, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -2521,6 +2962,40 @@ bool env_args(const int64_t* env_ptrs, const int32_t* env_icfg, int n_locs,
   return E->n_segments >= 1 && E->n_locs == n_locs;
 }
 
+// the work arguments of a launch: work_ptrs the 10 pointers of WorkArgs in
+// order, work_icfg the checkpoint mode and the safety net, work_fcfg
+// total_work, restart_overhead, ckpt_time, ckpt_period, ckpt_cost,
+// deadline, od_time and the slack buffer; false where they do not fit this
+// build (the WORK build needs them, the others take none)
+bool work_args(const int64_t* work_ptrs, const int32_t* work_icfg,
+               const float* work_fcfg, WorkArgs* Wk) {
+  *Wk = WorkArgs{};
+  if ((work_ptrs != nullptr) != kWork) return false;
+  if (!kWork) return true;
+  int i = 0;
+  Wk->prog0 = reinterpret_cast<const float*>(work_ptrs[i++]);
+  Wk->oh0 = reinterpret_cast<const float*>(work_ptrs[i++]);
+  Wk->ckpt0 = reinterpret_cast<const float*>(work_ptrs[i++]);
+  Wk->life0 = reinterpret_cast<const float*>(work_ptrs[i++]);
+  Wk->prog = reinterpret_cast<float*>(work_ptrs[i++]);
+  Wk->oh = reinterpret_cast<float*>(work_ptrs[i++]);
+  Wk->ckpt = reinterpret_cast<float*>(work_ptrs[i++]);
+  Wk->life = reinterpret_cast<float*>(work_ptrs[i++]);
+  Wk->istats = reinterpret_cast<int32_t*>(work_ptrs[i++]);
+  Wk->fstats = reinterpret_cast<float*>(work_ptrs[i++]);
+  Wk->mode = work_icfg[0];
+  Wk->safety = work_icfg[1];
+  Wk->total = work_fcfg[0];
+  Wk->overhead = work_fcfg[1];
+  Wk->ckpt_time = work_fcfg[2];
+  Wk->period = work_fcfg[3];
+  Wk->ckpt_cost = work_fcfg[4];
+  Wk->deadline = work_fcfg[5];
+  Wk->od_time = work_fcfg[6];
+  Wk->buffer = work_fcfg[7];
+  return Wk->mode >= kCkptNever && Wk->mode <= kCkptPeriodic;
+}
+
 }  // namespace
 
 // ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
@@ -2528,7 +3003,8 @@ bool env_args(const int64_t* env_ptrs, const int32_t* env_icfg, int n_locs,
 // admit_col, job_n, spot_n, G (threads a lane), SPT (slots a thread),
 // warps a block; fcfg: job_c[4], spot_c[4]; tel_*: the telemetry
 // arguments (tel_args), null without the axis; env_*: the environment's
-// (env_args), null without it.  Launches on `stream` and returns
+// (env_args), null without it; work_*: the work structure's (work_args),
+// null without it.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
 // built, or telemetry or environment arguments that do not fit this
 // build).
@@ -2536,12 +3012,16 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
                             const float* fcfg, const int64_t* tel_ptrs,
                             const int32_t* tel_icfg, const float* tel_fcfg,
                             const int64_t* env_ptrs, const int32_t* env_icfg,
+                            const int64_t* work_ptrs,
+                            const int32_t* work_icfg, const float* work_fcfg,
                             void* stream) {
   Args a;
   TelArgs tl;
   EnvArgs E;
+  WorkArgs Wk;
   if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
-      !env_args(env_ptrs, env_icfg, 1, &E))
+      !env_args(env_ptrs, env_icfg, 1, &E) ||
+      !work_args(work_ptrs, work_icfg, work_fcfg, &Wk))
     return static_cast<int>(cudaErrorInvalidValue);
   a.next_job0 = reinterpret_cast<const float*>(ptrs[0]);
   a.next_spot0 = reinterpret_cast<const float*>(ptrs[1]);
@@ -2587,7 +3067,7 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   if (a.n_cols < 0 || a.n_cols > kDraws || warps_per_block < 1 ||
       warps_per_block > 32 || group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_g(a, tl, E, group, spt, warps_per_block,
+  return static_cast<int>(launch_g(a, tl, E, Wk, group, spt, warps_per_block,
                                    static_cast<cudaStream_t>(stream)));
 }
 
@@ -2600,7 +3080,7 @@ extern "C" const char* sweep_error_string(int code) {
 // wait_code, choice_code, resume_code, preempt_on, any_exp_pool, job_col,
 // spot_col, admit_col, choice_col, pre_col, onpre_col, G, SPT, warps a
 // block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4];
-// tel_*, env_*: as sweep_launch's.  Launches on `stream` and returns
+// tel_*, env_*, work_*: as sweep_launch's.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
 // built, or telemetry or environment arguments that do not fit this
 // build).
@@ -2608,12 +3088,17 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
                              const float* fcfg, const int64_t* tel_ptrs,
                              const int32_t* tel_icfg, const float* tel_fcfg,
                              const int64_t* env_ptrs,
-                             const int32_t* env_icfg, void* stream) {
+                             const int32_t* env_icfg,
+                             const int64_t* work_ptrs,
+                             const int32_t* work_icfg,
+                             const float* work_fcfg, void* stream) {
   MArgs a;
   TelArgs tl;
   EnvArgs E;
+  WorkArgs Wk;
   if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
-      !env_args(env_ptrs, env_icfg, icfg[4], &E))
+      !env_args(env_ptrs, env_icfg, icfg[4], &E) ||
+      !work_args(work_ptrs, work_icfg, work_fcfg, &Wk))
     return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -2682,7 +3167,7 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_pools > kMaxPools || warps_per_block < 1 || warps_per_block > 32 ||
       group * spt < a.rmax)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(market_launch_g(a, tl, E, group, spt,
+  return static_cast<int>(market_launch_g(a, tl, E, Wk, group, spt,
                                           warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }
@@ -2693,19 +3178,25 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
 // job_col, spot_col, admit_col, route_col, pre_col, onpre_col, G, SPT,
 // warps a block, then offset[9], job_code[8], job_n[8], spot_code[8] and
 // spot_n[8]; fcfg: job_c[8][4], spot_c[8][4]; tel_*, env_*: as
-// sweep_launch's.  Launches on `stream` and returns cudaGetLastError()
+// sweep_launch's (work_* too).  Launches on `stream` and returns
+// cudaGetLastError()
 // (cudaErrorInvalidValue for a (G, SPT) that is not built, or telemetry or
 // environment arguments that do not fit this build).
 extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
                              const float* fcfg, const int64_t* tel_ptrs,
                              const int32_t* tel_icfg, const float* tel_fcfg,
                              const int64_t* env_ptrs,
-                             const int32_t* env_icfg, void* stream) {
+                             const int32_t* env_icfg,
+                             const int64_t* work_ptrs,
+                             const int32_t* work_icfg,
+                             const float* work_fcfg, void* stream) {
   RArgs a;
   TelArgs tl;
   EnvArgs E;
+  WorkArgs Wk;
   if (!tel_args(tel_ptrs, tel_icfg, tel_fcfg, &tl) ||
-      !env_args(env_ptrs, env_icfg, icfg[4], &E))
+      !env_args(env_ptrs, env_icfg, icfg[4], &E) ||
+      !work_args(work_ptrs, work_icfg, work_fcfg, &Wk))
     return static_cast<int>(cudaErrorInvalidValue);
   int i = 0;
   a.next_job0 = reinterpret_cast<const float*>(ptrs[i++]);
@@ -2777,7 +3268,7 @@ extern "C" int region_launch(const int64_t* ptrs, const int32_t* icfg,
       a.n_regions > kMaxRegions || a.offset[a.n_regions] != a.n_slots ||
       warps_per_block < 1 || warps_per_block > 32 || group * spt < a.n_slots)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(region_launch_g(a, tl, E, group, spt,
+  return static_cast<int>(region_launch_g(a, tl, E, Wk, group, spt,
                                           warps_per_block,
                                           static_cast<cudaStream_t>(stream)));
 }

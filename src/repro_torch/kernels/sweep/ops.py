@@ -14,39 +14,36 @@ from repro_torch.kernels.sweep.sweep import (batched_event_windows,
                                              region_event_windows)
 
 
-def _on_cpu(state, ep) -> bool:
-    """Does the fleet (its state, or the env pair's engine state) lie on
-    the CPU?"""
-    base = state if ep is None else state[0]
-    return base.key.device.type == "cpu"
+def _on_cpu(state) -> bool:
+    """Does the fleet (its engine state, inside any env and work pairs) lie
+    on the CPU?"""
+    while not hasattr(state, "key"):
+        state = state[0]
+    return state.key.device.type == "cpu"
 
 
 def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan,
-                   tel=None, ep=None):
+                   tel=None, ep=None, work=None, wk=None):
     """Run stacked event windows; see ``batched_event_windows``."""
-    if _on_cpu(state, ep):
-        return batched_event_windows_ref(job, spot, kernel, rmax, state,
-                                         params, k_cost, plan, tel, ep)
-    return batched_event_windows(job, spot, kernel, rmax, state, params,
-                                 k_cost, plan, tel, ep)
+    run = batched_event_windows_ref if _on_cpu(state) \
+        else batched_event_windows
+    return run(job, spot, kernel, rmax, state, params, k_cost, plan, tel, ep,
+               work, wk)
 
 
 def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,
-                  k_cost, plan, tel=None, ep=None):
+                  k_cost, plan, tel=None, ep=None, work=None, wk=None):
     """Run stacked market event windows; see ``market_event_windows``."""
-    if _on_cpu(state, ep):
-        return market_event_windows_ref(job, market, kernel, rmax,
-                                        preempt_on, state, params, mp,
-                                        k_cost, plan, tel, ep)
-    return market_event_windows(job, market, kernel, rmax, preempt_on, state,
-                                params, mp, k_cost, plan, tel, ep)
+    run = market_event_windows_ref if _on_cpu(state) \
+        else market_event_windows
+    return run(job, market, kernel, rmax, preempt_on, state, params, mp,
+               k_cost, plan, tel, ep, work, wk)
 
 
 def region_events(topo, kernel, preempt_on, state, params, rp, k_cost, plan,
-                  tel=None, ep=None):
+                  tel=None, ep=None, work=None, wk=None):
     """Run stacked region event windows; see ``region_event_windows``."""
-    if _on_cpu(state, ep):
-        return region_event_windows_ref(topo, kernel, preempt_on, state,
-                                        params, rp, k_cost, plan, tel, ep)
-    return region_event_windows(topo, kernel, preempt_on, state, params, rp,
-                                k_cost, plan, tel, ep)
+    run = region_event_windows_ref if _on_cpu(state) \
+        else region_event_windows
+    return run(topo, kernel, preempt_on, state, params, rp, k_cost, plan,
+               tel, ep, work, wk)

@@ -27,7 +27,14 @@ choices against dead locations, which only the env build holds: a market
 or region run of one without a timeline where a location's rate is 0
 launches that build under the constant timeline and drops its counters;
 with every rate > 0 nothing is ever dead and the build without the env
-state runs.
+state runs.  With a work model (``work=``, a
+:class:`~repro_torch.core.work.WorkModel`; the state then wrapped
+outermost in a ``(..., WorkState)`` pair) each wrapper launches the
+kernel's work instantiation (``WORK_LIBRARY`` and its telemetry and env
+twins) and returns the final work state and the survival ledger in work
+pairs, outermost; a :class:`~repro_torch.core.work.CantBeLateKernel` is
+unwrapped to its base, its safety net and slack buffer passed to the
+kernel as run constants.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.core.engine import (EngineState, MarketState,
                                      _engine_layout, _market_layout,
                                      _region_layout)
 from repro_torch.core.env import EnvState, EnvTimeline, init_env_state
+from repro_torch.core.work import WorkState, peel_safety_net
 from repro_torch.core.market import (NoticeAwareKernel, PanicKernel,
                                      PoolChoiceKernel, peel_panic)
 from repro_torch.core.regions import RoutingKernel
@@ -57,6 +65,7 @@ from repro_torch.kernels._build import KernelLibrary, load
 from repro_torch.obs.shocks import EnvWindowStats
 from repro_torch.obs.stats import (Telemetry, TelemetryWindowStats,
                                    bin_constants)
+from repro_torch.obs.survival import SurvivalWindowStats
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
 #: the kernels without the telemetry fold (``tel=None``)
@@ -71,9 +80,27 @@ ENV_LIBRARY = KernelLibrary("sweep_env", _SOURCE,
 TEL_ENV_LIBRARY = KernelLibrary(
     "sweep_tel_env", _SOURCE,
     ("--fmad=false", "-DSWEEP_TELEMETRY", "-DSWEEP_ENV"))
-#: the four builds, by (telemetry?, env?)
-LIBRARIES = {(False, False): LIBRARY, (True, False): TEL_LIBRARY,
-             (False, True): ENV_LIBRARY, (True, True): TEL_ENV_LIBRARY}
+#: ... the work-structure instantiations (``work=``), alone and with the
+#: other axes
+WORK_LIBRARY = KernelLibrary("sweep_work", _SOURCE,
+                             ("--fmad=false", "-DSWEEP_WORK"))
+TEL_WORK_LIBRARY = KernelLibrary(
+    "sweep_tel_work", _SOURCE,
+    ("--fmad=false", "-DSWEEP_TELEMETRY", "-DSWEEP_WORK"))
+ENV_WORK_LIBRARY = KernelLibrary(
+    "sweep_env_work", _SOURCE, ("--fmad=false", "-DSWEEP_ENV", "-DSWEEP_WORK"))
+TEL_ENV_WORK_LIBRARY = KernelLibrary(
+    "sweep_tel_env_work", _SOURCE,
+    ("--fmad=false", "-DSWEEP_TELEMETRY", "-DSWEEP_ENV", "-DSWEEP_WORK"))
+#: the eight builds, by (telemetry?, env?, work?)
+LIBRARIES = {(False, False, False): LIBRARY,
+             (True, False, False): TEL_LIBRARY,
+             (False, True, False): ENV_LIBRARY,
+             (True, True, False): TEL_ENV_LIBRARY,
+             (False, False, True): WORK_LIBRARY,
+             (True, False, True): TEL_WORK_LIBRARY,
+             (False, True, True): ENV_WORK_LIBRARY,
+             (True, True, True): TEL_ENV_WORK_LIBRARY}
 
 #: slots a lane can hold: 32 threads of 8 slots, or 16 of 16
 MAX_RMAX = 256
@@ -94,12 +121,13 @@ SMALL_GROUP, SLOTS_A_THREAD = 4, 8
 
 
 @functools.cache
-def _library(tel: bool = False, env: bool = False) -> ctypes.CDLL:
-    """The kernel library of the telemetry and env instantiations or of
-    those without."""
-    lib = load(LIBRARIES[tel, env])
+def _library(tel: bool = False, env: bool = False,
+             work: bool = False) -> ctypes.CDLL:
+    """The kernel library of the telemetry, env and work instantiations
+    asked for (each on or off)."""
+    lib = load(LIBRARIES[tel, env, work])
     for fn in (lib.sweep_launch, lib.market_launch, lib.region_launch):
-        fn.argtypes = [ctypes.c_void_p] * 9
+        fn.argtypes = [ctypes.c_void_p] * 12
         fn.restype = ctypes.c_int
     lib.sweep_error_string.argtypes = [ctypes.c_int]
     lib.sweep_error_string.restype = ctypes.c_char_p
@@ -185,28 +213,76 @@ def _env_outputs(ep: dict | None, es: EnvState | None, n_locs: int,
     return (es_out, EnvWindowStats(*istats, *fstats)), ptrs, icfg
 
 
-def _with_env(out, stats, env_out, keep: bool = True):
+_CKPT_CODES = {"never": 0, "notice": 1, "periodic": 2}
+
+
+def _work_outputs(work, ws: WorkState | None, n_slots: int, lanes: int,
+                  w: int, device, safety: tuple[bool, float]):
+    """(outputs, pointers, int config, float config) of the work arguments
+    the kernel reads (``work_args`` in csrc/sweep.cu), or ``(None, None,
+    None, None)`` without the axis.  The outputs are the final WorkState
+    and the stacked ``(lanes, W)`` SurvivalWindowStats; ``safety`` the
+    CantBeLateKernel's (safety net?, slack buffer)."""
+    if work is None:
+        if safety[0]:
+            raise ValueError("sweep kernel: a safety-net kernel "
+                             "(CantBeLateKernel) needs work=WorkModel(...)")
+        return None, None, None, None
+    f32 = torch.float32
+    for name, x in zip(WorkState._fields, ws):
+        _check(f"work {name}", x, f32, (lanes, n_slots))
+    ws_out = WorkState(*(torch.empty(lanes, n_slots, dtype=f32,
+                                     device=device) for _ in ws))
+    istats = torch.empty(6, lanes, w, dtype=torch.int32, device=device)
+    fstats = torch.empty(4, lanes, w, dtype=f32, device=device)
+    ptrs = np.array([x.data_ptr() for x in (*ws, *ws_out, istats, fstats)],
+                    np.int64)
+    icfg = np.array([_CKPT_CODES[work.ckpt], int(safety[0])], np.int32)
+    fcfg = np.array([v.item() for v in work.params().values()]
+                    + [safety[1]], np.float32)
+    return (ws_out, SurvivalWindowStats(*istats, *fstats)), ptrs, icfg, fcfg
+
+
+def _unpack(state, ep, work):
+    """``(engine state, EnvState or None, WorkState or None)`` of a carry
+    (the work pair outermost, the env pair inside it)."""
+    es = ws = None
+    if work is not None:
+        state, ws = state
+    if ep is not None:
+        state, es = state
+    return state, es, ws
+
+
+def _with_pairs(out, stats, env_out, keep: bool = True, work_out=None):
     """The wrapper's return: ``(state, stats)``, in env pairs where the
-    axis is on (``keep``: the caller passed a timeline)."""
-    if env_out is None or not keep:
-        return out, stats
-    es_out, estats = env_out
-    return (out, es_out), (stats, estats)
+    axis is on (``keep``: the caller passed a timeline), then in work pairs
+    where that axis is."""
+    if env_out is not None and keep:
+        es_out, estats = env_out
+        out, stats = (out, es_out), (stats, estats)
+    if work_out is not None:
+        ws_out, wstats = work_out
+        out, stats = (out, ws_out), (stats, wstats)
+    return out, stats
 
 
 def _launch(fn_name: str, what: str, tel, ptrs, icfg, fcfg, tel_args,
-            env_args, device) -> None:
+            env_args, work_args, device) -> None:
     """Launch ``fn_name`` of the library on the current stream; raises on
     an error (never falls back)."""
-    lib = _library(tel is not None, env_args[0] is not None)
+    lib = _library(tel is not None, env_args[0] is not None,
+                   work_args[0] is not None)
     tptrs, ticfg, tfcfg = (None if x is None else x.ctypes.data
                            for x in tel_args)
     eptrs, eicfg = (None if x is None else x.ctypes.data for x in env_args)
+    wptrs, wicfg, wfcfg = (None if x is None else x.ctypes.data
+                           for x in work_args)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(ptrs.ctypes.data, icfg.ctypes.data,
                                    fcfg.ctypes.data, tptrs, ticfg, tfcfg,
-                                   eptrs, eicfg, stream)
+                                   eptrs, eicfg, wptrs, wicfg, wfcfg, stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.sweep_error_string(rc).decode()}")
@@ -313,7 +389,7 @@ def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
 def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
                           params: dict, k_cost: torch.Tensor,
                           plan: tuple[int, ...], tel: Telemetry | None = None,
-                          ep: dict | None = None
+                          ep: dict | None = None, work=None, wk=None
                           ) -> tuple[EngineState, WindowStats]:
     """Run every lane through the windows of ``plan`` in one kernel launch.
 
@@ -323,13 +399,15 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     A lane runs on :func:`group_size` threads.
     Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` (with
     ``tel`` a ``(base, telemetry)`` pair; with ``ep`` the state and the
-    stats in env pairs).
+    stats in env pairs, with ``work`` in work pairs outermost; ``wk``, the
+    work model's device params, is the plain version's and unused here).
+    In the single queue a slot's life is its age: the kernel keeps one
+    array, and the initial work state's ``life`` must equal ``ages``.
     Raises if the kernel cannot be built or launched; it never falls back.
     """
+    kernel, *safety = peel_safety_net(kernel)
     layout = _engine_layout(job, spot, kernel)
-    es = None
-    if ep is not None:
-        state, es = state
+    state, es, ws = _unpack(state, ep, work)
     lanes, device = state.key.shape[0], state.key.device
     if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
         raise ValueError(f"sweep kernel: need lanes >= 1 and 1 <= rmax <= "
@@ -393,16 +471,23 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     fcfg[4:4 + len(spot_c)] = spot_c
     tstats, *tel_args = _telemetry_outputs(tel, 1, lanes, w, device)
     env_out, *env_args = _env_outputs(ep, es, 1, lanes, w, device)
+    work_out, *work_args = _work_outputs(work, ws, rmax, lanes, w, device,
+                                         safety)
+    if ws is not None and not torch.equal(ws.life, state.ages):
+        raise ValueError("sweep kernel: the single queue holds a slot's "
+                         "life in its age; the work state's life must "
+                         "equal ages")
 
     _launch("sweep_launch", "sweep kernel", tel, ptrs, icfg, fcfg, tel_args,
-            env_args, device)
+            env_args, work_args, device)
     batched_event_windows.launches += 1
     stats = WindowStats(jobs_arrived=istats[0], jobs_completed=istats[1],
                         spot_served=istats[2], ondemand=istats[3],
                         cost_sum=fstats[0], delay_sum=fstats[1],
                         time_elapsed=fstats[2], empty_time=fstats[3],
                         spot_arrivals=istats[4], spot_found_empty=istats[5])
-    return _with_env(out, stats if tel is None else (stats, tstats), env_out)
+    return _with_pairs(out, stats if tel is None else (stats, tstats), env_out,
+                     work_out=work_out)
 
 
 #: launches of the kernel since the count was last set to 0
@@ -477,7 +562,8 @@ def _choice_col(kernel, layout, n_pools: int) -> int:
 def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                          state: MarketState, params: dict, mp: dict,
                          k_cost: torch.Tensor, plan: tuple[int, ...],
-                         tel: Telemetry | None = None, ep: dict | None = None
+                         tel: Telemetry | None = None, ep: dict | None = None,
+                         work=None, wk=None
                          ) -> tuple[MarketState, MarketWindowStats]:
     """Run every market lane through the windows of ``plan`` in one launch.
 
@@ -489,15 +575,15 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     on-demand price.  A lane runs on :func:`group_size` threads.  Returns
     ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and ``(lanes,
     W, P)`` for the pool fields (with ``tel`` a ``(base, telemetry)``
-    pair, the pools its locations).  Raises if the kernel cannot be built
+    pair, the pools its locations; the env and work pairs as in
+    :func:`batched_event_windows`).  Raises if the kernel cannot be built
     or launched, or for more than ``MAX_POOLS`` pools; it never falls
     back.
     """
+    kernel, *safety = peel_safety_net(kernel)
     layout = _market_layout(job, market, kernel, preempt_on)
     n_pools = market.n_pools
-    es = None
-    if ep is not None:
-        state, es = state
+    state, es, ws = _unpack(state, ep, work)
     lanes, device = state.key.shape[0], state.key.device
     panic = _panic_flags(kernel)
     ep, es, keep = _env_for_panic(ep, es, panic, mp["rate"], n_pools, lanes,
@@ -594,9 +680,11 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     tstats, *tel_args = _telemetry_outputs(tel, n_pools, lanes, w, device)
     env_out, *env_args = _env_outputs(ep, es, n_pools, lanes, w, device,
                                       panic)
+    work_out, *work_args = _work_outputs(work, ws, rmax, lanes, w, device,
+                                         safety)
 
     _launch("market_launch", "market kernel", tel, ptrs, icfg, fcfg,
-            tel_args, env_args, device)
+            tel_args, env_args, work_args, device)
     market_event_windows.launches += 1
     stats = MarketWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -605,8 +693,8 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
         spot_arrivals=istats[4], spot_found_empty=istats[5],
         resumed=istats[6], spot_cost=fstats[4], pool_served=pstats[0],
         pool_spot_arrivals=pstats[1], pool_preempted=pstats[2])
-    return _with_env(out, stats if tel is None else (stats, tstats), env_out,
-                     keep)
+    return _with_pairs(out, stats if tel is None else (stats, tstats), env_out,
+                     keep, work_out)
 
 
 #: launches of the market kernel since the count was last set to 0
@@ -622,7 +710,7 @@ class TooManyRegionsError(ValueError):
 def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
                          params: dict, rp: dict, k_cost: torch.Tensor,
                          plan: tuple[int, ...], tel: Telemetry | None = None,
-                         ep: dict | None = None
+                         ep: dict | None = None, work=None, wk=None
                          ) -> tuple[RegionState, RegionWindowStats]:
     """Run every region lane through the windows of ``plan`` in one launch.
 
@@ -635,15 +723,15 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
     on-demand price.  A lane runs on ``group_size(Σ rmax_r)`` threads.
     Returns ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and
     ``(lanes, W, R)`` for the region fields (with ``tel`` a ``(base,
-    telemetry)`` pair, the regions its locations).  Raises if the kernel
-    cannot be built or launched, or for more than ``MAX_REGIONS`` regions;
-    it never falls back.
+    telemetry)`` pair, the regions its locations; the env and work pairs
+    as in :func:`batched_event_windows`).  Raises if the kernel cannot be
+    built or launched, or for more than ``MAX_REGIONS`` regions; it never
+    falls back.
     """
+    kernel, *safety = peel_safety_net(kernel)
     layout = _region_layout(topo, kernel, preempt_on)
     n_regions, n_slots = topo.n_regions, topo.total_slots
-    es = None
-    if ep is not None:
-        state, es = state
+    state, es, ws = _unpack(state, ep, work)
     lanes, device = state.key.shape[0], state.key.device
     panic = _panic_flags(kernel, regions=True)
     ep, es, keep = _env_for_panic(ep, es, panic, rp["rate"], n_regions,
@@ -745,9 +833,11 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
     tstats, *tel_args = _telemetry_outputs(tel, n_regions, lanes, w, device)
     env_out, *env_args = _env_outputs(ep, es, n_regions, lanes, w, device,
                                       panic)
+    work_out, *work_args = _work_outputs(work, ws, n_slots, lanes, w, device,
+                                         safety)
 
     _launch("region_launch", "region kernel", tel, ptrs, icfg, fcfg,
-            tel_args, env_args, device)
+            tel_args, env_args, work_args, device)
     region_event_windows.launches += 1
     stats = RegionWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
@@ -758,8 +848,8 @@ def region_event_windows(topo, kernel, preempt_on: bool, state: RegionState,
         region_served=rstats[0], region_spot_arrivals=rstats[1],
         region_preempted=rstats[2], region_jobs=rstats[3],
         region_routed=rstats[4])
-    return _with_env(out, stats if tel is None else (stats, tstats), env_out,
-                     keep)
+    return _with_pairs(out, stats if tel is None else (stats, tstats), env_out,
+                     keep, work_out)
 
 
 #: launches of the region kernel since the count was last set to 0

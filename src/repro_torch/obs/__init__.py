@@ -12,6 +12,9 @@ every kernel launch as it was.
 * :mod:`repro_torch.obs.shocks` — the shock counters of the
   environment-timeline axis (``env=``): boundaries crossed, storms,
   blackouts and spikes entered, shock dwell times, degraded admissions.
+* :mod:`repro_torch.obs.survival` — the survival ledger of the work axis
+  (``work=``): jobs admitted, finished, on time and late, checkpoints,
+  panic entries, work done, lost and recomputed.
 * :mod:`repro_torch.obs.trace` — event rings and the Chrome/Perfetto
   exporter.
 * :mod:`repro_torch.obs.timing` — profiler spans.
@@ -24,6 +27,10 @@ from repro_torch.obs.stats import (EVENT_TYPES, TEL_INT_STATS, Telemetry,
                                    summarize_telemetry, telemetry_merge,
                                    telemetry_reduce, telemetry_update,
                                    telemetry_zeros)
+from repro_torch.obs.survival import (SURVIVAL_INT_STATS,
+                                      SurvivalWindowStats, summarize_survival,
+                                      survival_merge, survival_reduce,
+                                      survival_update, survival_zeros)
 from repro_torch.obs.timing import annotate
 from repro_torch.obs.trace import (TraceRecorder, device_trace_records,
                                    to_perfetto, write_perfetto)
@@ -32,6 +39,8 @@ __all__ = [
     "ENV_INT_STATS",
     "EVENT_TYPES",
     "EnvWindowStats",
+    "SURVIVAL_INT_STATS",
+    "SurvivalWindowStats",
     "TEL_INT_STATS",
     "Telemetry",
     "TelemetryWindowStats",
@@ -44,7 +53,12 @@ __all__ = [
     "env_zeros",
     "sketch_quantile",
     "summarize_env",
+    "summarize_survival",
     "summarize_telemetry",
+    "survival_merge",
+    "survival_reduce",
+    "survival_update",
+    "survival_zeros",
     "telemetry_merge",
     "telemetry_reduce",
     "telemetry_update",

@@ -31,7 +31,10 @@ traversals' telemetry instantiations): every field bitwise, floats and
 trace rings included, and the base statistics bitwise the same kernel's
 run without telemetry.  The sweep kernel with the env state (the ENV and
 TEL+ENV builds, under the kernels and under PanicKernel): the final state,
-the stats and the shock counters bitwise.
+the stats and the shock counters bitwise.  The sweep kernel with the work
+state (the four WORK builds, each checkpoint mode, with and without the
+safety net): the final state, the final work state, the stats and the
+survival ledger bitwise.
 """
 import numpy as np
 import pytest
@@ -258,10 +261,11 @@ MARKET_CASES = [
 MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
 
 
-def _market_run(device, market, kernel, rmax, params, lanes=45):
-    """``lanes`` lanes (no multiple of 32/G for G < 32) through windows of
-    333 events after a 111-event burn-in, straight into the kernel."""
-    plan = engine._window_plan(666, 333, 111)
+def _market_run(device, market, kernel, rmax, params, lanes=45,
+                plan=engine._window_plan(666, 333, 111)):
+    """``lanes`` lanes (no multiple of 32/G for G < 32) through ``plan``
+    (windows of 333 events after a 111-event burn-in), straight into the
+    kernel."""
     n = market.n_pools
     k = torch.full((lanes,), 10.0, device=device)
     mp = {name: torch.as_tensor(np.tile(v, (lanes, 1)), device=device)
@@ -373,10 +377,10 @@ REGION_CASES = [
 ]
 
 
-def _region_run(device, topo, kernel, params, lanes=45):
-    """``lanes`` lanes through windows of 333 events after a 111-event
-    burn-in, straight into the region kernel."""
-    plan = engine._window_plan(666, 333, 111)
+def _region_run(device, topo, kernel, params, lanes=45,
+                plan=engine._window_plan(666, 333, 111)):
+    """``lanes`` lanes through ``plan`` (windows of 333 events after a
+    111-event burn-in), straight into the region kernel."""
     k = torch.full((lanes,), 10.0, device=device)
     rp = engine._config_tensors({
         name: np.tile(v, (lanes, 1)) for name, v in topo.params().items()},
@@ -655,6 +659,171 @@ def test_cuda_env_launch_count_and_panic_without_a_timeline(cuda_device,
                            "panic without a timeline, a dead pool")
     else:
         _assert_tree_equal(base, ker[1], "panic without a timeline")
+
+
+#: a work model of each checkpoint mode at the cases' hourly rates: three
+#: units a job, priced restarts, a deadline the queues can miss
+_WORK = {mode: make(total_work=3.0, restart_overhead=0.5, deadline=150.0,
+                    od_time=20.0)
+         for mode, make in (("never", T.WorkModel.never),
+                            ("notice", lambda **kw: T.WorkModel.on_notice(
+                                0.05, **kw)),
+                            ("periodic", lambda **kw: T.WorkModel.periodic(
+                                1.0, 0.25, **kw)))}
+#: the axes beside the work state: (telemetry, env?)
+_WORK_AXES = {"work": (None, False), "work_tel": (TELS[0], False),
+              "work_env": (None, True), "work_tel_env": (TELS[1], True)}
+_WORK_PLAN = engine._window_plan(300, 128, 64)
+
+
+def _work_args(device, axes, net, i, kernel, n_slots, lanes, off, st, init):
+    """(kernel, carry, telemetry, ep, work model, its params) of a work
+    case: the checkpoint mode by ``i``, the env timeline (``init``: the
+    state under it) scaled into the off run ``off``."""
+    tel, env = _WORK_AXES[axes]
+    ep = None
+    if env:
+        n = 1 if off[1] is None else off[1]
+        ep = _env_timeline(n, _t_run(off[0])).params(n, device)
+        st = (init(ep), init_env_state(ep, lanes))
+    work = _WORK[("never", "notice", "periodic")[i % 3]]
+    return ((T.CantBeLateKernel(kernel, 0.2) if net else kernel),
+            (st, T.init_work_state(n_slots, lanes, device)), tel, ep, work,
+            work.params(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", [False, True], ids=["base", "safety_net"])
+@pytest.mark.parametrize("axes", list(_WORK_AXES))
+@pytest.mark.parametrize("case", [CASES[0], CASES[4]], ids=lambda c: c[0])
+def test_cuda_work_single_queue_matches_plain_version(cuda_device, case,
+                                                      axes, net):
+    """The single queue with the work state (the four WORK builds): the
+    final state and work state, the stats and the ledger bitwise the plain
+    version's."""
+    name, job, spot, kernel, rmax, params = case
+    lanes = 13
+    keys = threefry.split(threefry.key(7, cuda_device), lanes)
+    k = torch.full((lanes,), 10.0, device=cuda_device)
+    p = engine.lane_params(kernel, {
+        n: torch.as_tensor(np.resize(np.float32(v), lanes),
+                           device=cuda_device)
+        for n, v in params.items()}, k)
+    s0 = engine.init_engine_state(keys, job, spot, rmax)
+    off = batched_event_windows(job, spot, kernel, rmax, s0, p, k,
+                                _WORK_PLAN)[1]
+    kern, st, tel, ep, work, wk = _work_args(
+        cuda_device, axes, net, list(_WORK_AXES).index(axes) + net, kernel,
+        rmax, lanes, (off, None), s0,
+        lambda ep: engine.init_engine_state(keys, job, spot, rmax, ep))
+    args = (job, spot, kern, rmax, st, p, k, _WORK_PLAN, tel, ep, work, wk)
+    ref, ker = batched_event_windows_ref(*args), batched_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].finished.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", [False, True], ids=["base", "safety_net"])
+@pytest.mark.parametrize("axes", list(_WORK_AXES))
+@pytest.mark.parametrize("case", [MARKET_CASES[i] for i in (3, 4)],
+                         ids=lambda c: c[0])
+def test_cuda_work_market_matches_plain_version(cuda_device, case, axes,
+                                                net):
+    """The market with the work state, under its kernel (PanicKernel with
+    ``drain_dead`` under the env timeline) and the safety net: every field
+    bitwise the plain version's, the final work state and the ledger
+    included."""
+    name, market, kernel, rmax, params = case
+    if _WORK_AXES[axes][1]:
+        kernel = _panic(kernel, drain=True)
+    args, (_, off) = _market_run(cuda_device, market, kernel, rmax, params,
+                                 plan=_WORK_PLAN)
+    job, market, kernel, rmax, pre, s0, p, mp, k, plan = args
+    lanes, n = s0.key.shape[0], market.n_pools
+    keys = threefry.split(threefry.key(11, cuda_device), lanes)
+    kern, st, tel, ep, work, wk = _work_args(
+        cuda_device, axes, net, list(_WORK_AXES).index(axes) + net, kernel,
+        rmax, lanes, (off, n), s0,
+        lambda ep: engine.init_market_state(keys, job, market, rmax, mp, pre,
+                                            ep))
+    args = (job, market, kern, rmax, pre, st, p, mp, k, plan, tel, ep, work,
+            wk)
+    ref, ker = market_event_windows_ref(*args), market_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].finished.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", [False, True], ids=["base", "safety_net"])
+@pytest.mark.parametrize("axes", list(_WORK_AXES))
+def test_cuda_work_regions_match_plain_version(cuda_device, axes, net):
+    """The regions with the work state, under least_loaded routing
+    (PanicKernel's failover under the env timeline) and the safety net:
+    every field bitwise the plain version's."""
+    name, topo, kernel, params = REGION_CASES[0]
+    if _WORK_AXES[axes][1]:
+        kernel = _panic(kernel)
+    args, (_, off) = _region_run(cuda_device, topo, kernel, params,
+                                 plan=_WORK_PLAN)
+    topo, kernel, pre, s0, p, rp, k, plan = args
+    lanes = s0.key.shape[0]
+    keys = threefry.split(threefry.key(11, cuda_device), lanes)
+    kern, st, tel, ep, work, wk = _work_args(
+        cuda_device, axes, net, list(_WORK_AXES).index(axes) + net, kernel,
+        topo.total_slots, lanes, (off, topo.n_regions), s0,
+        lambda ep: engine.init_region_state(keys, topo, rp, pre, ep))
+    args = (topo, kern, pre, st, p, rp, k, plan, tel, ep, work, wk)
+    ref, ker = region_event_windows_ref(*args), region_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+    assert int(ker[1][1].finished.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_work_none_launches_the_build_without_it(cuda_device,
+                                                      monkeypatch):
+    """``work=None`` loads the library without the work state (with
+    telemetry, the telemetry build), ``work=`` its work twin; the identity
+    model there equals the run without it bitwise; a single queue whose
+    work life differs from its ages, and a safety net without a model, are
+    refused."""
+    loaded = []
+    load = sweep_mod.load
+    monkeypatch.setattr(sweep_mod, "load",
+                        lambda lib: loaded.append(lib) or load(lib))
+    sweep_mod._library.cache_clear()
+    name, job, spot, kernel, rmax, params = CASES[0]
+    lanes = 13
+    k = torch.full((lanes,), 10.0, device=cuda_device)
+    p = {"r": torch.full((lanes,), 2.0, device=cuda_device)}
+    s0 = engine.init_engine_state(
+        threefry.split(threefry.key(3, cuda_device), lanes), job, spot, rmax)
+    ws = T.init_work_state(rmax, lanes, cuda_device)
+    identity = T.WorkModel()
+    try:
+        for tel, off_lib, on_lib in (
+                (None, sweep_mod.LIBRARY, sweep_mod.WORK_LIBRARY),
+                (TELS[0], sweep_mod.TEL_LIBRARY,
+                 sweep_mod.TEL_WORK_LIBRARY)):
+            off = batched_event_windows(job, spot, kernel, rmax, s0, p, k,
+                                        _WORK_PLAN, tel)
+            assert loaded[-1] is off_lib
+            on = batched_event_windows(job, spot, kernel, rmax, (s0, ws), p,
+                                       k, _WORK_PLAN, tel, None, identity)
+            assert loaded[-1] is on_lib
+            torch.cuda.synchronize()
+            _assert_tree_equal(off, (on[0][0], on[1][0]), f"identity {tel}")
+        with pytest.raises(ValueError, match="life"):
+            batched_event_windows(job, spot, kernel, rmax,
+                                  (s0, ws._replace(life=ws.life + 1.0)), p, k,
+                                  _WORK_PLAN, None, None, identity)
+        with pytest.raises(ValueError, match="WorkModel"):
+            batched_event_windows(job, spot, T.CantBeLateKernel(kernel), rmax,
+                                  s0, p, k, _WORK_PLAN)
+    finally:
+        sweep_mod._library.cache_clear()
 
 
 def _normals(device, dtype, seed, *shapes):

@@ -68,6 +68,21 @@ out = run_market_sweep(Exponential(1 / 12), market,
                        device="cpu", env=tl)
 assert out["storms_observed"].shape == (2, 2)
 assert np.isfinite(out["avg_cost_job"]).all()
+from repro_torch.core import CantBeLateKernel, WorkModel
+from repro_torch.obs import SURVIVAL_INT_STATS
+out = run_market_sweep(Exponential(1 / 12), market,
+                       CantBeLateKernel(PanicKernel(NoticeAwareKernel(0.05),
+                                                    drain_dead=True),
+                                        slack_buffer=0.2),
+                       {{"r": np.array([1.0, 2.5])}}, n_events=200,
+                       n_seeds=2, rmax=8, key=repro_torch.key(0),
+                       device="cpu", env=tl,
+                       work=WorkModel.on_notice(0.2, total_work=3.0,
+                                                restart_overhead=0.5,
+                                                deadline=120.0, od_time=10.0))
+assert set(SURVIVAL_INT_STATS) < set(out)
+assert (out["jobs_ontime"] + out["deadline_misses"]
+        == out["jobs_finished"]).all()
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)

@@ -511,10 +511,13 @@ def test_unported_options_raise_named_errors():
     tt = both_topologies()[1]
     kernel = T.RoutingKernel(T.NoticeAwareKernel(0.05), "least_loaded")
     kw = dict(n_events=100, key=threefry.key(0), device="cpu")
-    for bad in ({"rng": "split"}, {"work": object()}, {"shard": "lanes"}):
+    for bad in ({"rng": "split"}, {"shard": "lanes"}):
         with pytest.raises(NotImplementedError):
             T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, **bad)
-    # telemetry= and env= are ported: a value of another type is refused
+    # telemetry=, env= and work= are ported: a value of another type is
+    # refused
+    with pytest.raises(TypeError, match="WorkModel"):
+        T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, work=object())
     with pytest.raises(TypeError, match="Telemetry"):
         T.run_region_sweep(tt, kernel, {"r": 1.0}, **kw, telemetry=object())
     with pytest.raises(TypeError, match="EnvTimeline"):

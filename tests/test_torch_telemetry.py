@@ -442,10 +442,10 @@ def test_entry_points_refuse_what_is_not_ported(name):
     args = entry_args(name)
     with pytest.raises(TypeError, match="Telemetry"):
         fn(*args, {"r": 1.0}, telemetry=R.Telemetry(), **kw)
-    # env= is ported: a value of another type is refused
+    # env= and work= are ported: a value of another type is refused
     with pytest.raises(TypeError, match="EnvTimeline"):
         fn(*args, {"r": 1.0}, env=object(), **kw)
-    with pytest.raises(NotImplementedError, match="CantBeLateKernel"):
+    with pytest.raises(TypeError, match="WorkModel"):
         fn(*args, {"r": 1.0}, work=object(), **kw)
     with pytest.raises(NotImplementedError, match="rng='split'"):
         fn(*args, {"r": 1.0}, rng="split", **kw)
