@@ -22,8 +22,8 @@ nonzero):
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
-   the lane count leaves a ragged block), rmax 8 and 1, 3,000 events (a
-   512-event burn-in, a 2,048-event window and a tail), and from a join
+   the lane count leaves a ragged block), rmax 8 and 1, 2,000 events (a
+   512-event burn-in, a 1,024-event window and a tail), and from a join
    order a hair below INT32_MAX (20 windows of 128 events): integer statistics bitwise, float sums to rtol
    1e-5 (the port's tolerance against the JAX package; see
    tests/test_torch_sweep.py); then the lane-group layouts: rmax 2, 16,
@@ -270,13 +270,32 @@ nonzero):
    and the safety net each equal to the plain version on every key, no
    miss under the safety net, its cost below the all-on-demand floor.
 
-The next-to-last line is a JSON object describing the five ported kernels
+25. the sweep kernel's split traversal (``rng="split"``, the JAX package's
+   default stream: ``sweep_kernel`` walks each lane's per-event key ladder
+   itself, a run-time flag of every build) against its plain version at
+   cut depth (190 events: a burn-in, two windows and a tail, 70 lanes):
+   every (G, slots a thread) pick, each wait family (a swept exponential
+   rate, the family's own, which XLA multiplies by its reciprocal, two
+   points, infinite, a swept deterministic wait), the bathtub, uniform and
+   deterministic processes, and the seven combinations of telemetry, env
+   and work (under ``CantBeLateKernel``) on the layouts in turn: every
+   field bitwise, the final lane keys included;
+26. the two single-queue fleets of phase 4 on the split stream at full
+   width: the kernel alone on the slab and the split stream in turns
+   (slab, split, split, slab; the split/slab ratio, the bound recounted
+   with the ladder's hashes), the kernel against its plain version on the
+   main path's inputs over 256 events (every field bitwise, both timed),
+   then ``run_sweep(rng="split")`` with the launch count set to 0 just
+   before and read just after (one launch), equal to the summary of the
+   kernel's own call, held to Theorems 5 and 1.
+
+The next-to-last line is a JSON object describing the ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
 with each route's time and launches; the sweep's three traversals as
 three entries, each with its telemetry time, bound, on/off ratio and
 launches, its env time, bound, on/off ratios and launches, and its work
-time, bound, on/off ratios and launches); the last
-is ``{"ok": true, "device": {...}}``.
+time, bound, on/off ratios and launches; the single queue's split
+traversal as a fourth); the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -403,13 +422,27 @@ LOGITS_ATOL = 0.2
 LOGITS_F32 = dict(rtol=1e-4, atol=1e-5)
 
 
+#: INT32 instructions of one threefry-2x32 hash of a counter (0, c) as
+#: sm_90 runs csrc/sweep.cu's ``threefry_pair``: 20 rounds of three (the
+#: add, the rotate by a constant as one funnel shift, the xor), x1's five
+#: key injections with their round constants as five three-input adds,
+#: x0's last injection (its other four fold into the next round's add), and
+#: the counter's add.  A key's parity (k0 ^ k1 ^ C, one three-input xor) is
+#: counted once a key, apart from the hash.
+HASH_INT32 = 67
+#: INT32 instructions of a slab column: the hash, the xor that keeps one
+#: word, and u01's shift (the lane key's parity is a window's, not a
+#: column's)
+COLUMN_INT32 = HASH_INT32 + 2
+
+
 def ops_per_lane_event(rmax: int, n_cols: int) -> tuple[int, int]:
     """(INT32, FP32) operations one lane-event needs, counted from the
-    plain version's arithmetic, by the type of the data they work on.
+    plain version's arithmetic, by the type of the data they work on, the
+    hashes at the instructions sm_90 runs them in.
 
-    Per slab column: 119 INT32 (threefry-2x32: 20 rounds of add, shift,
-    shift, or, xor; 17 key adds; the final xor; the u01 shift) and 2 FP32
-    (convert, scale).  Per slot: 16 INT32 (the first-free and FIFO arg-min
+    Per slab column: :data:`COLUMN_INT32` INT32 and 2 FP32 (convert,
+    scale).  Per slot: 16 INT32 (the first-free and FIFO arg-min
     compares and index selects, the masked order select, the one-hot
     compares, the join/leave masks, the occupancy and order updates) and
     11 FP32 (the masked budget select and compare, the age and budget
@@ -417,7 +450,8 @@ def ops_per_lane_event(rmax: int, n_cols: int) -> tuple[int, int]:
     (event-kind logic, admission masks, counters, queue length) and 36
     FP32 (clock merge, admission probability, two samplers with log1p
     counted as one, clock updates, four float sums)."""
-    return 119 * n_cols + 16 * rmax + 28, 2 * n_cols + 11 * rmax + 36
+    return (COLUMN_INT32 * n_cols + 16 * rmax + 28,
+            2 * n_cols + 11 * rmax + 36)
 
 
 def bytes_moved(lanes: int, rmax: int, n_windows: int) -> int:
@@ -489,9 +523,11 @@ def host_us(fn, repeat: int) -> float:
     return t / repeat * 1e6
 
 
-def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None):
-    """Lane state and per-lane params for a direct kernel call: ``params``
-    maps names to per-lane values (nested for the wait family)."""
+def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None,
+          rng="slab"):
+    """Lane state and per-lane params for a direct kernel call on the
+    ``rng`` stream: ``params`` maps names to per-lane values (nested for
+    the wait family)."""
     device = device or DEVICE
     keys = threefry.split(threefry.key(seed, device), lanes)
     k = torch.full((lanes,), 10.0, dtype=torch.float32, device=device)
@@ -503,7 +539,7 @@ def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None):
                 for n, v in p.items()}
 
     return (init_engine_state(keys, job, spot, rmax),
-            lane_params(kernel, lanewise(params), k), k)
+            lane_params(kernel, lanewise(params), k, rng), k)
 
 
 def compare(name: str, ref, ker, fin_ref=None, fin_ker=None) -> float:
@@ -564,7 +600,7 @@ PARITY_CASES = [
 
 def phase_parity() -> float:
     worst = 0.0
-    plan = _window_plan(3_000, 2_048, 512)
+    plan = _window_plan(2_000, 1_024, 512)
     for name, job, spot, kernel, rmax, params, lanes in PARITY_CASES:
         init_job = Exponential(LAM) if isinstance(job, Gamma) else job
         state0, p, k = fleet(init_job, spot, kernel, rmax, params, lanes, 7)
@@ -776,7 +812,13 @@ def phase_main_path(entry: dict) -> None:
     entry["launches"] = sum(entry[f"launches_{name}"]
                             for name, *_ in MAIN_PATHS)
 
-    tp, ss = out["three_phase"], out["single_slot"]
+    hold_theory(out["three_phase"], out["single_slot"])
+
+
+def hold_theory(tp: dict, ss: dict) -> None:
+    """The two main-path fleets' results: finite, of the grid's shape, the
+    three-phase fleet within 5e-3·k of Theorem 5 at the eight integer r and
+    the single-slot fleet within 5e-3·k of Theorem 1 at every wait."""
     for res, shape in ((tp, (R_GRID.size, K_GRID.size, N_SEEDS)),
                        (ss, (WAITS.size, K_GRID.size, N_SEEDS))):
         for name, v in res.items():
@@ -2084,7 +2126,7 @@ MARKET_CASES = [
      SpotMarket.single(Uniform(0.0, 48.0), price=0.4, hazard=0.05),
      SingleSlotKernel(wait=ExponentialWait(0.5)), 1, {}, None),
 ]
-MARKET_PLAN = _window_plan(700, 512, 128)
+MARKET_PLAN = _window_plan(560, 384, 128)
 MARKET_LANES = 96  # a ragged last block at G 4 (32 lanes a block)
 #: every (G, slots a thread) the wrapper can pick, by rmax
 MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
@@ -2251,8 +2293,8 @@ def market_ops_per_lane_event(rmax: int, n_cols: int,
     """(INT32, FP32) operations one market lane-event needs, counted from
     the plain version's arithmetic by the type of the data they work on.
 
-    As :func:`ops_per_lane_event` for the columns (119 INT32 + 2 FP32 a
-    column: threefry, u01), and a slot the single queue's 16 INT32 + 11
+    As :func:`ops_per_lane_event` for the columns (:data:`COLUMN_INT32`
+    INT32 + 2 FP32 a column: threefry, u01), and a slot the single queue's 16 INT32 + 11
     FP32 plus the market's 8 INT32 (the pool compares and masks of the two
     FIFO keys, the revoked pool's order key and one-hot compare, the
     resume order select, the pool tag select) and 3 FP32 (the revoked
@@ -2266,7 +2308,7 @@ def market_ops_per_lane_event(rmax: int, n_cols: int,
     24 FP32 (the preemption clock's merge and refresh with log1p counted as
     one and its division, the thinning product, the re-admission law, three
     more float sums)."""
-    return (119 * n_cols + 24 * rmax + 8 * n_pools + 44,
+    return (COLUMN_INT32 * n_cols + 24 * rmax + 8 * n_pools + 44,
             2 * n_cols + 14 * rmax + 8 * n_pools + 60)
 
 
@@ -2634,8 +2676,8 @@ def region_ops_per_lane_event(slots: int, n_cols: int, n_regions: int,
     version's arithmetic, with the static partition's work counted a thread,
     as the kernel does it.
 
-    As :func:`market_ops_per_lane_event` for the columns (119 INT32 + 2
-    FP32).  A slot: the single queue's 16 INT32 + 11 FP32 plus the
+    As :func:`market_ops_per_lane_event` for the columns
+    (:data:`COLUMN_INT32` INT32 + 2 FP32).  A slot: the single queue's 16 INT32 + 11 FP32 plus the
     region's 5 INT32 (the revoked partition's bit test, its order key's
     select, arg-min compare and one-hot compare, the resume order select)
     and 3 FP32 (the revoked age's one-hot read, the resume selects of age
@@ -2651,7 +2693,8 @@ def region_ops_per_lane_event(slots: int, n_cols: int, n_regions: int,
     sum, the thinning compare, two price reads, the rate and job-rate
     divisions).  An event: the market's 44 INT32 + 60 FP32 plus 4 INT32
     (the route's home compare, the routed-home counter)."""
-    return (119 * n_cols + 21 * slots + 36 * group + 26 * n_regions + 48,
+    return (COLUMN_INT32 * n_cols + 21 * slots + 36 * group
+            + 26 * n_regions + 48,
             2 * n_cols + 14 * slots + 16 * n_regions + 60)
 
 
@@ -4339,6 +4382,258 @@ def phase_work_main_path(entries: dict[str, dict], offs: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the split stream (rng="split"): the single queue's per-event key ladder,
+# walked inside sweep_kernel (a run-time flag of every build)
+# ---------------------------------------------------------------------------
+#: the split parity phase's plan: a burn-in, two windows and a tail (190
+#: events; the plain version walks the ladder a few hundred launches an
+#: event)
+SPLIT_PLAN = _window_plan(150, 60, 40)
+SPLIT_LANES = 70  # a ragged last warp at every G
+#: (name, job, spot, kernel, rmax, params): one case at each (G, slots a
+#: thread) pick, then each wait family at rmax 1; a case whose params hold
+#: no "wait" samples at the family's constants (a fixed exponential rate is
+#: a product with its float32 reciprocal)
+SPLIT_CASES = [
+    ("rmax1_exp_wait_swept", Exponential(LAM), Exponential(MU),
+     SingleSlotKernel(wait=ExponentialWait(0.37)), 1,
+     {"wait": {"rate": np.linspace(0.1, 2.5, SPLIT_LANES)}}),
+    ("rmax8_bathtub", Exponential(LAM), BathtubGCP(), ThreePhaseKernel(), 8,
+     {"r": np.linspace(0.25, 7.0, SPLIT_LANES)}),
+    ("rmax16_uniform_job", Uniform(0.3, 24.7), Exponential(MU),
+     ThreePhaseKernel(), 16, {"r": np.linspace(1.0, 14.0, SPLIT_LANES)}),
+    ("rmax32_deterministic_job", Deterministic(12.0), Uniform(0.0, 48.0),
+     ThreePhaseKernel(), 32, {"r": np.linspace(1.0, 30.0, SPLIT_LANES)}),
+    ("rmax64", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 64,
+     {"r": np.linspace(1.0, 60.0, SPLIT_LANES)}),
+    ("rmax100", Exponential(LAM), Exponential(MU), ThreePhaseKernel(), 100,
+     {"r": np.linspace(1.0, 90.0, SPLIT_LANES)}),
+    ("rmax256_bathtub", Exponential(LAM), BathtubGCP(), ThreePhaseKernel(),
+     256, {"r": np.linspace(1.0, 250.0, SPLIT_LANES)}),
+    ("infinite_wait", Exponential(LAM), Uniform(0.3, 48.7),
+     SingleSlotKernel(wait=InfiniteWait()), 1, {}),
+    ("two_point_wait", Exponential(LAM), Uniform(0.3, 48.7),
+     SingleSlotKernel(wait=TwoPointWait(0.3, 20.0)), 1, {}),
+    ("exp_wait_fixed", Exponential(LAM), Exponential(MU),
+     SingleSlotKernel(wait=ExponentialWait(0.37)), 1, {}),
+    ("deterministic_wait_swept", Exponential(LAM), Uniform(0.0, 48.0),
+     SingleSlotKernel(wait=DeterministicWait(3.0)), 1,
+     {"wait": {"value": np.linspace(0.0, 9.0, SPLIT_LANES)}}),
+]
+#: the combinations of the three states beside the stream: (telemetry,
+#: env?, work?), each on a layout case in turn, the work ones under
+#: CantBeLateKernel
+SPLIT_AXES = ((TEL_RING, False, False), (None, True, False),
+              (None, False, True), (TEL_NARROW, True, False),
+              (TEL_RING, False, True), (None, True, True),
+              (TEL_NARROW, True, True))
+#: a model of each checkpoint mode at the cases' hourly rates: three units
+#: a job, priced restarts, a deadline the queues can miss
+SPLIT_WORK = [make(total_work=3.0, restart_overhead=0.5, deadline=150.0,
+                   od_time=20.0)
+              for make in (WorkModel.never,
+                           functools.partial(WorkModel.on_notice, 0.05),
+                           functools.partial(WorkModel.periodic, 1.0, 0.25))]
+#: the depth at which the split main-path fleets are held to, and timed
+#: beside, the plain version
+SPLIT_CUT_PLAN = (256,)
+
+
+def split_hashes(job, spot, kernel) -> tuple[int, int, int]:
+    """(subkey hashes, bits hashes, keys hashed under) a lane-event of the
+    split stream needs: the ladder's next key, a subkey for each process
+    and policy that draws (a bathtub splits its own three ways), and one
+    bits word for each draw, each under a key of its own."""
+    pairs, bits, keys = 1, 0, 1
+    for proc in (job, spot):
+        if isinstance(proc, Deterministic):
+            continue
+        n = 3 if isinstance(proc, BathtubGCP) else 1
+        pairs += 1 + (n if n > 1 else 0)
+        bits, keys = bits + n, keys + n + (n > 1)
+    wait = getattr(kernel, "wait", None)
+    if isinstance(kernel, ThreePhaseKernel) or isinstance(
+            wait, (TwoPointWait, ExponentialWait)):
+        pairs, bits, keys = pairs + 1, bits + 1, keys + 1
+    return pairs, bits, keys
+
+
+def split_ops_per_lane_event(rmax: int, pairs: int, bits: int, keys: int
+                             ) -> tuple[int, int]:
+    """(INT32, FP32) operations of a split-stream lane-event:
+    :data:`HASH_INT32` a subkey hash, that and 3 more a bits word (the xor
+    that keeps one word, the shift and the or under the exponent) with its
+    1 FP32 (the subtract of 1.0), one a key for its parity; the event
+    chain as :func:`ops_per_lane_event` counts it."""
+    return (HASH_INT32 * (pairs + bits) + 3 * bits + keys + 16 * rmax + 28,
+            bits + 11 * rmax + 36)
+
+
+def split_bytes_moved(lanes: int, rmax: int, n_windows: int) -> int:
+    """:func:`bytes_moved` with a lane key read and written once in place
+    of the window keys."""
+    return bytes_moved(lanes, rmax, 0) + lanes * (n_windows * 10 * 4 + 16)
+
+
+def phase_split_parity() -> None:
+    """The split traversal against its plain version on the card, at cut
+    depth (SPLIT_PLAN): each (G, slots a thread) pick, each wait family,
+    and each combination of the telemetry, env and work states on the
+    layouts in turn (the work ones under CantBeLateKernel): every field
+    bitwise, the lane keys it reached included; with telemetry alone the
+    base stats bitwise the run without it."""
+    picks = {picked_layout(rmax) for rmax in range(1, sweep.MAX_RMAX + 1)}
+    driven = set()
+    for i, (name, job, spot, kernel, rmax, params) in enumerate(SPLIT_CASES):
+        state0, p, k = fleet(job, spot, kernel, rmax, params, SPLIT_LANES,
+                             30 + i, rng="split")
+        args = (job, spot, kernel, rmax, state0, p, k, SPLIT_PLAN)
+        ref = batched_event_windows_ref(*args, rng="split")
+        ker = sweep.batched_event_windows(*args, rng="split")
+        torch.cuda.synchronize()
+        hold_all(f"split {name}", ref, ker)
+        if torch.equal(ker[0].key, state0.key):
+            raise AssertionError(f"split {name}: the lane keys did not move")
+        g, spt = picked_layout(rmax)
+        driven.add((g, spt))
+        print(f"split parity {name}: rmax {rmax} (G {g}, {spt} slots a "
+              f"thread), {SPLIT_LANES} lanes, plan {SPLIT_PLAN}, "
+              f"{split_hashes(job, spot, kernel)[:2]} (subkey, bits) hashes "
+              f"an event: every field bitwise, the final lane keys included",
+              flush=True)
+    if driven != picks:
+        raise AssertionError(f"split layouts driven {sorted(driven)}, "
+                             f"picked {sorted(picks)}")
+    for j, (tel, env, work) in enumerate(SPLIT_AXES):
+        i = 1 + j % (len(picks) - 1)
+        name, job, spot, kernel, rmax, params = SPLIT_CASES[i]
+        state0, p, k = fleet(job, spot, kernel, rmax, params, SPLIT_LANES,
+                             30 + i, rng="split")
+        off = sweep.batched_event_windows(job, spot, kernel, rmax, state0,
+                                          p, k, SPLIT_PLAN, rng="split")
+        st, ep, model, wk = state0, None, None, None
+        if env:
+            keys = threefry.split(threefry.key(30 + i, DEVICE), SPLIT_LANES)
+            t_run = 0.9 * float(off[1].time_elapsed.double().sum(1).min())
+            st, ep = with_env(state0, env_parity_timeline(1, t_run), 1,
+                              lambda ep: init_engine_state(keys, job, spot,
+                                                           rmax, ep))
+        if work:
+            kernel = CantBeLateKernel(kernel, 0.2)
+            model = SPLIT_WORK[j % len(SPLIT_WORK)]
+            wk = model.params(DEVICE)
+            st = work_state0(st, rmax)
+        args = (job, spot, kernel, rmax, st, p, k, SPLIT_PLAN, tel, ep, model,
+                wk)
+        ref = batched_event_windows_ref(*args, rng="split")
+        ker = sweep.batched_event_windows(*args, rng="split")
+        torch.cuda.synchronize()
+        net = f" + work {model.ckpt} + CantBeLateKernel" if work else ""
+        what = (f"split {name}{' + telemetry' if tel else ''}"
+                f"{' + env' if env else ''}{net}")
+        hold_all(what, ref, ker)
+        if tel is not None and not env and not work:
+            hold_base(what, off[1], ker[1][0])
+        print(f"{what}, rmax {rmax}, {SPLIT_LANES} lanes, plan {SPLIT_PLAN}: "
+              f"every field bitwise", flush=True)
+
+
+def phase_split_main_path(split: dict) -> None:
+    """The two main-path fleets at full width on the split stream: the
+    kernel alone on the slab and the split stream in turns (slab, split,
+    split, slab) on the main path's inputs; at SPLIT_CUT_PLAN the kernel
+    against its plain version, every field bitwise, both timed; then
+    ``run_sweep(rng="split")`` with the launch count set to 0 just before
+    and read just after (one launch), its result equal to the summary of
+    the kernel's own call and held to Theorems 5 and 1."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    out = {}
+    split["launches"] = 0
+    for name, kernel, params, rmax in MAIN_PATHS:
+        state0, p, k = main_inputs(kernel, params, rmax)
+        times = {"slab": [], "split": []}
+        for rng in ("slab", "split", "split", "slab"):
+            ms, run = cuda_ms(lambda: sweep.batched_event_windows(
+                JOB, SPOT, kernel, rmax, state0, p, k, plan, rng=rng))
+            times[rng].append(ms)
+            if rng == "split":
+                stats = run[1]
+        slab_ms, split_ms = (float(np.mean(times[r]))
+                             for r in ("slab", "split"))
+        pairs, bits, keys = split_hashes(JOB, SPOT, kernel)
+        ops = split_ops_per_lane_event(rmax, pairs, bits, keys)
+        b_ms, b_by = bound_ms(lanes, plan, ops,
+                              split_bytes_moved(lanes, rmax, len(plan)))
+        s_ms, _ = bound_ms(lanes, plan, ops_per_lane_event(
+            rmax, _engine_layout(JOB, SPOT, kernel).n_cols),
+            bytes_moved(lanes, rmax, len(plan)))
+
+        cut = (JOB, SPOT, kernel, rmax, state0, p, k, SPLIT_CUT_PLAN)
+        sweep.batched_event_windows(*cut, rng="split")  # warm-up
+        cut_ms, ker = cuda_ms(
+            lambda: sweep.batched_event_windows(*cut, rng="split"), 3)
+        plain_ms, ref = cuda_ms(
+            lambda: batched_event_windows_ref(*cut, rng="split"))
+        hold_all(f"split {name} cut depth", ref, ker)
+        cb_ms, _ = bound_ms(lanes, SPLIT_CUT_PLAN, ops,
+                            split_bytes_moved(lanes, rmax, 1))
+        err = max_abs(ref[1], ker[1])
+        g, spt = picked_layout(rmax)
+        split.update({
+            f"main_{name}_ms": split_ms, f"main_{name}_slab_ms": slab_ms,
+            f"main_{name}_ratio": split_ms / slab_ms,
+            f"main_{name}_bound_ms": b_ms, f"main_{name}_bound_by": b_by,
+            f"main_{name}_slab_bound_ms": s_ms,
+            f"{name}_hashes": [pairs, bits], f"group_{name}": g,
+            f"slots_a_thread_{name}": spt})
+        if name == "three_phase":
+            split.update(ms=cut_ms, plain_ms=plain_ms, bound_ms=cb_ms,
+                         bound_by=b_by, max_abs_err=err)
+        else:
+            split.update({f"{name}_ms": cut_ms, f"{name}_plain_ms": plain_ms,
+                          f"{name}_bound_ms": cb_ms})
+            split["max_abs_err"] = max(split["max_abs_err"], err)
+        print(f"split main-size kernel {name}: {lanes} lanes × {sum(plan)} "
+              f"events, rmax {rmax} (G {g}, {spt} slots a thread), {pairs} "
+              f"subkey + {bits} bits hashes an event: slab "
+              f"{times['slab'][0]:.1f} / {times['slab'][1]:.1f} ms, split "
+              f"{times['split'][0]:.1f} / {times['split'][1]:.1f} ms: "
+              f"split/slab {split_ms / slab_ms:.4f}; bound {b_ms:.1f} ms "
+              f"({b_by}: {100 * b_ms / split_ms:.1f}%; the slab's "
+              f"{s_ms:.1f} ms); cut depth {SPLIT_CUT_PLAN}: kernel "
+              f"{cut_ms:.3f} ms (bound {cb_ms:.4f} ms), plain "
+              f"{plain_ms:.1f} ms, every field bitwise", flush=True)
+
+        sweep.batched_event_windows.launches = 0
+        t0 = time.perf_counter()
+        res = run_sweep(JOB, SPOT, kernel, params, k=K_GRID[None, :],
+                        n_events=N_EVENTS, key=threefry.key(MAIN_SEED),
+                        n_seeds=N_SEEDS, rmax=rmax, burn_in=BURN_IN,
+                        rng="split")
+        wall = time.perf_counter() - t0
+        launches = sweep.batched_event_windows.launches
+        split["launches"] += launches
+        split[f"launches_{name}"] = launches
+        split[f"run_sweep_{name}_s"] = wall
+        if launches != 1:
+            raise AssertionError(f"split main path {name}: run_sweep "
+                                 f"launched the kernel {launches} times")
+        want = summarize(type(stats)(*(x[:, 1:] for x in stats)))
+        for field, v in want.items():
+            if not np.array_equal(res[field], np.reshape(
+                    v, np.shape(res[field]))):
+                raise AssertionError(f"split main path {name}: {field} "
+                                     f"differs from the kernel's own call")
+        out[name] = res
+        print(f"split main path {name}: run_sweep(rng='split') {wall:.3f} "
+              f"s wall ({lanes * (N_EVENTS + BURN_IN) / wall:.4g} "
+              f"lane-events/s), kernel launches {launches}, equal to the "
+              f"kernel's own call", flush=True)
+    hold_theory(out["three_phase"], out["single_slot"])
+
+
 #: (phase, wall seconds) of this run, in order
 PHASE_SECONDS: list[tuple[str, float]] = []
 
@@ -4445,6 +4740,15 @@ def main() -> int:
     timed(phase_work_parity)
     timed(phase_work_main_path, main_entries, offs)
 
+    split = {"name": "sweep_batched_event_windows_split", "route": "cuda",
+             "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
+             "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
+                         "src/repro/core/engine.py:241 _engine_event, "
+                         "layout=None: the split stream)",
+             "library_ms": None}
+    timed(phase_split_parity)
+    timed(phase_split_main_path, split)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, "
           f"{sum(s for _, s in PHASE_SECONDS):.1f} s in its "
           f"{len(PHASE_SECONDS)} phases", flush=True)
@@ -4452,7 +4756,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {
         k: v for k, v in e.items() if k not in keys}
-        for e in (entry, flash, decode, ssd, market, region)]
+        for e in (entry, flash, decode, ssd, market, region, split)]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The single-queue slice of :mod:`repro.core`:
   * threefry PRNG        — :mod:`repro_torch.core.threefry`
-  * slab stream          — :mod:`repro_torch.core.clocks`
+  * random streams       — :mod:`repro_torch.core.clocks` (the split ladder
+                           and the slab)
   * arrival processes    — :mod:`repro_torch.core.arrivals`
   * cost laws            — :mod:`repro_torch.core.cost` (Theorem 1)
   * closed forms         — :mod:`repro_torch.core.analytic` (Theorems 2, 5)
@@ -29,6 +30,9 @@ The single-queue slice of :mod:`repro.core`:
                            environment timeline and its shock counters,
                            ``work=WorkModel(...)`` the work structure and
                            the survival ledger)
+  * seed wrappers        — :mod:`repro_torch.core.simulator`
+                           (``run_queue_sim``, ``run_single_slot_sim`` on
+                           the split stream)
   * work structure       — :mod:`repro_torch.core.work` (``WorkModel``:
                            multi-unit jobs, restart overhead, checkpoints,
                            deadlines; ``CantBeLateKernel``, the safety net)
@@ -63,6 +67,7 @@ from repro_torch.core.engine import (
     init_engine_state,
     init_market_state,
     init_region_state,
+    NoAdmitHookError,
     run_market_sim,
     run_market_sweep,
     run_region_sim,
@@ -110,6 +115,7 @@ from repro_torch.core.policies import (
     deadline_slack,
     three_phase_admit_prob,
 )
+from repro_torch.core.simulator import run_queue_sim, run_single_slot_sim
 from repro_torch.core.waittime import (
     DeterministicWait,
     ExponentialWait,
@@ -131,7 +137,8 @@ __all__ = [
     "DeterministicWait", "EngineState", "EnvTimeline", "Exponential",
     "ExponentialWait",
     "Gamma", "INT_STATS", "InfiniteWait", "MarketState",
-    "MarketWindowStats", "NonFiniteStatsError", "NoticeAwareKernel",
+    "MarketWindowStats", "NoAdmitHookError", "NonFiniteStatsError",
+    "NoticeAwareKernel",
     "PanicKernel", "PoolChoiceKernel", "Regime", "Region", "RegionState",
     "RegionTopology", "RegionView", "RegionWindowStats", "RoutingKernel",
     "SingleSlotKernel", "SingleSlotPolicy", "SpotMarket", "SpotPool",
@@ -145,7 +152,8 @@ __all__ = [
     "inject_blackout", "inject_price_spike", "inject_storm",
     "markov_timeline", "mm1n_pi", "prob_A_le_S", "region_cost_lower_bound",
     "region_knapsack_lp", "restart_overhead_from_timing", "run_market_sim", "run_market_sweep",
-    "run_region_sim", "run_region_sweep", "run_sim", "run_sweep",
+    "run_queue_sim", "run_region_sim", "run_region_sweep", "run_sim",
+    "run_single_slot_sim", "run_sweep",
     "summarize", "summarize_market", "summarize_region", "theorem1_cost",
     "theorem1_region_cost", "theorem2_cost", "theorem5_cost",
     "theorem5_delta", "three_phase_admit_prob", "timeline_from_trace",

@@ -1,8 +1,15 @@
-"""The slab stream: raw bits per window, consumed by static column.
+"""The engine's two random streams: the split ladder and the slab.
 
-One counter-based :func:`~repro_torch.core.threefry.bits32` call generates a
-``(window_events, n_cols)`` slab of 32-bit words per float32 window
-(:func:`window_slab`); the event body reads its draws by static column
+``rng="split"`` (the JAX package's default): every event splits the lane
+key into a 4/5/6-way ladder (:func:`split_event_keys`); the next key is
+subkey 0 and each draw samples from its own subkey
+(:meth:`ArrivalProcess.sample`, the kernels' keyed ``admit``).  The lane key
+advances once per event.
+
+``rng="slab"``: one counter-based :func:`~repro_torch.core.threefry.bits32`
+call generates a ``(window_events, n_cols)`` slab of 32-bit words per
+float32 window (:func:`window_slab`); the event body reads its draws by
+static column
 index (:class:`SlabLayout`) and turns bits into uniforms and exponentials
 with plain arithmetic (:func:`u01`, :func:`exp_from_u`).  The lane key
 advances once per window, not per event.  Words are int64 tensors holding
@@ -16,8 +23,8 @@ thinned pick of the firing pool (:func:`thinning_pick`).  Sums over pools
 run left to right, the order XLA's CPU backend gives ``jnp.sum`` and
 ``jnp.cumsum`` at these widths, on every device.
 
-This is the only stream of the port so far; the per-event split ladder
-(``rng="split"``) is still to be ported.
+The port runs the split stream on the single queue; the market's and the
+regions' 5/6-way ladders are not ported yet (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -49,6 +56,20 @@ def exp_from_u(u: torch.Tensor) -> torch.Tensor:
 def gumbel_from_u(u: torch.Tensor) -> torch.Tensor:
     """Standard Gumbel via inverse CDF, guarded at u = 0."""
     return -torch.log(-torch.log(torch.clamp_min(u, 1e-12)))
+
+
+def split_event_keys(key: torch.Tensor, preempt_on: bool = False,
+                     has_route: bool = False):
+    """The per-event split ladder of ``(..., 2)`` lane keys: ``(key, k_job,
+    k_spot, k_pol, k_pre, k_rt)``, the subkeys of one ``split`` into 4, 5
+    or 6 in that order; ``k_pre`` and ``k_rt`` are None unless their flag
+    is set.  ``key`` is the next lane key."""
+    n = 4 + int(preempt_on) + int(has_route)
+    ks = threefry.split(key, n)
+    k_pre = ks[..., 4, :] if preempt_on else None
+    k_rt = ks[..., 4 + int(preempt_on), :] if has_route else None
+    return (ks[..., 0, :], ks[..., 1, :], ks[..., 2, :], ks[..., 3, :],
+            k_pre, k_rt)
 
 
 def tagged_keys(tags: tuple, k: torch.Tensor) -> list:

@@ -23,8 +23,13 @@ Numerics: ages are relative (incremented by the gap ``dt``), sums are
 accumulated in float32 per window of ``chunk_events`` events and assembled
 in float64 on the host by :func:`summarize`.
 
-Randomness: the slab stream only (:mod:`repro_torch.core.clocks`); the
-per-event split ladder is still to be ported (ROADMAP.md Queue 1 item 7).
+Randomness (``rng=``, :mod:`repro_torch.core.clocks`): ``"split"`` is the
+JAX package's default stream, a per-event key ladder (every event splits
+the lane key four ways: next key, job, spot and policy subkeys), run by
+the single queue; ``"slab"`` draws each window's random bits from one key,
+consumed by static column, and runs on every loop.  The port's entry points
+default to ``"slab"``; the market and the regions refuse ``"split"``
+(their 5/6-way ladders are not ported yet, ROADMAP.md Queue 1 item 7).
 
 Optional axes on every entry point: ``telemetry=`` (:mod:`repro_torch.obs`)
 and ``env=`` (an :class:`~repro_torch.core.env.EnvTimeline`: segment
@@ -57,7 +62,8 @@ from repro_torch.core.arrivals import ArrivalProcess, Gamma
 from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
                                      hazard_clock, hazard_total, process_udim,
                                      sample_clock_vector,
-                                     sample_hazard_clocks, thinning_pick)
+                                     sample_hazard_clocks, split_event_keys,
+                                     thinning_pick)
 from repro_torch.core.env import (EnvState, EnvTimeline, clock_rescale,
                                   env_row, init_env_state, inv_avail)
 from repro_torch.core.market import (PanicKernel, PoolChoiceKernel,
@@ -149,16 +155,19 @@ def init_engine_state(key: torch.Tensor, job: ArrivalProcess,
 
 
 def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
-                  rmax: int, layout: SlabLayout, carry: EngineState,
+                  rmax: int, layout: SlabLayout | None, carry: EngineState,
                   stats: WindowStats, params: dict, k_cost: torch.Tensor,
-                  x: torch.Tensor, tel: Telemetry | None = None,
+                  x: torch.Tensor | None, tel: Telemetry | None = None,
                   ep: dict | None = None, work: WorkModel | None = None,
                   wk: dict | None = None
                   ) -> tuple[EngineState, WindowStats]:
     """One merged event (job arrival / spot slot / wait deadline) for every
-    lane; ``x`` is this event's ``(lanes, n_cols)`` slab row.  With ``tel``
-    the stats are a ``(base, telemetry)`` pair and the event is also
-    folded into the telemetry block (the JAX body's fold).  With an
+    lane; ``x`` is this event's ``(lanes, n_cols)`` slab row.  With
+    ``layout=None`` the event runs the split stream instead (``x`` unused):
+    it splits each lane key into the next key and the job, spot and policy
+    subkeys, and draws from those (the keyed ``admit`` and ``sample``).
+    With ``tel`` the stats are a ``(base, telemetry)`` pair and the event
+    is also folded into the telemetry block (the JAX body's fold).  With an
     environment timeline ``ep`` (:meth:`EnvTimeline.params`) the carry is
     an ``(EngineState, EnvState)`` pair and the stats an outermost
     ``(stats, EnvWindowStats)`` pair: the segment boundary joins the race
@@ -180,6 +189,9 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
         avail_row = env_row(ep["avail"], seg)
     if tel is not None:
         stats, tstats = stats
+    key = carry.key  # advanced once per window by the slab generator
+    if layout is None:
+        key, k_job, k_spot, k_pol, _, _ = split_event_keys(carry.key)
     iota = torch.arange(rmax, device=carry.ages.device)
 
     budgets_masked = torch.where(carry.occ, carry.budgets, INF)
@@ -200,8 +212,11 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     budgets = torch.where(carry.occ, carry.budgets - dt[:, None], INF)
 
     # ---- job arrival: ask the policy kernel ----
-    admit_raw, budget = kernel.admit_u(params, carry.qlen,
-                                       layout.uniforms(x, layout.admit))
+    if layout is None:
+        admit_raw, budget = kernel.admit(params, carry.qlen, k_pol)
+    else:
+        admit_raw, budget = kernel.admit_u(params, carry.qlen,
+                                           layout.uniforms(x, layout.admit))
     admit = is_job & admit_raw & (carry.qlen < rmax)
     od_now = is_job & (~admit)  # rejected -> immediate on-demand, delay 0
     join_slot = torch.argmin(carry.occ.to(torch.int32), dim=1)
@@ -235,8 +250,11 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     if work is not None:
         ws = _work_join(ws, wk_c, join_mask, dt)
 
-    job_draw = job.sample_u(layout.uniforms(x, layout.job))
-    spot_draw = spot.sample_u(layout.uniforms(x, layout.spot))
+    if layout is None:
+        job_draw, spot_draw = job.sample(k_job), spot.sample(k_spot)
+    else:
+        job_draw = job.sample_u(layout.uniforms(x, layout.job))
+        spot_draw = spot.sample_u(layout.uniforms(x, layout.spot))
     next_job = torch.where(is_job, job_draw, carry.next_job - dt)
     next_spot = torch.where(is_spot, spot_draw, carry.next_spot - dt)
     if ep is not None:
@@ -251,7 +269,7 @@ def _engine_event(job: ArrivalProcess, spot: ArrivalProcess, kernel,
                                 next_spot)
     admit_i = admit.to(torch.int32)
     new_carry = EngineState(
-        key=carry.key,  # advanced once per window by the slab generator
+        key=key,
         next_job=next_job,
         next_spot=next_spot,
         ages=ages,
@@ -473,26 +491,42 @@ def _window_plan(n_events: int, chunk_events: int,
             + ((rem,) if rem else ()))
 
 
-def _engine_layout(job: ArrivalProcess, spot: ArrivalProcess,
-                   kernel) -> SlabLayout:
-    """Slab column map for the single-queue loop."""
+class NoAdmitHookError(TypeError):
+    """A kernel without the admission hook its stream calls: ``admit_u``
+    and ``slab_cols`` on the slab stream, the keyed ``admit`` on the split
+    stream."""
+
+
+def _engine_layout(job: ArrivalProcess, spot: ArrivalProcess, kernel,
+                   rng: str = "slab") -> SlabLayout | None:
+    """Slab column map for the single-queue loop; None on the split stream,
+    whose event body draws from its key ladder."""
+    if rng == "split":
+        if getattr(kernel, "admit", None) is None:
+            raise NoAdmitHookError(
+                f"{kernel!r} has no keyed hook admit(params, qlen, key), "
+                "which rng='split' calls")
+        return None
     layout = build_slab_layout(kernel, job_udim=process_udim(job),
                                spot_udim=process_udim(spot))
     if layout.admit_mode != "u":
-        raise NotImplementedError(
-            f"{kernel!r} has no slab hook (admit_u/slab_cols); kernels "
-            "without one need the split stream, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+        raise NoAdmitHookError(
+            f"{kernel!r} has no slab hook (admit_u/slab_cols), which "
+            "rng='slab' calls; a kernel with only the keyed admit runs "
+            "rng='split'")
     return layout
 
 
-def lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
-    """The kernel's per-lane params dict: a single-slot kernel whose wait
-    parameters are not swept gets its wait family's own values (through a
-    ``CantBeLateKernel`` or a ``PanicKernel``, which admit as their
-    base)."""
+def lane_params(kernel, params: dict, k_cost: torch.Tensor,
+                rng: str = "slab") -> dict:
+    """The kernel's per-lane params dict: on the slab stream a single-slot
+    kernel whose wait parameters are not swept gets its wait family's own
+    values (through a ``CantBeLateKernel`` or a ``PanicKernel``, which
+    admit as their base).  On the split stream they stay out, as in the JAX
+    package: the keyed ``admit`` then samples at the family's constants."""
     kernel = peel_panic(peel_safety_net(kernel)[0])
-    if isinstance(kernel, SingleSlotKernel) and "wait" not in params:
+    if (isinstance(kernel, SingleSlotKernel) and "wait" not in params
+            and rng == "slab"):
         wait = {name: torch.full_like(k_cost, np.float32(v))
                 for name, v in kernel.wait.params().items()}
         return {**params, "wait": wait}
@@ -655,19 +689,24 @@ def _refuse_gamma(name: str, procs) -> None:
         if isinstance(proc, Gamma):
             raise NotImplementedError(
                 f"{name}: a Gamma process needs jax.random.gamma's rejection "
-                "sampler for its initial clock, which is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
+                "sampler (for its initial clock, and for every draw on the "
+                "split stream), which is not ported yet (ROADMAP.md Queue 1 "
+                "item 7)")
 
 
-def _resolve(device, impl: str | None, rng: str, name: str, procs=()):
+def _resolve(device, impl: str | None, rng: str, name: str, procs=(),
+             split: bool = True):
     """Check the static run options (a Gamma process among ``procs`` is
-    refused); return the device."""
-    if rng == "split":
+    refused, and ``rng="split"`` where ``split`` is False: the market and
+    the regions); return the device."""
+    if rng not in ("split", "slab"):
+        raise ValueError(f"{name}: unknown rng {rng!r} (expected "
+                         "'split'|'slab')")
+    if rng == "split" and not split:
         raise NotImplementedError(
             f"{name}: rng='split' (the per-event key ladder) is not ported "
-            "yet (ROADMAP.md Queue 1 item 7); the port runs rng='slab'")
-    if rng != "slab":
-        raise ValueError(f"{name}: unknown rng {rng!r} (expected 'slab')")
+            "yet for the market/regions (ROADMAP.md Queue 1 item 7); they "
+            "run rng='slab'")
     _refuse_gamma(name, procs)
     device = resolve_device(device, name)
     if impl is None:
@@ -709,19 +748,21 @@ def _carry(state, ep: dict | None, work: WorkModel | None, n_slots: int):
 
 def _run_lanes(job, spot, kernel, rmax, plan, burn_in, params, k_cost,
                keys, tel: Telemetry | None = None, ep: dict | None = None,
-               work: WorkModel | None = None, wk: dict | None = None):
-    """Flat lanes through the executor of their device; returns (lanes,
-    windows) stats (a ``(base, telemetry)`` pair with ``tel``, inside an
-    ``(..., env)`` pair with ``ep`` and an outermost ``(..., survival)``
-    pair with ``work``) without the burn-in window."""
+               work: WorkModel | None = None, wk: dict | None = None,
+               rng: str = "slab"):
+    """Flat lanes through the executor of their device on the ``rng``
+    stream; returns (lanes, windows) stats (a ``(base, telemetry)`` pair
+    with ``tel``, inside an ``(..., env)`` pair with ``ep`` and an
+    outermost ``(..., survival)`` pair with ``work``) without the burn-in
+    window."""
     # imported here: the kernels package builds on this module's state types
     from repro_torch.kernels.sweep import batched_events
 
     state0 = _carry(init_engine_state(keys, job, spot, rmax, ep), ep, work,
                     rmax)
     _, stats = batched_events(job, spot, kernel, rmax, state0,
-                              lane_params(kernel, params, k_cost), k_cost,
-                              plan, tel, ep, work, wk)
+                              lane_params(kernel, params, k_cost, rng),
+                              k_cost, plan, tel, ep, work, wk, rng)
     return _without_burn_in(stats, burn_in, tel, ep is not None,
                             work is not None)
 
@@ -763,7 +804,8 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     """Run one policy at one parameter point; return long-run scalar stats.
 
     A one-lane :func:`run_sweep` whose lane key is ``key`` itself (no seed
-    split), as in the JAX package.  ``telemetry`` (a
+    split), as in the JAX package.  ``rng`` as in :func:`run_sweep`.
+    ``telemetry`` (a
     :class:`repro_torch.obs.Telemetry`) adds the P50/P90/P99 wait and cost
     sketches, the event counters and, with ``trace_cap``, the event rings
     (``"trace"``); ``env`` (a :class:`repro_torch.core.env.EnvTimeline`)
@@ -788,7 +830,7 @@ def run_sim(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     with annotate(f"repro_torch.run_sim[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_f,
                            k_f, key.to(device)[None], telemetry, ep, work,
-                           wk)
+                           wk, rng)
     stats = _lane0(stats, telemetry, ep is not None, work is not None)
     return {name: _scalar_or_array(v)
             for name, v in summarize(stats, telemetry, env, work).items()}
@@ -813,9 +855,13 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     ``device=None`` runs on the GPU (the hand-written kernel) and raises if
     there is none; ``device="cpu"`` runs the plain PyTorch version on the
     CPU.  ``impl`` may name the executor the device implies (``"cuda"`` on
-    a GPU, ``"ref"`` on the CPU) and raises for any other.  ``rng`` defaults to
-    ``"slab"``, the only stream ported so far (the JAX package defaults to
-    ``"split"``).  ``telemetry`` (a :class:`repro_torch.obs.Telemetry`)
+    a GPU, ``"ref"`` on the CPU) and raises for any other.  ``rng`` picks
+    the stream: ``"split"``, the JAX package's default, draws every event
+    from a per-event key ladder (each lane key advances once an event; the
+    kernel walks the ladder itself); ``"slab"``, the port's default (the
+    market and the regions run only it), draws each window's bits from one
+    key.  The two streams agree in distribution, not bitwise.
+    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`)
     adds the telemetry summary at every grid point, through the same
     kernel launch; ``env`` (an :class:`~repro_torch.core.env.EnvTimeline`)
     adds the shock counters at every grid point, through the same launch;
@@ -841,7 +887,7 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     wk = None if work is None else work.params(device)
     with annotate(f"repro_torch.run_sweep[{device.type}]"):
         stats = _run_lanes(job, spot, kernel, rmax, plan, burn_in, params_l,
-                           k_l, keys_l, telemetry, ep, work, wk)
+                           k_l, keys_l, telemetry, ep, work, wk, rng)
     return _reshape_sweep(summarize(stats, telemetry, env, work), grid_shape,
                           n_seeds)
 
@@ -1497,7 +1543,8 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sim", market, telemetry, env, work,
                           kernel)
-    device = _resolve(device, impl, rng, "run_market_sim", (job,))
+    device = _resolve(device, impl, rng, "run_market_sim", (job,),
+                      split=False)
     _check_run_shape("run_market_sim", n_events, burn_in)
     if np.ndim(k) != 0:
         raise ValueError(f"run_market_sim: k must be a scalar, got shape "
@@ -1551,7 +1598,8 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sweep", market, telemetry, env, work,
                           kernel, shard, mesh)
-    device = _resolve(device, impl, rng, "run_market_sweep", (job,))
+    device = _resolve(device, impl, rng, "run_market_sweep", (job,),
+                      split=False)
     _check_run_shape("run_market_sweep", n_events, burn_in)
     _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
                          hazards=hazards, notices=notices,
@@ -2102,7 +2150,7 @@ def _check_region_run(name: str, topo, kernel, telemetry, env, work, shard,
     device."""
     _check_options(name, [p for r in topo.regions for p in (r.job, r.spot)],
                    telemetry, env, work, kernel, shard, mesh)
-    device = _resolve(device, impl, rng, name)
+    device = _resolve(device, impl, rng, name, split=False)
     _check_run_shape(name, n_events, burn_in)
     return device
 

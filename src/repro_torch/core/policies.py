@@ -12,7 +12,9 @@ single continuous knob ``r = N̂ + q`` (eq. 12):
 The engine kernels are frozen descriptors whose slab hook
 ``admit_u(params, qlen, u) -> (admit, budget)`` runs once per event for
 every lane, with the pre-event queue length and the kernel's own uniform
-columns (``slab_cols``):
+columns (``slab_cols``), on the slab stream; on the split stream the keyed
+hook ``admit(params, qlen, key)`` runs instead, drawing from the event's
+policy subkey:
 
   * :class:`ThreePhaseKernel` — Theorem 4; params ``{"r": f32}``; admitted
     jobs wait indefinitely.
@@ -28,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.waittime import INF, InfiniteWait, WaitTime
 
 
@@ -64,6 +67,10 @@ class ThreePhaseKernel:
         del n
         return 1 if hook == "admit" else None
 
+    def admit(self, params, qlen, key):
+        p = three_phase_admit_prob(qlen, params["r"])
+        return threefry.uniform(key) < p, INF
+
     def admit_u(self, params, qlen, u):
         p = three_phase_admit_prob(qlen, params["r"])
         return u[..., 0] < p, INF
@@ -85,6 +92,13 @@ class SingleSlotKernel:
         # admission itself is deterministic given X; the wait-time family
         # owns the columns (0 for Infinite/Deterministic waits)
         return self.wait.u_dim if hook == "admit" else None
+
+    def admit(self, params, qlen, key):
+        # the wait family's own parameters where the params hold none
+        wp = params.get("wait") if isinstance(params, dict) else None
+        x = (self.wait.sample_from(wp, key) if wp
+             else self.wait.sample(key))
+        return (qlen == 0) & (x > 0.0), x
 
     def admit_u(self, params, qlen, u):
         x = self.wait.sample_from_u(params["wait"], u)

@@ -31,24 +31,24 @@ _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) | (x >> (32 - d))) & MASK
-
-
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, c0, c1
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of counters ``(c0, c1)`` under key
-    words ``(k0, k1)``; all four broadcast.  Returns the two output words."""
+    words ``(k0, k1)``; all four broadcast.  Returns the two output words.
+
+    ``x0`` is masked only at the end: it is only ever added to and xor-ed
+    into ``x1``, whose low 32 bits do not depend on its higher ones (it
+    stays below 2^38), and ``x1`` is masked before every rotation."""
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = (c0 + ks[0]) & MASK
+    x0 = c0 + ks[0]
     x1 = (c1 + ks[1]) & MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+            x0 = x0 + x1
+            x1 = (((x1 << r) | (x1 >> (32 - r))) ^ x0) & MASK
+        x0 = x0 + ks[(i + 1) % 3]
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
-    return x0, x1
+    return x0 & MASK, x1
 
 
 def key(seed: int, device=None) -> torch.Tensor:

@@ -15,7 +15,8 @@ Theorem 3 reduces the choice of the single-slot policy to the choice of the
 A family's parameters (:meth:`WaitTime.params`, host floats) become
 per-lane float32 tensors in the engine, so a family can be swept across a
 grid; :meth:`WaitTime.sample_from_u` reads them from that dict and turns
-``u_dim`` slab uniforms into one draw of X per lane.
+``u_dim`` slab uniforms into one draw of X per lane (the slab stream), and
+:meth:`WaitTime.sample_from` draws from a threefry key (the split stream).
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ import dataclasses
 import math
 from typing import ClassVar
 
+import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.clocks import exp_from_u
 
 #: the engine's "never": a wait budget or clock that does not fire
@@ -47,6 +50,17 @@ class WaitTime:
         with parameters from ``params`` (float32 tensors, one per lane)."""
         raise NotImplementedError
 
+    def sample_from(self, params: dict, key: torch.Tensor) -> torch.Tensor:
+        """One draw of X per ``(..., 2)`` threefry key, with parameters
+        from ``params`` (float32 tensors, one per lane)."""
+        raise NotImplementedError
+
+    def sample(self, key: torch.Tensor) -> torch.Tensor:
+        """:meth:`sample_from` at this instance's own parameters."""
+        params = {name: torch.tensor(np.float32(v), device=key.device)
+                  for name, v in self.params().items()}
+        return self.sample_from(params, key)
+
     def mean(self) -> float:
         raise NotImplementedError
 
@@ -63,6 +77,11 @@ class InfiniteWait(WaitTime):
         del params
         return torch.full(u.shape[:-1], INF, dtype=torch.float32,
                           device=u.device)
+
+    def sample_from(self, params, key):
+        del params
+        return torch.full(key.shape[:-1], INF, dtype=torch.float32,
+                          device=key.device)
 
     def mean(self):
         return math.inf
@@ -86,6 +105,10 @@ class TwoPointWait(WaitTime):
     def sample_from_u(self, params, u):
         return torch.where(u[..., 0] < params["p"], params["value"], 0.0)
 
+    def sample_from(self, params, key):
+        return torch.where(threefry.uniform(key) < params["p"],
+                           params["value"], 0.0)
+
     def mean(self):
         return self.p * self.value
 
@@ -105,6 +128,16 @@ class ExponentialWait(WaitTime):
     def sample_from_u(self, params, u):
         return exp_from_u(u[..., 0]) / params["rate"]
 
+    def sample_from(self, params, key):
+        return threefry.exponential(key) / params["rate"]
+
+    def sample(self, key):
+        # the JAX package divides by its constant rate here, which XLA
+        # compiles as a product with the float32 reciprocal; a swept rate
+        # (sample_from) is a true division on both sides
+        e = threefry.exponential(key)
+        return e * torch.tensor(1 / np.float32(self.rate_), device=e.device)
+
     def mean(self):
         return 1.0 / self.rate_
 
@@ -121,6 +154,9 @@ class DeterministicWait(WaitTime):
 
     def sample_from_u(self, params, u):
         return params["value"].expand(u.shape[:-1])
+
+    def sample_from(self, params, key):
+        return params["value"].expand(key.shape[:-1])
 
     def mean(self):
         return self.value

@@ -59,6 +59,22 @@
 // fuse (Uniform's low + u * width, the bathtub tail b - e * tau2) are
 // explicit fmaf.
 //
+// The split stream (rng="split", the JAX package's default; single queue
+// only) is a run-time flag of sweep_kernel, warp-uniform, so it adds no
+// instantiation: it changes what a pass stages, never the event chain.  On
+// the split stream event e's key k_e gives split(k_e, 4), four
+// threefry-2x32 hashes of counters (0, 0..3): subkey 0 is k_{e+1}, and the
+// job, spot and policy draws each take one jax.random.bits word of their
+// subkey (a bathtub draw splits its subkey three ways first), with
+// jax.random.uniform's 23-bit conversion.  The ladder k_e -> k_{e+1} is a
+// serial chain of one hash an event a lane: every thread of the group
+// walks it (no thread could share it), and the thread that samples event
+// e stages k_e in the lane's slab words; then the G threads hash the
+// subkeys and draw for their events, U at a time, as the slab's sample
+// pass does, and stage the same three samples (the policy's admission
+// uniform, or the wait budget, third).  The lane key lives in registers
+// across windows (the windows do not touch it) and is written at the end.
+//
 // Telemetry (the telemetry= axis, repro/obs/stats.py::telemetry_update,
 // called from each of the three JAX event bodies) is a template flag TEL
 // of the three kernels: with it, each event is also folded into a lane's
@@ -111,12 +127,18 @@ constexpr int kDraws = 64;
 // lanes of a warp reading their rows fall in distinct banks
 constexpr int kLaneStride = kDraws + 1;
 constexpr int kSampleStride = 3 * kDraws + 1;
+// events a split pass covers: their keys fill a lane's kDraws staging words
+constexpr int kSplitPass = kDraws / 2;
+constexpr uint32_t kParity = 0x1BD11BDAu;  // threefry's key-schedule constant
 
 enum Arrival { kExponential = 0, kGamma = 1, kUniform = 2, kDeterministic = 3,
                kBathtub = 4 };
 enum Policy { kThreePhase = 0, kSingleSlot = 1 };
+// kFixedExponentialWait: the split stream's unswept exponential wait, a
+// product with the float32 reciprocal of the rate (pa), as XLA compiles the
+// JAX package's division by that constant
 enum Wait { kInfiniteWait = 0, kTwoPointWait = 1, kExponentialWait = 2,
-            kDeterministicWait = 3 };
+            kDeterministicWait = 3, kFixedExponentialWait = 4 };
 
 struct Args {
   // initial state, per lane (slot arrays are lanes x rmax)
@@ -129,6 +151,7 @@ struct Args {
   const int32_t* next_seq0;
   const int32_t* qlen0;
   const uint32_t* win_keys;  // lanes x windows x 2: each window's slab key
+                             // (the split stream: lanes x 1 x 2, lane keys)
   const int32_t* plan;       // events per window
   const float* k_cost;       // per lane
   const float* pa;           // per lane: r, or the wait family's first param
@@ -144,6 +167,8 @@ struct Args {
   int32_t* qlen;
   int32_t* istats;  // 6 x lanes x windows
   float* fstats;    // 4 x lanes x windows
+  uint32_t* key_out;  // lanes x 2: the final lane keys (split stream only)
+  int split;          // the stream: 0 the slab, 1 the split ladder
   int lanes, rmax, n_windows, n_cols;
   int job_code, spot_code, policy_code, wait_code;
   int job_col, spot_col, admit_col, job_n, spot_n;
@@ -156,10 +181,11 @@ __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int r) {
   x1 ^= x0;
 }
 
-// threefry2x32 of counter (0, c1) under key (k0, k1), k2 = k0 ^ k1 ^ C;
-// returns x0 ^ x1, the word jax.random.bits keeps.
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t k2, uint32_t c1) {
+// threefry2x32 of counter (0, c1) under key (k0, k1), k2 = k0 ^ k1 ^ C:
+// both output words (y0, y1), a subkey of jax.random.split
+__device__ __forceinline__ void threefry_pair(uint32_t k0, uint32_t k1,
+                                              uint32_t k2, uint32_t c1,
+                                              uint32_t& y0, uint32_t& y1) {
   uint32_t x0 = k0, x1 = c1 + k1;
   mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
   x0 += k1; x1 += k2 + 1u;
@@ -171,6 +197,15 @@ __device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
   x0 += k1; x1 += k2 + 4u;
   mix(x0, x1, 13); mix(x0, x1, 15); mix(x0, x1, 26); mix(x0, x1, 6);
   x0 += k2; x1 += k0 + 5u;
+  y0 = x0;
+  y1 = x1;
+}
+
+// the same hash's x0 ^ x1, the word jax.random.bits keeps
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t k2, uint32_t c1) {
+  uint32_t x0, x1;
+  threefry_pair(k0, k1, k2, c1, x0, x1);
   return x0 ^ x1;
 }
 
@@ -375,6 +410,164 @@ __device__ __forceinline__ void draw_pass(float* u_s, int nd, uint32_t c0,
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (i0 + u * G < nd) u_s[i0 + u * G] = u01(w[u]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The split stream (repro/core/clocks.py::split_event_keys and the keyed
+// samplers; plain version repro_torch/core/engine.py::_engine_event with
+// layout=None, run by ../ref.py with rng="split")
+// ---------------------------------------------------------------------------
+// jax.random.uniform's float32 on [0, 1): the top 23 bits under the
+// exponent of 1.0, less 1
+__device__ __forceinline__ float key_u01(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3f800000u) - 1.f;
+}
+
+// the word jax.random.bits draws at shape () from key (k0, k1): counter 0
+__device__ __forceinline__ uint32_t key_bits(uint32_t k0, uint32_t k1) {
+  return threefry_bits(k0, k1, k0 ^ k1 ^ kParity, 0u);
+}
+
+// subkey i of jax.random.split(key, n)
+__device__ __forceinline__ void subkey(uint32_t k0, uint32_t k1, uint32_t i,
+                                       uint32_t& s0, uint32_t& s1) {
+  threefry_pair(k0, k1, k0 ^ k1 ^ kParity, i, s0, s1);
+}
+
+// U events' keyed draws of an arrival process (ArrivalProcess.sample), the
+// event i's subkey (k0[i], k1[i]); c as sample_arrivals reads it, with
+// Uniform's float32 width high - low in c[2]
+template <int U>
+__device__ __forceinline__ void keyed_arrivals(int code, const float* c,
+                                               const uint32_t (&k0)[U],
+                                               const uint32_t (&k1)[U],
+                                               float (&out)[U]) {
+  switch (code) {
+    case kExponential:  // c[0] = float32 1 / rate
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        out[i] = exp_from_u(key_u01(key_bits(k0[i], k1[i]))) * c[0];
+      break;
+    case kUniform:  // max(low, u * (high - low) + low), one rounding
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        out[i] = fmaxf(c[0], fmaf(key_u01(key_bits(k0[i], k1[i])), c[2],
+                                  c[0]));
+      break;
+    case kBathtub:  // split(key, 3): the pick's uniform, two exponentials
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        uint32_t a0, a1, b0, b1, d0, d1;
+        subkey(k0[i], k1[i], 0u, a0, a1);
+        subkey(k0[i], k1[i], 1u, b0, b1);
+        subkey(k0[i], k1[i], 2u, d0, d1);
+        const float pick = key_u01(key_bits(a0, a1));
+        const float head =
+            fminf(exp_from_u(key_u01(key_bits(b0, b1))) * c[1], c[3]);
+        const float tail = fmaxf(
+            fmaf(-exp_from_u(key_u01(key_bits(d0, d1))), c[2], c[3]), 0.f);
+        out[i] = pick < c[0] ? head : tail;
+      }
+      break;
+    default:  // kDeterministic (Gamma is refused by the wrapper)
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = c[0];
+  }
+}
+
+// U events' keyed wait budgets of the single-slot policy
+// (WaitTime.sample_from), as keyed_arrivals
+template <int U>
+__device__ __forceinline__ void keyed_waits(int code, float pa, float pb,
+                                            const uint32_t (&k0)[U],
+                                            const uint32_t (&k1)[U],
+                                            float (&out)[U]) {
+  switch (code) {
+    case kTwoPointWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        out[i] = key_u01(key_bits(k0[i], k1[i])) < pa ? pb : 0.f;
+      break;
+    case kExponentialWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        out[i] = exp_from_u(key_u01(key_bits(k0[i], k1[i]))) / pa;
+      break;
+    case kFixedExponentialWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+        out[i] = exp_from_u(key_u01(key_bits(k0[i], k1[i]))) * pa;
+      break;
+    case kDeterministicWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = pa;
+      break;
+    default:  // kInfiniteWait
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = kInf;
+  }
+}
+
+// The split stream's pass over the lane's next n events (n <= kSplitPass),
+// from the lane key (lk0, lk1), which it leaves n events down the ladder.
+// Every thread walks the ladder; event e's key is staged in k_s by thread
+// e % G, which draws that event.  Then thread t hashes the subkeys of events
+// t, t + G, ..., U at a time, draws them and stages job clock, spot clock
+// and the policy's draw (three-phase: the admission uniform; single slot:
+// the wait budget) in x_s, three floats an event as sample_pass does.  A
+// process that draws nothing hashes no subkey.
+template <int G>
+__device__ __forceinline__ void split_pass(float* x_s, uint32_t* k_s, int n,
+                                           const Args& a, float pa, float pb,
+                                           uint32_t& lk0, uint32_t& lk1,
+                                           int t) {
+  for (int e = 0; e < n; ++e) {
+    if ((e & (G - 1)) == t) {
+      k_s[2 * e] = lk0;
+      k_s[2 * e + 1] = lk1;
+    }
+    uint32_t n0, n1;
+    subkey(lk0, lk1, 0u, n0, n1);
+    lk0 = n0;
+    lk1 = n1;
+  }
+  __syncwarp();  // an event past n reads the last event's key
+  const bool job_keyed = a.job_code != kDeterministic;
+  const bool spot_keyed = a.spot_code != kDeterministic;
+  const bool pol_keyed =
+      a.policy_code == kThreePhase ||
+      (a.wait_code != kInfiniteWait && a.wait_code != kDeterministicWait);
+  constexpr int U = G >= 16 ? 1 : (G >= 8 ? 2 : 4);
+  for (int e0 = t; e0 < n; e0 += U * G) {
+    uint32_t j0[U], j1[U], s0[U], s1[U], p0[U], p1[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int e = min(e0 + i * G, n - 1);
+      const uint32_t k0 = k_s[2 * e], k1 = k_s[2 * e + 1];
+      j0[i] = j1[i] = s0[i] = s1[i] = p0[i] = p1[i] = 0u;
+      if (job_keyed) subkey(k0, k1, 1u, j0[i], j1[i]);
+      if (spot_keyed) subkey(k0, k1, 2u, s0[i], s1[i]);
+      if (pol_keyed) subkey(k0, k1, 3u, p0[i], p1[i]);
+    }
+    float job[U], spot[U], pol[U];
+    keyed_arrivals<U>(a.job_code, a.job_c, j0, j1, job);
+    keyed_arrivals<U>(a.spot_code, a.spot_c, s0, s1, spot);
+    if (a.policy_code == kThreePhase) {
+#pragma unroll
+      for (int i = 0; i < U; ++i) pol[i] = key_u01(key_bits(p0[i], p1[i]));
+    } else {
+      keyed_waits<U>(a.wait_code, pa, pb, p0, p1, pol);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int e = e0 + i * G;
+      if (e < n) {
+        x_s[3 * e] = job[i];
+        x_s[3 * e + 1] = spot[i];
+        x_s[3 * e + 2] = pol[i];
+      }
+    }
   }
 }
 
@@ -907,7 +1100,7 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
   const int lane = live ? lane0 : a.lanes - 1;
   const int R = a.rmax, W = a.n_windows, L = a.lanes, nc = a.n_cols;
   // events a draw pass covers (a slab of no columns draws nothing)
-  const int per_pass = nc ? kDraws / nc : kDraws;
+  const int per_pass = a.split ? kSplitPass : (nc ? kDraws / nc : kDraws);
   const int lanes_per_block = blockDim.x / G;
   float* u_s = smem + lane_in_block * kLaneStride;
   float* x_s = smem + lanes_per_block * kLaneStride +
@@ -943,6 +1136,12 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
 
   float nj = a.next_job0[lane], ns = a.next_spot0[lane];
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
+  // the lane key of the split stream, one step down the ladder an event
+  uint32_t lk0 = 0u, lk1 = 0u;
+  if (a.split) {
+    lk0 = a.win_keys[2 * static_cast<size_t>(lane)];
+    lk1 = a.win_keys[2 * static_cast<size_t>(lane) + 1];
+  }
   float ages[SPT], budgets[SPT];
   int order[SPT];
   unsigned occ = 0;  // bit j: slot s0 + j is occupied
@@ -961,9 +1160,13 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
   }
 
   for (int w = 0; w < W; ++w) {
-    const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
-    const uint32_t k0 = a.win_keys[kw], k1 = a.win_keys[kw + 1];
-    const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+    uint32_t k0 = 0u, k1 = 0u;  // the window's slab key
+    if (!a.split) {
+      const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
+      k0 = a.win_keys[kw];
+      k1 = a.win_keys[kw + 1];
+    }
+    const uint32_t k2 = k0 ^ k1 ^ kParity;
     const int n_ev = a.plan[w];
     int jobs_arrived = 0, jobs_completed = 0, spot_served = 0, ondemand = 0;
     int spot_arrivals = 0, spot_found_empty = 0;
@@ -973,10 +1176,15 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
     for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
       const int n_pass = min(per_pass, n_ev - e0);
       __syncwarp();  // the previous pass's rows are read
-      draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
-                   k2, t);
-      __syncwarp();
-      sample_pass<G>(x_s, u_s, n_pass, nc, a, pa, pb, t);
+      if (a.split) {
+        split_pass<G>(x_s, reinterpret_cast<uint32_t*>(u_s), n_pass, a, pa,
+                      pb, lk0, lk1, t);
+      } else {
+        draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0,
+                     k1, k2, t);
+        __syncwarp();
+        sample_pass<G>(x_s, u_s, n_pass, nc, a, pa, pb, t);
+      }
       __syncwarp();
 
       for (int e = 0; e < n_pass; ++e) {
@@ -1038,7 +1246,8 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
           const float n_hat = floorf(pa), frac = pa - n_hat;
           const float qf = static_cast<float>(qlen);
           const float p = qf < n_hat ? 1.f : (qf == n_hat ? frac : 0.f);
-          admit_raw = u[a.admit_col] < p;
+          // the split stream stages the admission uniform third
+          admit_raw = (a.split ? x[2] : u[a.admit_col]) < p;
           budget = kInf;
         } else {
           budget = x[2];
@@ -1193,6 +1402,10 @@ __global__ void sweep_kernel(const Args a, const TelArgs tl, const EnvArgs E,
     a.next_spot[lane] = ns;
     a.next_seq[lane] = next_seq;
     a.qlen[lane] = qlen;
+    if (a.split) {
+      a.key_out[2 * static_cast<size_t>(lane)] = lk0;
+      a.key_out[2 * static_cast<size_t>(lane) + 1] = lk1;
+    }
     if constexpr (ENV) {
       E.nb[lane] = cur.nb;
       E.seg[lane] = cur.seg;
@@ -2998,10 +3211,11 @@ bool work_args(const int64_t* work_ptrs, const int32_t* work_icfg,
 
 }  // namespace
 
-// ptrs: the 23 pointers of Args in order; icfg: lanes, rmax, n_windows,
-// n_cols, job_code, spot_code, policy_code, wait_code, job_col, spot_col,
-// admit_col, job_n, spot_n, G (threads a lane), SPT (slots a thread),
-// warps a block; fcfg: job_c[4], spot_c[4]; tel_*: the telemetry
+// ptrs: the 24 pointers of Args in order (key_out may be 0 on the slab
+// stream); icfg: lanes, rmax, n_windows, n_cols, job_code, spot_code,
+// policy_code, wait_code, job_col, spot_col, admit_col, job_n, spot_n, G
+// (threads a lane), SPT (slots a thread), warps a block, split (0 the slab
+// stream, 1 the split ladder); fcfg: job_c[4], spot_c[4]; tel_*: the telemetry
 // arguments (tel_args), null without the axis; env_*: the environment's
 // (env_args), null without it; work_*: the work structure's (work_args),
 // null without it.  Launches on `stream` and returns
@@ -3046,6 +3260,7 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   a.qlen = reinterpret_cast<int32_t*>(ptrs[20]);
   a.istats = reinterpret_cast<int32_t*>(ptrs[21]);
   a.fstats = reinterpret_cast<float*>(ptrs[22]);
+  a.key_out = reinterpret_cast<uint32_t*>(ptrs[23]);
   a.lanes = icfg[0];
   a.rmax = icfg[1];
   a.n_windows = icfg[2];
@@ -3060,12 +3275,14 @@ extern "C" int sweep_launch(const int64_t* ptrs, const int32_t* icfg,
   a.job_n = icfg[11];
   a.spot_n = icfg[12];
   const int group = icfg[13], spt = icfg[14], warps_per_block = icfg[15];
+  a.split = icfg[16];
   for (int i = 0; i < 4; ++i) {
     a.job_c[i] = fcfg[i];
     a.spot_c[i] = fcfg[4 + i];
   }
   if (a.n_cols < 0 || a.n_cols > kDraws || warps_per_block < 1 ||
-      warps_per_block > 32 || group * spt < a.rmax)
+      warps_per_block > 32 || group * spt < a.rmax ||
+      (a.split != 0 && a.split != 1) || (a.split && a.key_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_g(a, tl, E, Wk, group, spt, warps_per_block,
                                    static_cast<cudaStream_t>(stream)));

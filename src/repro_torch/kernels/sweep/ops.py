@@ -23,12 +23,12 @@ def _on_cpu(state) -> bool:
 
 
 def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan,
-                   tel=None, ep=None, work=None, wk=None):
+                   tel=None, ep=None, work=None, wk=None, rng="slab"):
     """Run stacked event windows; see ``batched_event_windows``."""
     run = batched_event_windows_ref if _on_cpu(state) \
         else batched_event_windows
     return run(job, spot, kernel, rmax, state, params, k_cost, plan, tel, ep,
-               work, wk)
+               work, wk, rng)
 
 
 def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,

@@ -8,7 +8,9 @@ market) and :func:`~repro_torch.kernels.sweep.sweep.region_event_windows`
 window
 builds the lanes' slab with :func:`~repro_torch.core.clocks.window_slab`,
 runs its events with the engine's event body on ``(lanes, slots)``
-tensors, and ends with the order rebase.  With a
+tensors, and ends with the order rebase.  On the split stream
+(``rng="split"``, the single queue) a window builds no slab: each event
+walks the lanes' key ladder itself.  With a
 :class:`~repro_torch.obs.Telemetry` (``tel``) each event is also folded
 into a telemetry block a window and the stats come back as a ``(base,
 telemetry)`` pair.  With an environment timeline (``ep``,
@@ -83,17 +85,21 @@ def _map_base(state, fn):
 
 
 def _windows(plan, layout, state, zeros, event, rebase):
-    """Run ``plan``'s windows: each draws the lanes' slab, runs its events
-    from ``zeros()`` and rebases the join order (the timeline cursor and the
-    work state cross windows untouched); returns the final state and the
-    per-window stats."""
+    """Run ``plan``'s windows: each draws the lanes' slab (none where
+    ``layout`` is None: the split stream), runs its events from ``zeros()``
+    and rebases the join order (the timeline cursor and the work state
+    cross windows untouched); returns the final state and the per-window
+    stats."""
     windows = []
     for n_ev in plan:
-        key, slab = window_slab(_base(state).key, n_ev, layout.n_cols)
-        state = _map_base(state, lambda b: b._replace(key=key))
+        slab = None
+        if layout is not None:
+            key, slab = window_slab(_base(state).key, n_ev, layout.n_cols)
+            state = _map_base(state, lambda b: b._replace(key=key))
         stats = zeros()
         for e in range(n_ev):
-            state, stats = event(state, stats, slab[:, e])
+            state, stats = event(state, stats,
+                                 None if slab is None else slab[:, e])
         state = _map_base(state, rebase)
         windows.append(stats)
     return state, windows
@@ -102,14 +108,15 @@ def _windows(plan, layout, state, zeros, event, rebase):
 def batched_event_windows_ref(job, spot, kernel, rmax: int,
                               state: EngineState, params: dict,
                               k_cost: torch.Tensor, plan: tuple[int, ...],
-                              tel=None, ep=None, work=None, wk=None
+                              tel=None, ep=None, work=None, wk=None,
+                              rng: str = "slab"
                               ) -> tuple[EngineState, WindowStats]:
     """Reference: ``(final_state, stats)`` with stats leaves ``(lanes, W)``,
     one float32/int32 window of sums per entry of ``plan`` (with ``tel``
     a ``(base, telemetry)`` pair, the telemetry leaves ``(lanes, W,
     ...)``; with ``ep`` the state and the stats in env pairs, with
-    ``work`` in work pairs outermost)."""
-    layout = _engine_layout(job, spot, kernel)
+    ``work`` in work pairs outermost), on the ``rng`` stream."""
+    layout = _engine_layout(job, spot, kernel, rng)
     env, on = ep is not None, work is not None
     base = _base(state)
     lanes, device = base.key.shape[0], base.ages.device

@@ -35,6 +35,10 @@ twins) and returns the final work state and the survival ledger in work
 pairs, outermost; a :class:`~repro_torch.core.work.CantBeLateKernel` is
 unwrapped to its base, its safety net and slack buffer passed to the
 kernel as run constants.
+
+On the split stream (``rng="split"``, the single queue) the wrapper passes
+each lane's key instead of the window keys: the kernel walks the per-event
+key ladder itself and returns the final lane keys.
 """
 from __future__ import annotations
 
@@ -48,11 +52,12 @@ import torch
 from repro_torch.core.arrivals import (BathtubGCP, Deterministic, Exponential,
                                        Gamma, Uniform)
 from repro_torch.core.clocks import kernel_slab_cols, window_slab_keys
+from repro_torch.core.threefry import MASK
 from repro_torch.core.engine import (EngineState, MarketState,
                                      MarketWindowStats, RegionState,
                                      RegionWindowStats, WindowStats,
                                      _engine_layout, _market_layout,
-                                     _region_layout)
+                                     _refuse_gamma, _region_layout)
 from repro_torch.core.env import EnvState, EnvTimeline, init_env_state
 from repro_torch.core.work import WorkState, peel_safety_net
 from repro_torch.core.market import (NoticeAwareKernel, PanicKernel,
@@ -290,13 +295,15 @@ def _launch(fn_name: str, what: str, tel, ptrs, icfg, fcfg, tel_args,
 
 def _arrival(proc) -> tuple[int, list[float], int]:
     """(code, four float32 constants, columns) of an arrival process, in
-    the form ``sample_arrival`` in csrc/sweep.cu reads it."""
+    the form ``sample_arrival`` in csrc/sweep.cu reads it (and
+    ``keyed_arrivals``: a uniform's float32 width third)."""
     if isinstance(proc, Exponential):
         return 0, [1 / np.float32(proc.rate_)], 1
     if isinstance(proc, Gamma) and proc.u_dim is not None:
         return 1, [proc.scale], proc.u_dim
     if isinstance(proc, Uniform):
-        return 2, [proc.low, proc.high - proc.low], 1
+        return 2, [proc.low, proc.high - proc.low,
+                   np.float32(proc.high) - np.float32(proc.low)], 1
     if isinstance(proc, Deterministic):
         return 3, [proc.value], 0
     if isinstance(proc, BathtubGCP):
@@ -320,21 +327,43 @@ def _arrivals(procs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 _WAIT_CODES = {InfiniteWait: (0, ()), TwoPointWait: (1, ("p", "value")),
                ExponentialWait: (2, ("rate",)),
                DeterministicWait: (3, ("value",))}
+#: the split stream's exponential wait at the family's own rate: a product
+#: with the float32 reciprocal (``ExponentialWait.sample``)
+_FIXED_EXPONENTIAL_WAIT = 4
 
 
-def _policy(kernel, params: dict, lanes: int, device):
+class NoKernelPolicyError(NotImplementedError):
+    """A policy kernel the CUDA kernel holds no code for (a user's kernel
+    runs on the CPU plain version only)."""
+
+
+def _policy(kernel, params: dict, lanes: int, device, split: bool = False):
     """(policy code, wait code, pa, pb): the kernel's per-lane params as
     the two float32 arrays the CUDA kernel reads (a ``PanicKernel`` admits
-    as its base)."""
+    as its base).  On the split stream a single-slot kernel whose params
+    hold no ``"wait"`` (an unswept wait) samples at its family's
+    constants; on the slab stream the params must hold it, as the plain
+    version reads it."""
     kernel = peel_panic(kernel)
     zero = torch.zeros(lanes, dtype=torch.float32, device=device)
     if isinstance(kernel, ThreePhaseKernel):
         return 0, 0, params["r"], zero
     if isinstance(kernel, SingleSlotKernel) and type(kernel.wait) in _WAIT_CODES:
         code, names = _WAIT_CODES[type(kernel.wait)]
-        cols = [params["wait"][n] for n in names] + [zero, zero]
+        if not split or "wait" in params:
+            cols = [params["wait"][n] for n in names] + [zero, zero]
+            return 1, code, cols[0], cols[1]
+        own = kernel.wait.params()
+        if isinstance(kernel.wait, ExponentialWait):
+            code, own = _FIXED_EXPONENTIAL_WAIT, {
+                "rate": 1 / np.float32(kernel.wait.rate_)}
+        cols = [torch.full((lanes,), np.float32(own[n]), device=device)
+                for n in names] + [zero, zero]
         return 1, code, cols[0], cols[1]
-    raise NotImplementedError(f"the sweep kernel has no policy {kernel!r}")
+    raise NoKernelPolicyError(
+        f"the sweep kernel has no policy {kernel!r}: a kernel with only "
+        "keyed hooks runs on the CPU plain version (device='cpu'), and on "
+        "a CUDA device it is refused, not run elsewhere")
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
@@ -389,7 +418,8 @@ def _as_int32_words(words: torch.Tensor) -> torch.Tensor:
 def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
                           params: dict, k_cost: torch.Tensor,
                           plan: tuple[int, ...], tel: Telemetry | None = None,
-                          ep: dict | None = None, work=None, wk=None
+                          ep: dict | None = None, work=None, wk=None,
+                          rng: str = "slab"
                           ) -> tuple[EngineState, WindowStats]:
     """Run every lane through the windows of ``plan`` in one kernel launch.
 
@@ -403,30 +433,44 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     work model's device params, is the plain version's and unused here).
     In the single queue a slot's life is its age: the kernel keeps one
     array, and the initial work state's ``life`` must equal ``ages``.
-    Raises if the kernel cannot be built or launched; it never falls back.
+    ``rng="split"`` runs the split stream: the kernel walks each lane's key
+    ladder, one step an event, and the final state holds the lane keys it
+    reached.  Raises if the kernel cannot be built or launched, or holds no
+    code for the policy (:class:`NoKernelPolicyError`); it never falls
+    back.
     """
     kernel, *safety = peel_safety_net(kernel)
-    layout = _engine_layout(job, spot, kernel)
+    split = rng == "split"
+    layout = _engine_layout(job, spot, kernel, rng)
     state, es, ws = _unpack(state, ep, work)
     lanes, device = state.key.shape[0], state.key.device
     if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
         raise ValueError(f"sweep kernel: need lanes >= 1 and 1 <= rmax <= "
                          f"{MAX_RMAX}, got {lanes} lanes, rmax {rmax}")
-    if layout.n_cols > MAX_COLS:
-        raise ValueError(f"sweep kernel: a slab row of {layout.n_cols} "
+    n_cols = 0 if split else layout.n_cols
+    if n_cols > MAX_COLS:
+        raise ValueError(f"sweep kernel: a slab row of {n_cols} "
                          f"columns exceeds {MAX_COLS}")
     group = group_size(rmax)
-    if max(plan) * layout.n_cols >= 2**32:
+    if max(plan) * n_cols >= 2**32:
         raise ValueError("sweep kernel: a window's slab index must fit in "
                          "32 bits")
-    policy, wait, pa, pb = _policy(kernel, params, lanes, device)
+    policy, wait, pa, pb = _policy(kernel, params, lanes, device, split)
+    if split:
+        _refuse_gamma("sweep kernel", (job, spot))
     job_code, job_c, job_n = _arrival(job)
     spot_code, spot_c, spot_n = _arrival(spot)
 
-    slab_keys, final_key = window_slab_keys(state.key, len(plan))
-    win_keys = _as_int32_words(slab_keys).contiguous()
-    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
     w = len(plan)
+    key_out = None
+    if split:
+        win_keys = _as_int32_words(state.key)[:, None].contiguous()
+        key_out = torch.empty(lanes, 2, dtype=torch.int32, device=device)
+        final_key = None
+    else:
+        slab_keys, final_key = window_slab_keys(state.key, len(plan))
+        win_keys = _as_int32_words(slab_keys).contiguous()
+    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
     f32, i32 = torch.float32, torch.int32
     inputs = [("next_job", state.next_job, f32, (lanes,)),
               ("next_spot", state.next_spot, f32, (lanes,)),
@@ -436,7 +480,7 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
               ("order", state.order, i32, (lanes, rmax)),
               ("next_seq", state.next_seq, i32, (lanes,)),
               ("qlen", state.qlen, i32, (lanes,)),
-              ("window keys", win_keys, i32, (lanes, w, 2)),
+              ("window keys", win_keys, i32, (lanes, 1 if split else w, 2)),
               ("plan", plan_t, i32, (w,)),
               ("k_cost", k_cost, f32, (lanes,)),
               ("policy param a", pa, f32, (lanes,)),
@@ -460,12 +504,16 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     ptrs = np.array([x.data_ptr() for _, x, _, _ in inputs]
                     + [x.data_ptr() for x in out[1:]]
-                    + [istats.data_ptr(), fstats.data_ptr()], np.int64)
-    icfg = np.array([lanes, rmax, w, layout.n_cols, job_code, spot_code,
-                     policy, wait, layout.job[0], layout.spot[0],
-                     layout.admit[0], job_n, spot_n, group,
+                    + [istats.data_ptr(), fstats.data_ptr(),
+                       0 if key_out is None else key_out.data_ptr()],
+                    np.int64)
+    cols = (0, 0, 0) if split else (layout.job[0], layout.spot[0],
+                                    layout.admit[0])
+    icfg = np.array([lanes, rmax, w, n_cols, job_code, spot_code, policy,
+                     wait, *cols, job_n, spot_n, group,
                      slots_per_thread(rmax, group),
-                     warps_per_block(lanes, group, sms)], np.int32)
+                     warps_per_block(lanes, group, sms), int(split)],
+                    np.int32)
     fcfg = np.zeros(8, np.float32)
     fcfg[:len(job_c)] = job_c
     fcfg[4:4 + len(spot_c)] = spot_c
@@ -481,6 +529,8 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     _launch("sweep_launch", "sweep kernel", tel, ptrs, icfg, fcfg, tel_args,
             env_args, work_args, device)
     batched_event_windows.launches += 1
+    if split:
+        out = out._replace(key=key_out.to(torch.int64) & MASK)
     stats = WindowStats(jobs_arrived=istats[0], jobs_completed=istats[1],
                         spot_served=istats[2], ondemand=istats[3],
                         cost_sum=fstats[0], delay_sum=fstats[1],

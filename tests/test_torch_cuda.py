@@ -34,7 +34,10 @@ TEL+ENV builds, under the kernels and under PanicKernel): the final state,
 the stats and the shock counters bitwise.  The sweep kernel with the work
 state (the four WORK builds, each checkpoint mode, with and without the
 safety net): the final state, the final work state, the stats and the
-survival ledger bitwise.
+survival ledger bitwise.  The sweep kernel's split traversal (the
+per-event key ladder, on each (G, slots a thread) pair, each wait family
+and each combination of the three states): the final state, the lane keys
+it reached and every statistic bitwise.
 """
 import numpy as np
 import pytest
@@ -824,6 +827,160 @@ def test_cuda_work_none_launches_the_build_without_it(cuda_device,
                                   s0, p, k, _WORK_PLAN)
     finally:
         sweep_mod._library.cache_clear()
+
+
+#: the split stream's (G, slots a thread) cases: (name, job, spot, kernel,
+#: rmax, params), one at each rmax pick; params without "wait" sample at
+#: the wait family's constants (a fixed exponential rate is a product with
+#: its reciprocal)
+SPLIT_CASES = [
+    ("rmax1_exp_wait_swept", T.Exponential(LAM), T.Exponential(MU),
+     T.SingleSlotKernel(wait=T.ExponentialWait(0.37)), 1,
+     {"wait": {"rate": np.linspace(0.1, 2.5, 13)}}),
+    ("rmax8_bathtub", T.Exponential(LAM), T.BathtubGCP(),
+     T.ThreePhaseKernel(), 8, {"r": np.linspace(0.25, 7.0, 13)}),
+    ("rmax16_uniform_job", T.Uniform(0.3, 24.7), T.Exponential(MU),
+     T.ThreePhaseKernel(), 16, {"r": np.linspace(1.0, 14.0, 13)}),
+    ("rmax32_deterministic_job", T.Deterministic(12.0),
+     T.Uniform(0.0, 48.0), T.ThreePhaseKernel(), 32,
+     {"r": np.linspace(1.0, 30.0, 13)}),
+    ("rmax64", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     64, {"r": np.linspace(1.0, 60.0, 13)}),
+    ("rmax100", T.Exponential(LAM), T.Exponential(MU), T.ThreePhaseKernel(),
+     100, {"r": np.linspace(1.0, 90.0, 13)}),
+    ("rmax256_bathtub", T.Exponential(LAM), T.BathtubGCP(),
+     T.ThreePhaseKernel(), 256, {"r": np.linspace(1.0, 250.0, 13)}),
+]
+SPLIT_WAITS = [
+    ("infinite", T.InfiniteWait(), {}),
+    ("two_point", T.TwoPointWait(0.3, 20.0), {}),
+    ("exp_fixed", T.ExponentialWait(0.37), {}),
+    ("deterministic_swept", T.DeterministicWait(3.0),
+     {"wait": {"value": np.linspace(0.0, 9.0, 13)}}),
+]
+_SPLIT_PLAN = engine._window_plan(300, 128, 64)
+
+
+def _split_run(device, case, lanes=13, seed=7):
+    """(job, spot, kernel, rmax, initial state, params, k) of a split
+    case, the wait params left out where the case sweeps none."""
+    name, job, spot, kernel, rmax, params = case
+    keys = threefry.split(threefry.key(seed, device), lanes)
+    k = torch.full((lanes,), 10.0, device=device)
+
+    def lanewise(p):
+        return {n: lanewise(v) if isinstance(v, dict) else
+                torch.as_tensor(np.resize(np.float32(v), lanes),
+                                device=device) for n, v in p.items()}
+
+    p = engine.lane_params(kernel, lanewise(params), k, rng="split")
+    return (job, spot, kernel, rmax,
+            engine.init_engine_state(keys, job, spot, rmax), p, k)
+
+
+def test_split_cases_reach_every_build():
+    """The split cases drive every (G, slots a thread) pair the library
+    holds (runs anywhere)."""
+    pairs = {(sweep_mod.group_size(r),
+              sweep_mod.slots_per_thread(r, sweep_mod.group_size(r)))
+             for r in range(1, sweep_mod.MAX_RMAX + 1)}
+    assert {(sweep_mod.group_size(c[4]),
+             sweep_mod.slots_per_thread(c[4], sweep_mod.group_size(c[4])))
+            for c in SPLIT_CASES} == pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: c[0])
+def test_cuda_split_matches_plain_version(cuda_device, case):
+    """The split traversal on each (G, slots a thread) pair: the final
+    state, the lane keys it reached and every statistic bitwise the plain
+    version's."""
+    args = (*_split_run(cuda_device, case), _SPLIT_PLAN)
+    ref = batched_event_windows_ref(*args, rng="split")
+    ker = batched_event_windows(*args, rng="split")
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, case[0])
+    assert not torch.equal(ker[0].key, args[4].key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wait", SPLIT_WAITS, ids=lambda w: w[0])
+def test_cuda_split_single_slot_waits_match_plain_version(cuda_device, wait):
+    name, family, params = wait
+    case = (name, T.Exponential(LAM), T.Uniform(0.3, 48.7),
+            T.SingleSlotKernel(wait=family), 1, params)
+    args = (*_split_run(cuda_device, case), _SPLIT_PLAN)
+    ref = batched_event_windows_ref(*args, rng="split")
+    ker = batched_event_windows(*args, rng="split")
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, name)
+
+
+#: the split stream's axis combinations: (telemetry, env?, work?)
+_SPLIT_AXES = {"tel": (TELS[0], False, False), "env": (None, True, False),
+               "work": (None, False, True),
+               "tel_env": (TELS[1], True, False),
+               "tel_work": (TELS[0], False, True),
+               "env_work": (None, True, True),
+               "tel_env_work": (TELS[1], True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", list(_SPLIT_AXES))
+def test_cuda_split_axes_match_plain_version(cuda_device, axes):
+    """The split traversal with each combination of the telemetry fold,
+    the env state and the work state (under the safety net), each on a
+    layout in turn: every field bitwise the plain version's, and the base
+    stats bitwise the run without the axes where they leave them alone
+    (telemetry alone)."""
+    tel, env, work = _SPLIT_AXES[axes]
+    i = list(_SPLIT_AXES).index(axes)
+    case = SPLIT_CASES[(i + 1) % len(SPLIT_CASES)]
+    job, spot, kernel, rmax, s0, p, k = _split_run(cuda_device, case)
+    off = batched_event_windows(job, spot, kernel, rmax, s0, p, k,
+                                _SPLIT_PLAN, rng="split")
+    st, ep, model, wk = s0, None, None, None
+    if env:
+        ep = _env_timeline(1, _t_run(off[1])).params(1, cuda_device)
+        st = (engine.init_engine_state(s0.key, job, spot, rmax, ep),
+              init_env_state(ep, s0.key.shape[0]))
+    if work:
+        kernel = T.CantBeLateKernel(kernel, 0.2)
+        model = _WORK[("never", "notice", "periodic")[i % 3]]
+        wk = model.params(cuda_device)
+        st = (st, T.init_work_state(rmax, s0.key.shape[0], cuda_device))
+    args = (job, spot, kernel, rmax, st, p, k, _SPLIT_PLAN, tel, ep, model,
+            wk)
+    ref = batched_event_windows_ref(*args, rng="split")
+    ker = batched_event_windows(*args, rng="split")
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, axes)
+    if not env and not work:
+        _assert_tree_equal(off, (ker[0], ker[1][0]), f"{axes}: base")
+
+
+@pytest.mark.cuda
+def test_cuda_split_launch_count_and_refusals(cuda_device):
+    """One launch a call; a user's kernel with only the keyed hook, and a
+    Gamma process, are refused by name on the card, not run elsewhere."""
+    job, spot, kernel, rmax, s0, p, k = _split_run(cuda_device,
+                                                   SPLIT_CASES[4], lanes=4)
+    before = batched_event_windows.launches
+    batched_event_windows(job, spot, kernel, rmax, s0, p, k, (100,),
+                          rng="split")
+    assert batched_event_windows.launches == before + 1
+
+    class KeyedOnly:
+        def admit(self, params, qlen, key):
+            return qlen < 3, engine.INF
+
+    with pytest.raises(sweep_mod.NoKernelPolicyError, match="KeyedOnly"):
+        batched_event_windows(job, spot, KeyedOnly(), rmax, s0, p, k, (100,),
+                              rng="split")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        batched_event_windows(T.Gamma(12.0, 1.0), spot, kernel, rmax, s0, p,
+                              k, (100,), rng="split")
+    assert batched_event_windows.launches == before + 1
 
 
 def _normals(device, dtype, seed, *shapes):

@@ -148,8 +148,9 @@ def _sweep_args():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    ({"rng": "split", "device": "cpu"}, NotImplementedError,
-     "Queue 1 item 7"),
+    # rng="split" runs on the single queue (tests/test_torch_split.py)
+    ({"shard": "lanes", "device": "cpu"}, NotImplementedError,
+     "Queue 1 item 12"),
     ({"impl": "cuda", "device": "cpu"}, ValueError, "needs a CUDA device"),
     ({"impl": "pallas", "device": "cpu"}, ValueError, "unknown impl"),
     ({"impl": "xla", "device": "cpu"}, ValueError, "unknown impl"),

@@ -18,6 +18,16 @@ out = run_sweep(Exponential(1 / 12), Exponential(1 / 24), ThreePhaseKernel(),
                 {{"r": np.array([1.0, 2.5])}}, n_events=200, n_seeds=2,
                 rmax=8, key=repro_torch.key(0), device="cpu")
 assert out["avg_cost"].shape == (2, 2) and np.isfinite(out["avg_cost"]).all()
+from repro_torch.core import ExponentialWait
+from repro_torch.core.simulator import run_queue_sim, run_single_slot_sim
+out = run_queue_sim(Exponential(1 / 12), Exponential(1 / 24), r=2.5,
+                    n_events=200, rmax=8, key=repro_torch.key(0),
+                    device="cpu")
+assert np.isfinite(out["avg_cost"]) and out["jobs_arrived"] > 0
+out = run_single_slot_sim(Exponential(1 / 12), Exponential(1 / 24),
+                          ExponentialWait(0.37), n_events=200,
+                          key=repro_torch.key(0), device="cpu")
+assert np.isfinite(out["avg_delay"]) and out["jobs_completed"] > 0
 from repro_torch.core import (NoticeAwareKernel, SpotMarket, SpotPool,
                               run_market_sweep)
 from repro_torch.cluster.orchestrator import OnlineAdmissionController

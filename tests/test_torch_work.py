@@ -166,7 +166,8 @@ def test_cant_be_late_delegates_as_jax_does():
 def test_entry_points_check_work_as_jax_does():
     """tests/test_work.py's host errors, on the port: a safety-net kernel
     without ``work=`` on every entry point, and a work model of another
-    type; ``rng="split"``, Gamma and ``shard=`` stay refused by name."""
+    type; ``rng="split"`` on the market, Gamma and ``shard=`` stay refused
+    by name."""
     job, spot = T.Exponential(1.2), T.Exponential(0.9)
     net = T.CantBeLateKernel(T.NoticeAwareKernel(checkpoint_time=0.05))
     market = T.SpotMarket(pools=(T.SpotPool(T.Exponential(0.9), 1.0, 0.3,
@@ -190,8 +191,8 @@ def test_entry_points_check_work_as_jax_does():
                     work=jwork.WorkModel(), **kw)
     w = work.WorkModel()
     with pytest.raises(NotImplementedError, match="split"):
-        T.run_sim(job, spot, T.ThreePhaseKernel(), {"r": 2.0}, rng="split",
-                  work=w, **kw)
+        T.run_market_sim(job, market, T.NoticeAwareKernel(0.05), {"r": 2.0},
+                         rng="split", work=w, **kw)
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_sim(T.Gamma(2.0, 1.0), spot, T.ThreePhaseKernel(), {"r": 2.0},
                   work=w, **kw)
