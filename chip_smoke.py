@@ -22,15 +22,15 @@ nonzero):
 3. the sweep kernel against its plain PyTorch version on the card, on the
    configurations of the JAX package's kernel tests plus a bathtub spot, a
    two-point wait and an infinite wait, at ~96 lanes (8 lanes per block, so
-   the lane count leaves a ragged block), rmax 8 and 1, 2,000 events (a
-   512-event burn-in, a 1,024-event window and a tail), and from a join
+   the lane count leaves a ragged block), rmax 8 and 1, 1,000 events (a
+   256-event burn-in, a 512-event window and a tail), and from a join
    order a hair below INT32_MAX (20 windows of 128 events): integer statistics bitwise, float sums to rtol
    1e-5 (the port's tolerance against the JAX package; see
    tests/test_torch_sweep.py); then the lane-group layouts: rmax 2, 16,
    32, 33, 64, 65 and 256 and a Gamma(12) job (14 slab columns) at rmax 8,
    so that with the main paths every (G, slots a thread) pair the wrapper
    can pick (``sweep.group_size``) and the library holds is driven,
-   windows of 999 events (no multiple of a draw pass) and 45 lanes (no
+   windows of 498 events (no multiple of a draw pass) and 45 lanes (no
    multiple of 32/G), and every final budget +0 or more (the int32 order
    of their bits that the slot reductions rely on);
 4. the full-width fleet through ``run_sweep``: Theorem-4 three-phase over
@@ -41,7 +41,7 @@ nonzero):
    held to Theorem 1.  The kernel's launch count is set to 0 just before
    each of these two calls and read just after; each must launch it once.
    Both fleets are also held, kernel against plain version, on the exact
-   inputs ``run_sweep`` gives the kernel, at a cut depth (4,608 events).
+   inputs ``run_sweep`` gives the kernel, at a cut depth (2,304 events).
    Each fleet's line names G (threads a lane, ``sweep.group_size``), the
    slots a thread and ptxas's registers for that build.
 5. the flash and decode attention kernels against their plain versions on
@@ -143,7 +143,7 @@ nonzero):
    ``NoticeAwareKernel(checkpoint_time=0.05)`` and the cheapest rule over
    the single queue's fleet (r = 0.125..8 × k ∈ {2, 5, 10, 20} × 16 seeds
    = 4,096 lanes, rmax 64, 2^20 events after 65,536 burn-in): the kernel
-   against its plain version on these inputs at cut depth (4,608 events;
+   against its plain version on these inputs at cut depth (2,304 events;
    the times of both), the kernel alone at full size (CUDA events,
    lane-events/s, the bound of ``market_ops_per_lane_event``) with spot
    spend held window by window to its float32 rounding bound, then
@@ -178,7 +178,7 @@ nonzero):
    ``RoutingKernel(NoticeAwareKernel(checkpoint_time=0.05),
    "least_loaded")`` over the single queue's fleet (4,096 lanes, 2^20
    events after 65,536 burn-in): the kernel against its plain version on
-   these inputs at cut depth (4,608 events; both times and the bound of
+   these inputs at cut depth (2,304 events; both times and the bound of
    ``region_ops_per_lane_event``), the kernel alone at full size with
    spot spend held window by window to its float32 rounding bound, then
    ``run_region_sweep`` with the launch count set to 0 just before and
@@ -208,13 +208,13 @@ nonzero):
    tests/test_obs.py's ledgers and their region analogues at every lane;
    the single-slot fleet's P99 wait within a bin of its deterministic
    wait; the kernel against its plain version with ``Telemetry()`` on the
-   main-path inputs over the first 512 events (every field bitwise, both
-   timed); then at cut depth (4,608 events) with a ring as wide as the
+   main-path inputs over the first 256 events (every field bitwise, both
+   timed); then at cut depth (2,304 events) with a ring as wide as the
    windows, every lane's P50/P90/P99 wait sketch within γ − 1 of the
    ring's exact quantiles, and lane 0's Perfetto trace well-formed;
 21. the sweep kernel's three traversals with the environment timeline
    (``env=``, the ``sweep_env`` and ``sweep_tel_env`` builds) against their
-   plain versions on the card at cut depth (256 events, each timeline
+   plain versions on the card at cut depth (140 events, each timeline
    scaled so that its boundaries land inside: a storm, blackouts of one
    location or of every location in turn, a price spike, every location
    dark at once, a storm that lowers a hazard), on every (G, slots a
@@ -241,7 +241,7 @@ nonzero):
    blackout time within their float32 rounding bound of the segments'
    length, and the ledgers of PERF.md §2; the kernel against its plain
    version with the env state and ``Telemetry()`` on the main-path inputs
-   over 512 events (the timeline scaled into them), every field bitwise;
+   over 256 events (the timeline scaled into them), every field bitwise;
 23. the sweep kernel's three traversals with the work state (``work=``,
    the four ``*_work`` builds) against their plain versions on the card
    at cut depth (48 events): each of work alone, with telemetry, with the
@@ -265,7 +265,7 @@ nonzero):
    queued, at every lane; each entry point with the launch count set to 0
    just before and read just after (one launch), equal to the summary of
    the kernel's own call; the kernel against its plain version with the
-   priced model and ``Telemetry()`` over 256 events; tests/test_work.py's
+   priced model and ``Telemetry()`` over 128 events; tests/test_work.py's
    k80 tournament at one lane through ``run_market_sim``, the base kernel
    and the safety net each equal to the plain version on every key, no
    miss under the safety net, its cost below the all-on-demand floor.
@@ -273,7 +273,7 @@ nonzero):
 25. the sweep kernel's split traversal (``rng="split"``, the JAX package's
    default stream: ``sweep_kernel`` walks each lane's per-event key ladder
    itself, a run-time flag of every build) against its plain version at
-   cut depth (190 events: a burn-in, two windows and a tail, 70 lanes):
+   cut depth (100 events: a burn-in, two windows and a tail, 70 lanes):
    every (G, slots a thread) pick, each wait family (a swept exponential
    rate, the family's own, which XLA multiplies by its reciprocal, two
    points, infinite, a swept deterministic wait), the bathtub, uniform and
@@ -287,15 +287,43 @@ nonzero):
    main path's inputs over 256 events (every field bitwise, both timed),
    then ``run_sweep(rng="split")`` with the launch count set to 0 just
    before and read just after (one launch), equal to the summary of the
-   kernel's own call, held to Theorems 5 and 1.
+   kernel's own call, held to Theorems 5 and 1;
+27. the market kernel's split traversal (``market_kernel``'s run-time
+   split flag: the 5-way ladder, every pool's spot and hazard clock drawn
+   in the pass, the preemption clocks a vector of P) against its plain
+   version at cut depth (68 events: a burn-in, two windows and a tail, 70
+   lanes): every (G, slots a thread) pick, every choice rule (uniform at
+   P 1, 3, 5 and 8, weighted with per-lane logits), both market kernels,
+   legacy three-phase and single-slot kernels, single-slot admission with
+   an unswept exponential wait, mixed slot processes, the pools-config
+   axis; then telemetry, the env timeline under
+   ``PanicKernel(drain_dead=True)``, the work state under
+   ``CantBeLateKernel`` and all three at once on the cases in turn: every
+   field bitwise, the preemption clocks and the final lane keys included;
+28. the 1-pool zero-hazard market (a legacy three-phase kernel) through
+   the market kernel's split traversal against the single-queue kernel's
+   split traversal at 4,096 lanes × 1,088 events: every shared statistic,
+   the final queue, clocks and lane keys bitwise;
+29. the market main path (phase 15's fleet) on the split stream at full
+   width: the kernel alone on the slab and the split stream in turns
+   (slab, split, split, slab; the split/slab ratio, the bound recounted
+   with the hashes of ``split_market_hashes``), spot spend held window by
+   window, the kernel against its plain version on the main path's inputs
+   over 64 events (every field bitwise, both timed), then
+   ``run_market_sweep(rng="split")`` with the launch count set to 0 just
+   before and read just after (one launch), equal to the summary of the
+   kernel's own call, completed legs = served + on-demand + resumed at
+   every lane and ``avg_cost_job`` above the preemption-priced LP floor
+   within 5e-3·k.
 
 The next-to-last line is a JSON object describing the ported kernels
 (times, bound, launches, error against the plain version; flash and SSD
 with each route's time and launches; the sweep's three traversals as
 three entries, each with its telemetry time, bound, on/off ratio and
 launches, its env time, bound, on/off ratios and launches, and its work
-time, bound, on/off ratios and launches; the single queue's split
-traversal as a fourth); the last is ``{"ok": true, "device": {...}}``.
+time, bound, on/off ratios and launches; the single queue's and the
+market's split traversals as two more); the last is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -330,7 +358,6 @@ from repro_torch.core.engine import (MarketWindowStats,  # noqa: E402
                                      _region_layout, _config_tensors,
                                      _window_plan, init_engine_state,
                                      init_market_state, init_region_state,
-                                     lane_params, market_lane_params,
                                      run_market_sim, run_market_sweep,
                                      run_region_sweep,
                                      run_sweep, summarize, summarize_market,
@@ -523,11 +550,10 @@ def host_us(fn, repeat: int) -> float:
     return t / repeat * 1e6
 
 
-def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None,
-          rng="slab"):
-    """Lane state and per-lane params for a direct kernel call on the
-    ``rng`` stream: ``params`` maps names to per-lane values (nested for
-    the wait family)."""
+def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None):
+    """Lane state and per-lane params for a direct kernel call:
+    ``params`` maps names to per-lane values (nested for the wait
+    family)."""
     device = device or DEVICE
     keys = threefry.split(threefry.key(seed, device), lanes)
     k = torch.full((lanes,), 10.0, dtype=torch.float32, device=device)
@@ -539,7 +565,7 @@ def fleet(job, spot, kernel, rmax, params, lanes, seed, device=None,
                 for n, v in p.items()}
 
     return (init_engine_state(keys, job, spot, rmax),
-            lane_params(kernel, lanewise(params), k, rng), k)
+            lanewise(params), k)
 
 
 def compare(name: str, ref, ker, fin_ref=None, fin_ker=None) -> float:
@@ -600,7 +626,7 @@ PARITY_CASES = [
 
 def phase_parity() -> float:
     worst = 0.0
-    plan = _window_plan(2_000, 1_024, 512)
+    plan = _window_plan(1_000, 512, 256)
     for name, job, spot, kernel, rmax, params, lanes in PARITY_CASES:
         init_job = Exponential(LAM) if isinstance(job, Gamma) else job
         state0, p, k = fleet(init_job, spot, kernel, rmax, params, lanes, 7)
@@ -613,6 +639,17 @@ def phase_parity() -> float:
         worst = max(worst, rel)
         print(f"parity {name}: {lanes} lanes rmax {rmax} plan {plan}: ints "
               f"bitwise, max rel float diff {rel:.3g}", flush=True)
+
+    # an unswept exponential wait at a rate whose float32 reciprocal is
+    # inexact: the kernel multiplies by it as the plain version does
+    kernel = SingleSlotKernel(wait=ExponentialWait(1 / 3))
+    state0, p, k = fleet(JOB, SPOT, kernel, 1, {}, 97, 7)
+    args = (JOB, SPOT, kernel, 1, state0, p, k, plan)
+    hold_all("parity unswept exponential wait 1/3",
+             batched_event_windows_ref(*args),
+             sweep.batched_event_windows(*args))
+    print(f"parity unswept exponential wait 1/3: 97 lanes rmax 1 plan "
+          f"{plan}: every field bitwise", flush=True)
 
     # the join order starts a hair below INT32_MAX: without the per-window
     # rebase it would wrap within a few windows
@@ -656,9 +693,9 @@ LAYOUT_CASES = [
     ("gamma12_14_cols", Gamma(12.0, 1.0), Exponential(MU),
      ThreePhaseKernel(), 8, {"r": np.linspace(0.0, 3.0, 9)}),
 ]
-#: windows of 999 events: no multiple of a draw pass (21, 32 or 4 events
-#: at 3, 2 or 14 columns), after a 250-event burn-in
-LAYOUT_PLAN = _window_plan(1_998, 999, 250)
+#: windows of 498 events: no multiple of a draw pass (21, 32 or 4 events
+#: at 3, 2 or 14 columns), after a 150-event burn-in
+LAYOUT_PLAN = _window_plan(996, 498, 150)
 LAYOUT_LANES = 45  # no multiple of 32/G for G < 32
 
 
@@ -666,6 +703,17 @@ def picked_layout(rmax: int) -> tuple[int, int]:
     """(G, slots a thread) of the wrapper's pick at rmax."""
     g = sweep.group_size(rmax)
     return g, sweep.slots_per_thread(rmax, g)
+
+
+def ends_on_a_short_pass(what: str, plan: tuple[int, ...],
+                         per_pass: int) -> None:
+    """Raise unless every window of ``plan`` ends on a short draw pass (no
+    window a multiple of the ``per_pass`` events a pass draws) and some
+    window spans more than one pass: what a cut plan must keep of the
+    deeper plan it replaced."""
+    if any(n % per_pass == 0 for n in plan) or max(plan) <= per_pass:
+        raise AssertionError(f"{what}: plan {plan} against passes of "
+                             f"{per_pass} events")
 
 
 def phase_layouts() -> None:
@@ -679,6 +727,8 @@ def phase_layouts() -> None:
         init_job = Exponential(LAM) if isinstance(job, Gamma) else job
         state0, p, k = fleet(init_job, spot, kernel, rmax, params,
                              LAYOUT_LANES, 11)
+        n_cols = _engine_layout(job, spot, kernel).n_cols
+        ends_on_a_short_pass(f"layout {name}", LAYOUT_PLAN, 64 // n_cols)
         args = (job, spot, kernel, rmax, state0, p, k, LAYOUT_PLAN)
         _, ref = batched_event_windows_ref(*args)
         fin, ker = sweep.batched_event_windows(*args)
@@ -689,7 +739,6 @@ def phase_layouts() -> None:
         if bool(torch.signbit(fin.budgets).any()):
             raise AssertionError(f"layout {name}: a budget with its sign "
                                  f"bit set")
-        n_cols = _engine_layout(job, spot, kernel).n_cols
         print(f"layout {name}: rmax {rmax}, {n_cols} columns, "
               f"{LAYOUT_LANES} lanes, plan {LAYOUT_PLAN}, G {g} ({spt} "
               f"slots a thread): ints bitwise, max rel float diff "
@@ -706,7 +755,7 @@ WAITS = np.linspace(0.0, 48.0, 64)
 K_GRID = np.array([2.0, 5.0, 10.0, 20.0])
 N_SEEDS, N_EVENTS, BURN_IN = 16, 2**20, 65_536
 MAIN_SEED = 2026
-WIDTH_PLAN = (512, 2_048, 2_048)
+WIDTH_PLAN = (256, 1_024, 1_024)
 #: the main path's two fleets: (name, kernel, swept params, rmax)
 MAIN_PATHS = (
     ("three_phase", ThreePhaseKernel(), {"r": R_GRID[:, None]}, 64),
@@ -723,7 +772,7 @@ def main_inputs(kernel, params, rmax):
     keys = threefry.split(threefry.key(MAIN_SEED, DEVICE), N_SEEDS)
     params_l, k_l, keys_l = _flat_lane_args(params_f, k_f, keys)
     state0 = init_engine_state(keys_l, JOB, SPOT, rmax)
-    return state0, lane_params(kernel, params_l, k_l), k_l
+    return state0, params_l, k_l
 
 
 def phase_width(entry: dict) -> None:
@@ -2126,11 +2175,13 @@ MARKET_CASES = [
      SpotMarket.single(Uniform(0.0, 48.0), price=0.4, hazard=0.05),
      SingleSlotKernel(wait=ExponentialWait(0.5)), 1, {}, None),
 ]
-MARKET_PLAN = _window_plan(560, 384, 128)
+#: a burn-in, a window and a tail, none a multiple of a draw pass (rows
+#: of 3 to 9 columns take 16, 12, 10, 9, 8 or 7 events a pass)
+MARKET_PLAN = _window_plan(242, 163, 57)
 MARKET_LANES = 96  # a ragged last block at G 4 (32 lanes a block)
 #: every (G, slots a thread) the wrapper can pick, by rmax
 MARKET_LAYOUT_RMAX = (2, 8, 16, 32, 64, 100, 256)
-MARKET_LAYOUT_PLAN = _window_plan(666, 333, 111)
+MARKET_LAYOUT_PLAN = _window_plan(444, 222, 74)
 MARKET_LAYOUT_LANES = 45
 MARKET_CUT_PLAN = WIDTH_PLAN
 #: ptxas's report of each market instantiation, (G, slots a thread) -> line
@@ -2180,14 +2231,38 @@ def case_inputs(defaults, params, config, lanes, rng, scale):
 
 
 def market_fleet(market, kernel, rmax, params, lanes, seed, mp=None,
-                 device=None):
+                 device=None, rng="slab"):
     """Lane state, per-lane params, pools config and k for a direct call of
-    the market kernel: ``params`` maps names to per-lane values."""
+    the market kernel on the ``rng`` stream: ``params`` maps names to
+    per-lane values."""
     keys, p, k, mp = lane_inputs(market.params(), params, lanes, seed, mp,
                                  device)
     preempt_on = bool((mp["hazard"] > 0).any())
-    state0 = init_market_state(keys, JOB, market, rmax, mp, preempt_on)
-    return state0, market_lane_params(kernel, p, k), mp, k, preempt_on
+    state0 = init_market_state(keys, JOB, market, rmax, mp, preempt_on,
+                               rng=rng)
+    return state0, p, mp, k, preempt_on
+
+
+def prefilled(state, n_pools: int, rng):
+    """``state`` with every lane's first slots holding jobs already
+    (between half of rmax and all but two slots; ages up to 48 h, pools
+    drawn, joined in slot order), so that a run at cut depth reaches the
+    upper slots of a large rmax."""
+    lanes, rmax = state.occ.shape
+    held = rng.integers(rmax // 2, rmax - 1, lanes)
+    occ = np.arange(rmax)[None, :] < held[:, None]
+    dev = state.occ.device
+
+    def put(x, dtype):
+        return torch.as_tensor(np.where(occ, x, 0).astype(dtype), device=dev)
+
+    return state._replace(
+        ages=put(rng.uniform(0.0, 48.0, (lanes, rmax)), np.float32),
+        occ=torch.as_tensor(occ, device=dev),
+        pool=put(rng.integers(0, n_pools, (lanes, rmax)), np.int32),
+        order=put(np.broadcast_to(np.arange(rmax), (lanes, rmax)), np.int32),
+        next_seq=torch.as_tensor(held.astype(np.int32), device=dev),
+        qlen=torch.as_tensor(held.astype(np.int32), device=dev))
 
 
 def phase_market_parity() -> float:
@@ -2204,6 +2279,9 @@ def phase_market_parity() -> float:
                             rng, "spot_scale")
         state0, p, mp, k, pre = market_fleet(market, kernel, rmax, p, lanes,
                                              7, mp)
+        n_cols = _market_layout(JOB, market, kernel, pre).n_cols
+        ends_on_a_short_pass(f"market parity {name}", MARKET_PLAN,
+                             min(64 // n_cols, 16))
         args = (JOB, market, kernel, rmax, pre, state0, p, mp, k,
                 MARKET_PLAN)
         fin_ref, ref = market_event_windows_ref(*args)
@@ -2218,8 +2296,21 @@ def phase_market_parity() -> float:
               f"{int(ref.pool_preempted.sum())} revocations, "
               f"{int(ref.resumed.sum())} resumed", flush=True)
 
+    # an unswept exponential wait at a rate whose float32 reciprocal is
+    # inexact, through PoolChoiceKernel on the four revoking pools
+    kernel = PoolChoiceKernel(SingleSlotKernel(wait=ExponentialWait(1 / 3)))
+    state0, p, mp, k, pre = market_fleet(BENCH_MARKET, kernel, 1, {},
+                                         MARKET_LANES, 7)
+    args = (JOB, BENCH_MARKET, kernel, 1, pre, state0, p, mp, k, MARKET_PLAN)
+    hold_all("market parity unswept exponential wait 1/3",
+             market_event_windows_ref(*args),
+             sweep.market_event_windows(*args))
+    print(f"market parity unswept exponential wait 1/3: P 4, "
+          f"{MARKET_LANES} lanes, rmax 1, plan {MARKET_PLAN}: every field "
+          f"bitwise", flush=True)
+
     # a join order a hair below INT32_MAX: the per-window rebase holds it
-    plan = _window_plan(2_000, 128, 0)
+    plan = _window_plan(1_280, 128, 0)
     state0, p, mp, k, pre = market_fleet(
         BENCH_MARKET, MARKET_KERNEL, 16, {"r": np.full(96, 6.0)}, 96, 2)
     high = state0._replace(next_seq=state0.next_seq + (2**31 - 10_000))
@@ -2279,13 +2370,15 @@ def main_lanes(n_locs: int, defaults: dict):
     return keys_l, params_l, k_l, _flat_lane_args(cfg, k_f, keys)[0]
 
 
-def market_main_inputs(market=BENCH_MARKET, kernel=MARKET_KERNEL):
-    """The market kernel's inputs for the market main path."""
+def market_main_inputs(market=BENCH_MARKET, kernel=MARKET_KERNEL,
+                       rng="slab"):
+    """The market kernel's inputs for the market main path on the ``rng``
+    stream."""
     keys_l, params_l, k_l, mp_l = main_lanes(market.n_pools, market.params())
     pre = market.preemptible
-    state0 = init_market_state(keys_l, JOB, market, 64, mp_l, pre)
+    state0 = init_market_state(keys_l, JOB, market, 64, mp_l, pre, rng=rng)
     return (JOB, market, kernel, 64, pre, state0,
-            market_lane_params(kernel, params_l, k_l), mp_l, k_l)
+            params_l, mp_l, k_l)
 
 
 def market_ops_per_lane_event(rmax: int, n_cols: int,
@@ -2561,11 +2654,11 @@ REGION_CASES = [
 ]
 #: a burn-in, a window and a tail, none a multiple of a draw pass (rows
 #: of 4 to 9 or 16 columns take 16, 12, 10, 9, 8, 7 or 4 events a pass)
-REGION_PLAN = _window_plan(501, 383, 97)
+REGION_PLAN = _window_plan(218, 163, 41)
 REGION_LANES = 94  # no multiple of 32/G: a ragged last warp at every G
 #: total slots whose wrapper picks are every (G, slots a thread) built
 REGION_LAYOUT_SLOTS = (2, 8, 16, 32, 64, 100, 256)
-REGION_LAYOUT_PLAN = _window_plan(450, 333, 64)
+REGION_LAYOUT_PLAN = _window_plan(301, 222, 47)
 #: ptxas's report of each region instantiation, (G, slots a thread) -> line
 REGION_PTXAS: dict[tuple[int, int], str] = {}
 
@@ -2577,7 +2670,7 @@ def region_fleet(topo, kernel, params, lanes, seed, rp=None):
     preempt_on = bool((rp["hazard"] > 0).any())
     state0 = init_region_state(keys, topo, rp, preempt_on)
     return (topo, kernel, preempt_on, state0,
-            market_lane_params(kernel, p, k), rp, k)
+            p, rp, k)
 
 
 def phase_region_parity() -> float:
@@ -2592,6 +2685,9 @@ def phase_region_parity() -> float:
         p, rp = case_inputs(topo.params(), params, regions_config,
                             REGION_LANES, rng, "job_scale")
         args = region_fleet(topo, kernel, p, REGION_LANES, 7, rp)
+        n_cols = _region_layout(topo, kernel, args[2]).n_cols
+        ends_on_a_short_pass(f"region parity {name}", REGION_PLAN,
+                             min(64 // n_cols, 16))
         fin_ref, ref = region_event_windows_ref(*args, REGION_PLAN)
         fin_ker, ker = sweep.region_event_windows(*args, REGION_PLAN)
         torch.cuda.synchronize()
@@ -2666,7 +2762,7 @@ def region_main_inputs(topo=BENCH_TOPOLOGY, kernel=REGION_KERNEL):
     pre = topo.preemptible
     state0 = init_region_state(keys_l, topo, rp_l, pre)
     return (topo, kernel, pre, state0,
-            market_lane_params(kernel, params_l, k_l), rp_l, k_l)
+            params_l, rp_l, k_l)
 
 
 def region_ops_per_lane_event(slots: int, n_cols: int, n_regions: int,
@@ -2943,7 +3039,7 @@ TEL_WIDE = Telemetry(trace_cap=max(WIDTH_PLAN))
 #: the depth at which each traversal with telemetry is held to, and timed
 #: beside, its plain version on the main-path inputs: the cut-depth plan's
 #: first window (the plain version's time grows with the events; the
-#: earlier phases hold and time 4,608 without telemetry)
+#: earlier phases hold and time 2,304 without telemetry)
 TEL_CUT_PLAN = WIDTH_PLAN[:1]
 
 
@@ -3077,13 +3173,13 @@ def tel_line(tel: Telemetry, ts) -> str:
 def phase_telemetry_parity() -> None:
     """Each traversal with telemetry against its plain version on the card,
     on a named subset of its parity configurations at their depths: the
-    single queue's three_phase (rmax 8) and single_slot (2,000 events,
-    1,024-event windows after 512), the market's heterogeneous_notice and
+    single queue's three_phase (rmax 8) and single_slot (1,000 events,
+    512-event windows after 256), the market's heterogeneous_notice and
     eight_pools_mixed (MARKET_PLAN), the regions' least_loaded and
     eight_regions (REGION_PLAN), each with one of the two telemetries:
     every field bitwise, and the base stats bitwise the kernel's own run
     without telemetry."""
-    plan = _window_plan(2_000, 1_024, 512)
+    plan = _window_plan(1_000, 512, 256)
     for (name, job, spot, kernel, rmax, params, lanes), tel in (
             (PARITY_CASES[0], TEL_RING), (PARITY_CASES[2], TEL_NARROW)):
         state0, p, k = fleet(job, spot, kernel, rmax, params, lanes, 7)
@@ -3387,8 +3483,9 @@ def phase_telemetry_main_path(entries: dict[str, dict]) -> dict:
 # ---------------------------------------------------------------------------
 #: ptxas's report of each env instantiation, by (telemetry?, kernel name)
 ENV_PTXAS: dict[tuple[bool, str], dict[tuple[int, int], str]] = {}
-#: the parity phase's plan: a burn-in, two windows and a tail (256 events)
-ENV_PLAN = _window_plan(206, 75, 50)
+#: the parity phase's plan: a burn-in, two windows and a tail (140 events;
+#: none a multiple of a market or region pass, of 7 to 16 events)
+ENV_PLAN = _window_plan(109, 47, 31)
 ENV_LANES = 70  # a ragged last warp at every G
 #: every (G, slots a thread) pick, by rmax (the region topologies' totals)
 ENV_LAYOUT_RMAX = (4, 8, 16, 32, 64, 128, 256)
@@ -3475,7 +3572,7 @@ def env_region_topology(slots: int) -> RegionTopology:
 
 def phase_env_parity() -> None:
     """Each traversal with the env state against its plain version on the
-    card, at cut depth (ENV_PLAN, 256 events; the timelines scaled so that
+    card, at cut depth (ENV_PLAN, 140 events; the timelines scaled so that
     their boundaries land inside): every (G, slots a thread) the wrapper
     can pick, the blackout of every location, PanicKernel on and off, its
     drain, a kernel without PanicKernel under it, and env with telemetry
@@ -3913,7 +4010,7 @@ WORK_PTXAS: dict[tuple[bool, bool, str], dict[tuple[int, int], str]] = {}
 WORK_PLAN = _window_plan(37, 15, 11)
 #: the depth at which the work state with telemetry is held to, and timed
 #: beside, its plain version on the main-path inputs
-WORK_CUT_PLAN = (256,)
+WORK_CUT_PLAN = (128,)
 WORK_LANES = 70  # a ragged last warp at every G
 #: a model of each checkpoint mode whose every ledger column moves within
 #: WORK_PLAN at unit rates: three units a job, priced restarts, a deadline
@@ -4000,7 +4097,6 @@ def work_parity_market(rmax: int, env: bool, i: int):
                                  {"r": np.linspace(0.5, 6.0, WORK_LANES)},
                                  WORK_LANES, 6 + i)
     state0 = init_market_state(keys, job, market, rmax, mp, True)
-    p = market_lane_params(kernel, p, k)
     st, ep = state0, None
     if env:
         t_run = env_t_run(lambda: sweep.market_event_windows(
@@ -4206,8 +4302,7 @@ def k80_tournament(kernel, plain: bool = False) -> dict:
                               market.preemptible, ep)
     state = work_state0((state, init_env_state(ep, 1)), 64)
     k = torch.full((1,), np.float32(5.0), device=DEVICE)
-    p = market_lane_params(kernel, {"r": torch.tensor([2.0],
-                                                      device=DEVICE)}, k)
+    p = {"r": torch.tensor([2.0], device=DEVICE)}
     _, stats = market_event_windows_ref(
         job, market, kernel, 64, market.preemptible, state, p, mp, k,
         _window_plan(2_500, 1_024, 0), None, ep, K80_WORK,
@@ -4386,10 +4481,10 @@ def phase_work_main_path(entries: dict[str, dict], offs: dict) -> None:
 # the split stream (rng="split"): the single queue's per-event key ladder,
 # walked inside sweep_kernel (a run-time flag of every build)
 # ---------------------------------------------------------------------------
-#: the split parity phase's plan: a burn-in, two windows and a tail (190
-#: events; the plain version walks the ladder a few hundred launches an
-#: event)
-SPLIT_PLAN = _window_plan(150, 60, 40)
+#: the split parity phase's plan: a burn-in, two windows and a tail (100
+#: events; a window of 37 is a pass of 32 and a short one; the plain
+#: version walks the ladder a few hundred launches an event)
+SPLIT_PLAN = _window_plan(81, 37, 19)
 SPLIT_LANES = 70  # a ragged last warp at every G
 #: (name, job, spot, kernel, rmax, params): one case at each (G, slots a
 #: thread) pick, then each wait family at rmax 1; a case whose params hold
@@ -4487,7 +4582,8 @@ def phase_split_parity() -> None:
     driven = set()
     for i, (name, job, spot, kernel, rmax, params) in enumerate(SPLIT_CASES):
         state0, p, k = fleet(job, spot, kernel, rmax, params, SPLIT_LANES,
-                             30 + i, rng="split")
+                             30 + i)
+        ends_on_a_short_pass(f"split {name}", SPLIT_PLAN, 32)
         args = (job, spot, kernel, rmax, state0, p, k, SPLIT_PLAN)
         ref = batched_event_windows_ref(*args, rng="split")
         ker = sweep.batched_event_windows(*args, rng="split")
@@ -4509,7 +4605,7 @@ def phase_split_parity() -> None:
         i = 1 + j % (len(picks) - 1)
         name, job, spot, kernel, rmax, params = SPLIT_CASES[i]
         state0, p, k = fleet(job, spot, kernel, rmax, params, SPLIT_LANES,
-                             30 + i, rng="split")
+                             30 + i)
         off = sweep.batched_event_windows(job, spot, kernel, rmax, state0,
                                           p, k, SPLIT_PLAN, rng="split")
         st, ep, model, wk = state0, None, None, None
@@ -4634,6 +4730,410 @@ def phase_split_main_path(split: dict) -> None:
     hold_theory(out["three_phase"], out["single_slot"])
 
 
+# ---------------------------------------------------------------------------
+# the split stream on the market (rng="split"): the 5-way ladder and the
+# per-pool spot and hazard clocks, drawn inside market_kernel's split pass
+# ---------------------------------------------------------------------------
+#: the split market parity phase's plan: a burn-in, two windows and a tail
+#: (68 events, a window of 24 a pass of 16 and a short one; the plain
+#: version runs a few thousand launches an event); the cases of rmax 100
+#: and 256 start with their queues mostly full (:func:`prefilled`), so that
+#: their upper slots hold jobs within it
+
+SPLIT_MARKET_PLAN = _window_plan(56, 24, 12)
+SPLIT_MARKET_LANES = 70  # a ragged last warp at every G
+#: (name, market, kernel, rmax, per-lane params, per-lane pools config?):
+#: one case at each (G, slots a thread) pick (rmax 1 to 256), every choice
+#: rule (the uniform rule at P 1, 3, 5 and 8), both market kernels, a
+#: legacy kernel, single-slot admission with an unswept exponential wait,
+#: P from 1 to 8, mixed slot processes, the pools-config axis
+SPLIT_MARKET_CASES = [
+    ("p1_uniform_notice", spot_market((0.4,), (0.05,), (0.3,)),
+     NoticeAwareKernel(0.05, "uniform"), 1, {"r": np.linspace(0.5, 3.0, 4)},
+     None),
+    ("p1_degenerate_legacy", SpotMarket.single(Exponential(MU)),
+     ThreePhaseKernel(), 8, {"r": np.linspace(0.5, 7.0, 4)}, None),
+    ("p3_uniform_sums", spot_market((0.4, 0.3, 0.2), SUM_HAZARDS,
+                                    (0.5, 0.01, 2.0)),
+     NoticeAwareKernel(0.05, "uniform"), 16, {"r": np.linspace(1.0, 14.0, 4)},
+     None),
+    ("p5_uniform_mixed",
+     spot_market((0.9, 0.7, 0.5, 0.3, 0.2), (0.01, 0.0, 0.05, 0.02, 0.1),
+                 (1.0, 0.01, 0.5, 0.0, 2.0),
+                 [Uniform(0.0, 240.0), BathtubGCP(), Deterministic(150.0),
+                  Exponential(MU / 5), Exponential(MU / 3)]),
+     NoticeAwareKernel(0.05, "uniform"), 32, {"r": np.linspace(1.0, 30.0, 4)},
+     None),
+    ("p8_uniform_mixed",
+     spot_market((0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2),
+                 (0.01, 0.0, 0.02, 0.03, 0.0, 0.05, 0.01, 0.02),
+                 (1.0, 0.01, 0.5, 0.5, 2.0, 0.0, 0.02, 3.0),
+                 [Exponential(MU / 8), Uniform(0.0, 384.0), BathtubGCP(),
+                  Deterministic(150.0), Exponential(MU / 8),
+                  Uniform(10.0, 300.0), Exponential(MU / 4),
+                  Exponential(MU / 16)]),
+     NoticeAwareKernel(0.05, "uniform"), 64, {"r": np.linspace(1.0, 60.0, 4)},
+     None),
+    ("p4_weighted", BENCH_MARKET,
+     PoolChoiceKernel(ThreePhaseKernel(), choice="weighted"), 100,
+     {"r": np.linspace(1.0, 90.0, 4), "pool_logits": "per lane"}, None),
+    ("p2_least_loaded", spot_market((1.0, 0.4), (0.02, 0.08), (0.0, 0.3)),
+     PoolChoiceKernel(ThreePhaseKernel(), choice="least_loaded"), 256,
+     {"r": np.linspace(1.0, 250.0, 4)}, None),
+    ("p2_exp_wait_fastest", spot_market((1.0, 0.4), (0.0, 0.0), (0.0, 0.3)),
+     PoolChoiceKernel(SingleSlotKernel(wait=ExponentialWait(1 / 3)),
+                      choice="fastest"), 1, {}, None),
+    ("p4_legacy_single_slot", BENCH_MARKET,
+     SingleSlotKernel(wait=TwoPointWait(0.3, 20.0)), 1, {}, None),
+    ("p4_pools_config", BENCH_MARKET, MARKET_KERNEL, 16,
+     {"r": np.linspace(0.5, 6.0, 4)}, "per lane"),
+]
+#: (telemetry, env?, work?): on the cases above in turn, env under
+#: PanicKernel(drain_dead=True), work under CantBeLateKernel
+SPLIT_MARKET_AXES = ((TEL_RING, False, False), (None, True, False),
+                     (None, False, True), (TEL_NARROW, True, True))
+#: the depth at which the split main path is held to, and timed beside,
+#: the plain version
+SPLIT_MARKET_CUT_PLAN = (64,)
+
+
+def split_market_hashes(job, market, kernel, preempt_on: bool,
+                        every_pool: bool = True) -> tuple[int, int, int]:
+    """(subkey hashes, bits hashes, keys hashed under) a market lane-event
+    of the split stream takes: the ladder's next key; the job's subkey and
+    draw; the spot subkey, a pool's fold (where P > 1) and draw; the policy
+    subkey, a market kernel's admission and (uniform, weighted) choice
+    keys, the admission draw, the uniform rule's two keys and words or the
+    weighted rule's P words; with preemption the preemption subkey, the
+    re-admission draw and a pool's fold and draw.  With ``every_pool`` the
+    pool terms count every pool, as csrc/sweep.cu's split pass draws them;
+    without, one pool's (the least costly), what the function needs: an
+    event keeps only the firing pool's spot and hazard clock."""
+    def proc(p):  # (subkeys, bits, keys) of one keyed draw
+        if isinstance(p, Deterministic):
+            return 0, 0, 0
+        if isinstance(p, BathtubGCP):
+            return 3, 3, 4
+        return 0, 1, 1
+
+    base = kernel
+    for wrapper in (CantBeLateKernel, PanicKernel):
+        base = base.base if isinstance(base, wrapper) else base
+    n = market.n_pools
+    choice = getattr(base, "choice", None)
+    pairs, bits, keys = 1, 0, 1
+    pj, bj, kj = proc(job)
+    pairs += (pj + 1) if bj else 0
+    bits, keys = bits + bj, keys + kj
+    pairs, keys = pairs + 1, keys + 1  # the spot subkey
+    pools = market.pools if every_pool else (min(
+        market.pools, key=lambda pool: sum(proc(pool.arrival))),)
+    for pool in pools:
+        ps, bs, ks = proc(pool.arrival)
+        pairs += ps + (1 if bs and n > 1 else 0)
+        bits, keys = bits + bs, keys + ks
+    pairs, keys = pairs + 1, keys + 1  # the policy subkey
+    if isinstance(base, (NoticeAwareKernel, PoolChoiceKernel)):
+        pairs += 1 + (choice in ("uniform", "weighted"))
+    inner = base.base if isinstance(base, PoolChoiceKernel) else base
+    wait = getattr(inner, "wait", None)
+    if not isinstance(inner, SingleSlotKernel) or isinstance(
+            wait, (TwoPointWait, ExponentialWait)):
+        bits += 1
+    if choice == "uniform":
+        pairs, bits, keys = pairs + 2, bits + 2, keys + 2
+    elif choice == "weighted":
+        bits += n
+    if preempt_on:
+        m = n if every_pool else 1
+        pairs, keys = pairs + 1 + m, keys + 1 + m
+        bits += m + isinstance(base, NoticeAwareKernel)
+    return pairs, bits, keys
+
+
+def split_market_ops_per_lane_event(rmax: int, n_pools: int, pairs: int,
+                                    bits: int, keys: int) -> tuple[int, int]:
+    """(INT32, FP32) operations of a market lane-event on the split stream:
+    the hashes as :func:`split_ops_per_lane_event` counts them, and the
+    event as :func:`market_ops_per_lane_event` counts it without slab
+    columns, plus 4 FP32 a pool for the vector of preemption clocks (the
+    argmin's compare, the aged clock's subtract, the refresh's select and
+    division)."""
+    i, f = market_ops_per_lane_event(rmax, 0, n_pools)
+    return (i + HASH_INT32 * (pairs + bits) + 3 * bits + keys,
+            f + bits + 4 * n_pools)
+
+
+def split_market_bytes_moved(lanes: int, rmax: int, n_pools: int,
+                             n_windows: int) -> int:
+    """:func:`market_bytes_moved` with a lane key read and written once in
+    place of the window keys, and P preemption clocks in place of one."""
+    return (market_bytes_moved(lanes, rmax, n_pools, 0)
+            + lanes * (n_windows * 4 * (12 + 3 * n_pools) + 16
+                       + 8 * (n_pools - 1)))
+
+
+def phase_split_market_parity() -> None:
+    """The market kernel's split traversal against its plain version on
+    the card, at cut depth (SPLIT_MARKET_PLAN): each (G, slots a thread)
+    pick, every choice rule (uniform at P 1, 3, 5 and 8), both market
+    kernels, a legacy kernel, single-slot admission, mixed slot processes,
+    the pools-config axis; then telemetry, the env timeline under
+    PanicKernel(drain_dead=True) and the work state under CantBeLateKernel
+    on the cases in turn: every field bitwise, the (P,) preemption clocks
+    and the lane keys it reached included."""
+    picks = {picked_layout(rmax) for rmax in range(1, sweep.MAX_RMAX + 1)}
+    driven, rng, lanes = set(), np.random.default_rng(25), SPLIT_MARKET_LANES
+    inputs = []
+    for i, (name, market, kernel, rmax, params, config) in enumerate(
+            SPLIT_MARKET_CASES):
+        p, mp = case_inputs(market.params(), params, config, lanes, rng,
+                            "spot_scale")
+        state0, p, mp, k, pre = market_fleet(market, kernel, rmax, p, lanes,
+                                             40 + i, mp, rng="split")
+        if rmax >= 100:
+            state0 = prefilled(state0, market.n_pools, rng)
+        inputs.append((name, market, kernel, rmax, state0, p, mp, k, pre))
+        ends_on_a_short_pass(f"split market parity {name}",
+                             SPLIT_MARKET_PLAN, 16)
+        args = (JOB, market, kernel, rmax, pre, state0, p, mp, k,
+                SPLIT_MARKET_PLAN)
+        ref = market_event_windows_ref(*args, rng="split")
+        ker = sweep.market_event_windows(*args, rng="split")
+        torch.cuda.synchronize()
+        hold_all(f"split market {name}", ref, ker)
+        if torch.equal(ker[0].key, state0.key):
+            raise AssertionError(f"split market {name}: the lane keys did "
+                                 f"not move")
+        g, spt = picked_layout(rmax)
+        driven.add((g, spt))
+        h = split_market_hashes(JOB, market, kernel, pre)
+        top = int(max(state0.qlen.max(), ref[0].qlen.max()))
+        if rmax >= 100 and top <= (rmax - 1) // spt * spt:
+            raise AssertionError(f"split market {name}: the queue held at "
+                                 f"most {top} of {rmax} slots, none of the "
+                                 f"last thread's")
+        print(f"split market parity {name}: P {market.n_pools}, rmax {rmax} "
+              f"(G {g}, {spt} slots a thread), {lanes} lanes, plan "
+              f"{SPLIT_MARKET_PLAN}, preemption {'on' if pre else 'off'}, "
+              f"{h[0]} subkey + {h[1]} bits hashes an event: every field "
+              f"bitwise, the preemption clocks and lane keys included; "
+              f"{int(ref[1].pool_preempted.sum())} revocations, "
+              f"{int(ref[1].resumed.sum())} resumed, queues up to {top} of "
+              f"{rmax} slots", flush=True)
+    if driven != picks:
+        raise AssertionError(f"split market layouts driven {sorted(driven)},"
+                             f" picked {sorted(picks)}")
+    for j, (tel, env, work) in enumerate(SPLIT_MARKET_AXES):
+        name, market, kernel, rmax, state0, p, mp, k, pre = inputs[
+            [0, 2, 9, 3][j]]
+        n = market.n_pools
+        st, ep, model, wk = state0, None, None, None
+        if env:
+            kernel = PanicKernel(kernel, drain_dead=True)
+            t_run = env_t_run(lambda: sweep.market_event_windows(
+                JOB, market, kernel, rmax, pre, state0, p, mp, k,
+                SPLIT_MARKET_PLAN, rng="split"))
+            keys = threefry.split(threefry.key(40 + [0, 2, 9, 3][j], DEVICE),
+                                  lanes)
+            st, ep = with_env(state0, env_parity_timeline(n, t_run, True), n,
+                              lambda ep: init_market_state(
+                                  keys, JOB, market, rmax, mp, pre, ep,
+                                  rng="split"))
+        if work:
+            kernel = CantBeLateKernel(kernel, 0.2)
+            model = SPLIT_WORK[j % len(SPLIT_WORK)]
+            wk = model.params(DEVICE)
+            st = work_state0(st, rmax)
+        args = (JOB, market, kernel, rmax, pre, st, p, mp, k,
+                SPLIT_MARKET_PLAN, tel, ep, model, wk)
+        ref = market_event_windows_ref(*args, rng="split")
+        ker = sweep.market_event_windows(*args, rng="split")
+        torch.cuda.synchronize()
+        net = f" + work {model.ckpt} + CantBeLateKernel" if work else ""
+        what = (f"split market {name}{' + telemetry' if tel else ''}"
+                f"{' + env + PanicKernel(drain_dead)' if env else ''}{net}")
+        hold_all(what, ref, ker)
+        print(f"{what}, rmax {rmax}, {lanes} lanes, plan "
+              f"{SPLIT_MARKET_PLAN}: every field bitwise", flush=True)
+
+
+def phase_split_market_degenerate() -> None:
+    """The 1-pool zero-hazard market (unit price, a legacy three-phase
+    kernel) through the market kernel's split traversal against the
+    single-queue kernel's split traversal from the same lane keys at the
+    full fleet's width, cut depth: every statistic they share, the final
+    queue, clocks and lane keys bitwise."""
+    degenerate = SpotMarket.single(SPOT)
+    args = market_main_inputs(degenerate, ThreePhaseKernel(), rng="split")
+    state0, p = args[5], args[6]
+    plan = (64, 1_024)
+    fin_m, m = sweep.market_event_windows(*args, plan, rng="split")
+    single0 = init_engine_state(state0.key, JOB, SPOT, 64)
+    single0 = single0._replace(key=state0.key, next_job=state0.next_job,
+                               next_spot=state0.next_spot[:, 0])
+    fin_s, s = sweep.batched_event_windows(JOB, SPOT, ThreePhaseKernel(), 64,
+                                           single0, p, args[8], plan,
+                                           rng="split")
+    torch.cuda.synchronize()
+    for field in WindowStats._fields:
+        if not torch.equal(getattr(m, field), getattr(s, field)):
+            raise AssertionError(f"split degenerate market: {field} differs "
+                                 f"from the single queue")
+    for field in ("key", "next_job", "ages", "budgets", "occ", "order",
+                  "next_seq", "qlen"):
+        if not torch.equal(getattr(fin_m, field), getattr(fin_s, field)):
+            raise AssertionError(f"split degenerate market: final {field} "
+                                 f"differs")
+    if not torch.equal(fin_m.next_spot[:, 0], fin_s.next_spot):
+        raise AssertionError("split degenerate market: final spot clock "
+                             "differs")
+    print(f"split market degenerate: 1 pool, no hazard, unit price, "
+          f"{state0.key.shape[0]} lanes × {sum(plan)} events, rmax 64: the "
+          f"market kernel's split traversal equals the single-queue "
+          f"kernel's bitwise (every shared statistic, the final queue, "
+          f"clocks and lane keys)", flush=True)
+
+
+def phase_split_market_main_path(entry: dict) -> None:
+    """The market main path at full width on the split stream: the kernel
+    alone on the slab and the split stream in turns (slab, split, split,
+    slab) on the main path's inputs, spot spend held window by window;
+    at SPLIT_MARKET_CUT_PLAN the kernel against its plain version, every
+    field bitwise, both timed; then ``run_market_sweep(rng="split")`` with
+    the launch count set to 0 just before and read just after (one
+    launch), equal to the summary of the kernel's own call, completed legs
+    = served + on-demand + resumed at every lane and ``avg_cost_job``
+    above the preemption-priced LP floor within 5e-3·k."""
+    plan = _window_plan(N_EVENTS, 65_536, BURN_IN)
+    lanes = R_GRID.size * K_GRID.size * N_SEEDS
+    n_pools = BENCH_MARKET.n_pools
+    slab_args = market_main_inputs()
+    split_args = market_main_inputs(rng="split")
+    times = {"slab": [], "split": []}
+    for rng in ("slab", "split", "split", "slab"):
+        args = split_args if rng == "split" else slab_args
+        ms, run = cuda_ms(lambda: sweep.market_event_windows(*args, plan,
+                                                            rng=rng))
+        times[rng].append(ms)
+        if rng == "split":
+            stats = run[1]
+    slab_ms, split_ms = (float(np.mean(times[r])) for r in ("slab",
+                                                            "split"))
+    # the function's bound (only the firing pool's spot and hazard draws)
+    # and the bound of what the kernel's pass issues (every pool's)
+    pairs, bits, keys = split_market_hashes(JOB, BENCH_MARKET,
+                                            MARKET_KERNEL, True, False)
+    ops = split_market_ops_per_lane_event(64, n_pools, pairs, bits, keys)
+    b_ms, b_by = bound_ms(lanes, plan, ops, split_market_bytes_moved(
+        lanes, 64, n_pools, len(plan)))
+    issued = split_market_hashes(JOB, BENCH_MARKET, MARKET_KERNEL, True)
+    ops_issued = split_market_ops_per_lane_event(64, n_pools, *issued)
+    bi_ms, _ = bound_ms(lanes, plan, ops_issued, split_market_bytes_moved(
+        lanes, 64, n_pools, len(plan)))
+    n_cols = _market_layout(JOB, BENCH_MARKET, MARKET_KERNEL, True).n_cols
+    s_ms, _ = bound_ms(lanes, plan, market_ops_per_lane_event(
+        64, n_cols, n_pools), market_bytes_moved(lanes, 64, n_pools,
+                                                 len(plan)))
+    # spot spend conservation, window by window (phase_market_main_kernel's)
+    price = BENCH_MARKET.prices().astype(np.float32).astype(np.float64)
+    legs = (stats.pool_served + stats.pool_preempted).cpu().numpy()
+    exact = (legs * price).sum(-1)
+    got = stats.spot_cost.cpu().numpy()
+    bound = legs.sum(-1) * np.spacing(got) / 2
+    if not np.all(np.abs(got - exact) <= bound):
+        bad = np.argwhere(np.abs(got - exact) > bound)[0]
+        raise AssertionError(f"split market spend conservation: lane/window "
+                             f"{bad.tolist()}: {got[tuple(bad)]} against "
+                             f"{exact[tuple(bad)]}")
+
+    cut = split_args + (SPLIT_MARKET_CUT_PLAN,)
+    sweep.market_event_windows(*cut, rng="split")  # warm-up
+    cut_ms, ker = cuda_ms(
+        lambda: sweep.market_event_windows(*cut, rng="split"), 3)
+    plain_ms, ref = cuda_ms(lambda: market_event_windows_ref(*cut,
+                                                             rng="split"))
+    hold_all("split market cut depth", ref, ker)
+    cut_bytes = split_market_bytes_moved(lanes, 64, n_pools, 1)
+    cb_ms, cb_by = bound_ms(lanes, SPLIT_MARKET_CUT_PLAN, ops, cut_bytes)
+    cbi_ms, _ = bound_ms(lanes, SPLIT_MARKET_CUT_PLAN, ops_issued, cut_bytes)
+    g, spt = picked_layout(64)
+    entry.update(
+        ms=cut_ms, plain_ms=plain_ms, bound_ms=cb_ms, bound_by=cb_by,
+        issued_bound_ms=cbi_ms, max_abs_err=max_abs(ref[1], ker[1]),
+        main_ms=split_ms, main_slab_ms=slab_ms,
+        main_ratio=split_ms / slab_ms, main_bound_ms=b_ms,
+        main_bound_by=b_by, main_issued_bound_ms=bi_ms,
+        main_slab_bound_ms=s_ms, hashes=[pairs, bits],
+        issued_hashes=list(issued[:2]), group=g, slots_a_thread=spt,
+        ptxas=MARKET_PTXAS.get((g, spt)))
+    print(f"split market main-size kernel: {lanes} lanes × {sum(plan)} "
+          f"events, 4 pools, rmax 64 (G {g}, {spt} slots a thread; ptxas: "
+          f"{MARKET_PTXAS.get((g, spt))}), {pairs} subkey + {bits} bits "
+          f"hashes an event needed ({issued[0]} + {issued[1]} issued): slab "
+          f"{times['slab'][0]:.1f} / {times['slab'][1]:.1f} ms, split "
+          f"{times['split'][0]:.1f} / {times['split'][1]:.1f} ms: split/slab"
+          f" {split_ms / slab_ms:.4f}; the function's bound {b_ms:.1f} ms "
+          f"({b_by}: {100 * b_ms / split_ms:.1f}%), the issued draws' "
+          f"{bi_ms:.1f} ms ({100 * bi_ms / split_ms:.1f}%), the slab's "
+          f"{s_ms:.1f} ms; spend within its rounding bound at every lane and"
+          f" window; cut depth {SPLIT_MARKET_CUT_PLAN}: kernel {cut_ms:.3f} "
+          f"ms (bound {cb_ms:.4f} ms, issued {cbi_ms:.4f} ms), plain "
+          f"{plain_ms:.1f} ms, every field bitwise", flush=True)
+
+    want = summarize_market(MarketWindowStats(*(x[:, 1:] for x in stats)))
+    sweep.market_event_windows.launches = 0
+    t0 = time.perf_counter()
+    out = run_market_sweep(JOB, BENCH_MARKET, MARKET_KERNEL,
+                           {"r": R_GRID[:, None]}, k=K_GRID[None, :],
+                           n_events=N_EVENTS, key=threefry.key(MAIN_SEED),
+                           n_seeds=N_SEEDS, rmax=64, burn_in=BURN_IN,
+                           rng="split")
+    wall = time.perf_counter() - t0
+    launches = sweep.market_event_windows.launches
+    entry["launches"] = launches
+    entry["run_market_sweep_s"] = wall
+    if launches != 1:
+        raise AssertionError(f"split market main path: run_market_sweep "
+                             f"launched the kernel {launches} times")
+    shape = (R_GRID.size, K_GRID.size, N_SEEDS)
+    for name, v in want.items():
+        if not np.array_equal(out[name], v.reshape(out[name].shape)):
+            raise AssertionError(f"split market main path: {name} differs "
+                                 f"from the kernel's own call")
+    for name, v in out.items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"split market {name}: non-finite")
+    if not np.array_equal(out["jobs_completed"], out["spot_served"]
+                          + out["ondemand"] + out["resumed"]):
+        raise AssertionError("split market: completed != served + ondemand"
+                             " + resumed")
+    if not (out["preemptions"].sum() > 0 and out["resumed"].sum() > 0):
+        raise AssertionError("split market: no preemption or no resume")
+    k = np.broadcast_to(K_GRID[None, :, None], shape)
+    worst = np.inf
+    for idx in np.ndindex(*shape):
+        floor = market_knapsack_lp(float(k[idx]), LAM,
+                                   float(out["avg_delay_job"][idx]),
+                                   BENCH_MARKET,
+                                   include_preemption=True)["objective"]
+        margin = (out["avg_cost_job"][idx] - floor) / k[idx]
+        worst = min(worst, margin)
+        if margin < -0.005:
+            raise AssertionError(f"split market LP floor: lane {idx}: "
+                                 f"avg_cost_job {out['avg_cost_job'][idx]:.5f}"
+                                 f" below the floor {floor:.5f}")
+    entry["lp_floor_worst_margin_k"] = float(worst)
+    print(f"split market main path: run_market_sweep(rng='split') "
+          f"{wall:.3f} s wall ({lanes * (N_EVENTS + BURN_IN) / wall:.4g} "
+          f"lane-events/s), kernel launches {launches}, equal to the "
+          f"kernel's own call; {int(out['preemptions'].sum())} revocations, "
+          f"{int(out['resumed'].sum())} resumed; completed legs = served + "
+          f"on-demand + resumed at every lane; avg_cost_job above the "
+          f"preemption-priced LP floor by at least {worst:.3e}·k (limit "
+          f"-5e-3·k)", flush=True)
+
+
 #: (phase, wall seconds) of this run, in order
 PHASE_SECONDS: list[tuple[str, float]] = []
 
@@ -4749,6 +5249,18 @@ def main() -> int:
     timed(phase_split_parity)
     timed(phase_split_main_path, split)
 
+    split_market = {"name": "sweep_market_event_windows_split",
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/sweep/csrc/sweep.cu",
+                    "replaces": "src/repro/kernels/sweep/sweep.py:124 (body "
+                                "src/repro/core/engine.py:1633 "
+                                "_market_event, layout=None: the split "
+                                "stream)",
+                    "library_ms": None}
+    timed(phase_split_market_parity)
+    timed(phase_split_market_degenerate)
+    timed(phase_split_market_main_path, split_market)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, "
           f"{sum(s for _, s in PHASE_SECONDS):.1f} s in its "
           f"{len(PHASE_SECONDS)} phases", flush=True)
@@ -4756,7 +5268,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [{k: e[k] for k in keys} | {
         k: v for k, v in e.items() if k not in keys}
-        for e in (entry, flash, decode, ssd, market, region, split)]
+        for e in (entry, flash, decode, ssd, market, region, split,
+                  split_market)]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

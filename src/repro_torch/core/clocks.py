@@ -23,8 +23,9 @@ thinned pick of the firing pool (:func:`thinning_pick`).  Sums over pools
 run left to right, the order XLA's CPU backend gives ``jnp.sum`` and
 ``jnp.cumsum`` at these widths, on every device.
 
-The port runs the split stream on the single queue; the market's and the
-regions' 5/6-way ladders are not ported yet (ROADMAP.md Queue 1 item 7).
+The port runs the split stream on the single queue and the market (whose
+preemption clocks are then a vector of one a pool, the earliest firing);
+the regions' 6-way ladder is not ported yet (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -72,30 +73,47 @@ def split_event_keys(key: torch.Tensor, preempt_on: bool = False,
             k_pre, k_rt)
 
 
-def tagged_keys(tags: tuple, k: torch.Tensor) -> list:
-    """Per-tag sampling keys, ``fold_in(k, tag)``; a single tag uses ``k``
-    itself, so the 1-pool market draws as the single queue does."""
+def tagged_keys(tags: tuple, k: torch.Tensor) -> torch.Tensor:
+    """``(..., P, 2)`` per-tag sampling keys, ``fold_in(k, tag)``; a single
+    tag uses ``k`` itself, so the 1-pool market draws as the single queue
+    does."""
     if len(tags) == 1:
-        return [k]
-    return [threefry.fold_in(k, t) for t in tags]
+        return k[..., None, :]
+    return threefry.fold_in(k, tags)
 
 
 def sample_clock_vector(procs: tuple, tags: tuple, k: torch.Tensor,
                         scale: torch.Tensor) -> torch.Tensor:
     """``(..., P)`` renewal samples, one per tag-keyed process, × a
-    ``(..., P)`` scale."""
-    samples = [p.sample(kk) for p, kk in zip(procs, tagged_keys(tags, k))]
-    return torch.stack(samples, dim=-1) * scale
+    ``(..., P)`` scale.  Equal processes draw in one call on their keys
+    (the same words as one call a process)."""
+    keys = tagged_keys(tags, k)
+    cols = [None] * len(procs)
+    for proc in dict.fromkeys(procs):
+        at = [i for i, p in enumerate(procs) if p == proc]
+        drawn = proc.sample(keys[..., at, :])
+        for j, i in enumerate(at):
+            cols[i] = drawn[..., j]
+    return torch.stack(cols, dim=-1) * scale
+
+
+def hazard_units(tags: tuple, k: torch.Tensor) -> torch.Tensor:
+    """``(..., P)`` unit exponentials of the revocation clocks, one per tag
+    (always tag-folded, even for one tag)."""
+    return threefry.exponential(threefry.fold_in(k, tuple(tags)))
+
+
+def rate_clock(unit: torch.Tensor, rate: torch.Tensor) -> torch.Tensor:
+    """The unit exponential ``unit`` at rate ``rate``; a zero rate never
+    fires (INF)."""
+    return torch.where(rate > 0.0, unit / torch.clamp_min(rate, 1e-30), _INF)
 
 
 def sample_hazard_clocks(tags: tuple, k: torch.Tensor,
                          hazard: torch.Tensor) -> torch.Tensor:
-    """``Exp(h_t)`` revocation clocks per tag (always tag-folded, even for
-    one tag); ``h_t = 0`` never fires (INF)."""
-    u = torch.stack([threefry.exponential(threefry.fold_in(k, t))
-                     for t in tags], dim=-1)
-    return torch.where(hazard > 0.0, u / torch.clamp_min(hazard, 1e-30),
-                       _INF)
+    """``Exp(h_t)`` revocation clocks per tag (:func:`hazard_units` at
+    :func:`rate_clock`)."""
+    return rate_clock(hazard_units(tags, k), hazard)
 
 
 def _running_sums(h: torch.Tensor) -> list:
@@ -122,9 +140,7 @@ def hazard_clock(hazard, u):
         if total <= 0.0:
             return math.inf
         return -math.log1p(-float(u)) / total
-    total = hazard_total(hazard)
-    return torch.where(total > 0.0,
-                       exp_from_u(u) / torch.clamp_min(total, 1e-30), _INF)
+    return rate_clock(exp_from_u(u), hazard_total(hazard))
 
 
 def thinning_pick(hazard, u):

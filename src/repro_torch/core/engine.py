@@ -25,11 +25,12 @@ in float64 on the host by :func:`summarize`.
 
 Randomness (``rng=``, :mod:`repro_torch.core.clocks`): ``"split"`` is the
 JAX package's default stream, a per-event key ladder (every event splits
-the lane key four ways: next key, job, spot and policy subkeys), run by
-the single queue; ``"slab"`` draws each window's random bits from one key,
-consumed by static column, and runs on every loop.  The port's entry points
-default to ``"slab"``; the market and the regions refuse ``"split"``
-(their 5/6-way ladders are not ported yet, ROADMAP.md Queue 1 item 7).
+the lane key into the next key and the job, spot and policy subkeys, and
+in a market with preemption a fifth, the preemption subkey), run by the
+single queue and the market; ``"slab"`` draws each window's random bits
+from one key, consumed by static column, and runs on every loop.  The
+port's entry points default to ``"slab"``; the regions refuse ``"split"``
+(their 6-way ladder is not ported yet, ROADMAP.md Queue 1 item 7).
 
 Optional axes on every entry point: ``telemetry=`` (:mod:`repro_torch.obs`)
 and ``env=`` (an :class:`~repro_torch.core.env.EnvTimeline`: segment
@@ -60,20 +61,19 @@ import torch
 from repro_torch.core import threefry
 from repro_torch.core.arrivals import ArrivalProcess, Gamma
 from repro_torch.core.clocks import (SlabLayout, build_slab_layout,
-                                     hazard_clock, hazard_total, process_udim,
+                                     hazard_clock, hazard_total, hazard_units,
+                                     process_udim, rate_clock,
                                      sample_clock_vector,
                                      sample_hazard_clocks, split_event_keys,
                                      thinning_pick)
 from repro_torch.core.env import (EnvState, EnvTimeline, clock_rescale,
                                   env_row, init_env_state, inv_avail)
-from repro_torch.core.market import (PanicKernel, PoolChoiceKernel,
-                                     PoolState, as_market,
-                                     checkpoint_within_notice, peel_panic)
-from repro_torch.core.regions import RegionView, RoutingKernel, as_topology
-from repro_torch.core.policies import SingleSlotKernel, deadline_slack
+from repro_torch.core.market import (PoolState, as_market,
+                                     checkpoint_within_notice)
+from repro_torch.core.regions import RegionView, as_topology
+from repro_torch.core.policies import deadline_slack
 from repro_torch.core.waittime import INF
-from repro_torch.core.work import (CantBeLateKernel, WorkModel, WorkState,
-                                   init_work_state, peel_safety_net)
+from repro_torch.core.work import WorkModel, WorkState, init_work_state
 from repro_torch.device import resolve_device
 from repro_torch.obs.shocks import env_update, summarize_env
 from repro_torch.obs.stats import (Telemetry, drop_windows, lane,
@@ -517,22 +517,6 @@ def _engine_layout(job: ArrivalProcess, spot: ArrivalProcess, kernel,
     return layout
 
 
-def lane_params(kernel, params: dict, k_cost: torch.Tensor,
-                rng: str = "slab") -> dict:
-    """The kernel's per-lane params dict: on the slab stream a single-slot
-    kernel whose wait parameters are not swept gets its wait family's own
-    values (through a ``CantBeLateKernel`` or a ``PanicKernel``, which
-    admit as their base).  On the split stream they stay out, as in the JAX
-    package: the keyed ``admit`` then samples at the family's constants."""
-    kernel = peel_panic(peel_safety_net(kernel)[0])
-    if (isinstance(kernel, SingleSlotKernel) and "wait" not in params
-            and rng == "slab"):
-        wait = {name: torch.full_like(k_cost, np.float32(v))
-                for name, v in kernel.wait.params().items()}
-        return {**params, "wait": wait}
-    return params
-
-
 class NonFiniteStatsError(ValueError):
     """Raised by :func:`summarize` when a reduced statistic is NaN/inf."""
 
@@ -697,16 +681,16 @@ def _refuse_gamma(name: str, procs) -> None:
 def _resolve(device, impl: str | None, rng: str, name: str, procs=(),
              split: bool = True):
     """Check the static run options (a Gamma process among ``procs`` is
-    refused, and ``rng="split"`` where ``split`` is False: the market and
-    the regions); return the device."""
+    refused, and ``rng="split"`` where ``split`` is False: the regions);
+    return the device."""
     if rng not in ("split", "slab"):
         raise ValueError(f"{name}: unknown rng {rng!r} (expected "
                          "'split'|'slab')")
     if rng == "split" and not split:
         raise NotImplementedError(
             f"{name}: rng='split' (the per-event key ladder) is not ported "
-            "yet for the market/regions (ROADMAP.md Queue 1 item 7); they "
-            "run rng='slab'")
+            "yet for the regions (ROADMAP.md Queue 1 item 7); they run "
+            "rng='slab'")
     _refuse_gamma(name, procs)
     device = resolve_device(device, name)
     if impl is None:
@@ -760,9 +744,8 @@ def _run_lanes(job, spot, kernel, rmax, plan, burn_in, params, k_cost,
 
     state0 = _carry(init_engine_state(keys, job, spot, rmax, ep), ep, work,
                     rmax)
-    _, stats = batched_events(job, spot, kernel, rmax, state0,
-                              lane_params(kernel, params, k_cost, rng),
-                              k_cost, plan, tel, ep, work, wk, rng)
+    _, stats = batched_events(job, spot, kernel, rmax, state0, params, k_cost,
+                              plan, tel, ep, work, wk, rng)
     return _without_burn_in(stats, burn_in, tel, ep is not None,
                             work is not None)
 
@@ -859,15 +842,14 @@ def run_sweep(job: ArrivalProcess, spot: ArrivalProcess, kernel, params=None,
     the stream: ``"split"``, the JAX package's default, draws every event
     from a per-event key ladder (each lane key advances once an event; the
     kernel walks the ladder itself); ``"slab"``, the port's default (the
-    market and the regions run only it), draws each window's bits from one
-    key.  The two streams agree in distribution, not bitwise.
-    ``telemetry`` (a :class:`repro_torch.obs.Telemetry`)
-    adds the telemetry summary at every grid point, through the same
-    kernel launch; ``env`` (an :class:`~repro_torch.core.env.EnvTimeline`)
-    adds the shock counters at every grid point, through the same launch;
-    ``work`` (a :class:`~repro_torch.core.work.WorkModel`) adds the
-    survival ledger, through the same launch; ``shard``/``mesh`` are not
-    ported and raise.
+    regions run only it), draws each window's bits from one key.  The two
+    streams agree in distribution, not bitwise.  ``telemetry`` (a
+    :class:`repro_torch.obs.Telemetry`) adds the telemetry summary at every
+    grid point, through the same kernel launch; ``env`` (an
+    :class:`~repro_torch.core.env.EnvTimeline`) adds the shock counters at
+    every grid point, through the same launch; ``work`` (a
+    :class:`~repro_torch.core.work.WorkModel`) adds the survival ledger,
+    through the same launch; ``shard``/``mesh`` are not ported and raise.
 
     Returns :func:`summarize`'s dict with every value shaped
     ``grid_shape + (n_seeds,)`` (plus a trailing bin, type or location
@@ -956,7 +938,9 @@ class MarketState(NamedTuple):
     key: torch.Tensor  # (lanes, 2) threefry key words
     next_job: torch.Tensor  # time until the next job arrival
     next_spot: torch.Tensor  # (lanes, P) per-pool spot-slot clocks
-    next_preempt: torch.Tensor  # the superposed preemption clock (INF = never)
+    # the superposed preemption clock (INF = never); on the split stream
+    # the (lanes, P) per-pool clocks
+    next_preempt: torch.Tensor
     ages: torch.Tensor  # (lanes, rmax)
     budgets: torch.Tensor  # (lanes, rmax)
     occ: torch.Tensor  # (lanes, rmax) bool
@@ -968,26 +952,31 @@ class MarketState(NamedTuple):
 
 def init_market_state(key: torch.Tensor, job: ArrivalProcess, market,
                       rmax: int, mp: dict, preempt_on: bool,
-                      ep: dict | None = None) -> MarketState:
+                      ep: dict | None = None,
+                      rng: str = "slab") -> MarketState:
     """Initial state of each ``(lanes, 2)`` key under the per-lane
     pools-config ``mp`` (``(lanes, P)`` leaves).  As the JAX package's
-    ``init_market_state(..., scalar_preempt=True)``: the job, spot and lane
-    keys are the three subkeys of a split; the pools' spot clocks come from
-    ``fold_in(spot key, tag)`` (the spot key itself for one pool), and the
-    superposed preemption clock is the least of the per-pool hazard draws
-    under ``fold_in(spot key, 2**31 - 1)``.  An environment timeline ``ep``
+    ``init_market_state``: the job, spot and lane keys are the three
+    subkeys of a split; the pools' spot clocks come from ``fold_in(spot
+    key, tag)`` (the spot key itself for one pool), and the per-pool
+    hazard draws from ``fold_in(fold_in(spot key, 2**31 - 1), tag)``.  On
+    the split stream they stay a ``(lanes, P)`` vector of preemption clocks
+    (JAX's ``scalar_preempt=False``); on the slab stream their least is
+    the one superposed clock, ``(lanes,)``.  An environment timeline ``ep``
     places the initial clocks under segment 0's hazard and availability
     (exact ×1.0 on a constant timeline)."""
     ks3 = threefry.split(key, 3)
     kj, ks = ks3[:, 0], ks3[:, 1]
     lanes, device = key.shape[0], key.device
     hazard0 = mp["hazard"] if ep is None else mp["hazard"] * ep["hazard"][0]
+    shape = (lanes, market.n_pools) if rng == "split" else (lanes,)
     if preempt_on:
         next_preempt = sample_hazard_clocks(
-            market.tags, threefry.fold_in(ks, 2**31 - 1),
-            hazard0).min(dim=-1).values
+            market.tags, threefry.fold_in(ks, 2**31 - 1), hazard0)
+        if rng != "split":
+            next_preempt = next_preempt.min(dim=-1).values
     else:
-        next_preempt = torch.full((lanes,), INF, dtype=torch.float32,
+        next_preempt = torch.full(shape, INF, dtype=torch.float32,
                                   device=device)
     next_spot = sample_clock_vector(tuple(p.arrival for p in market.pools),
                                     market.tags, ks, mp["spot_scale"])
@@ -1022,6 +1011,25 @@ def _kernel_admit_slab(kernel, params, qlen, pool_state: PoolState,
     return admit, budget, torch.zeros_like(qlen)
 
 
+def _kernel_admit(kernel, params, qlen, pool_state: PoolState, key):
+    """(admit?, budget, pool) on the split stream: a market kernel's keyed
+    ``admit_market``; a single-queue kernel's keyed ``admit``, to pool 0."""
+    if hasattr(kernel, "admit_market"):
+        admit, budget, pool = kernel.admit_market(params, qlen, pool_state,
+                                                  key)
+        return admit, budget, pool.to(torch.int32)
+    admit, budget = kernel.admit(params, qlen, key)
+    return admit, budget, torch.zeros_like(qlen)
+
+
+def _kernel_on_preempt(kernel, params, age, notice, qlen, key):
+    """resume? on the split stream: the kernel's keyed ``on_preempt``; a
+    kernel without the hook defects on revocation."""
+    if hasattr(kernel, "on_preempt"):
+        return kernel.on_preempt(params, age, notice, qlen, key)
+    return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
+
+
 def _kernel_on_preempt_slab(kernel, params, age, notice, qlen,
                             layout: SlabLayout, x):
     """resume?: the kernel's ``on_preempt_u``; a kernel without the hook
@@ -1038,17 +1046,22 @@ def _pick(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
-                  preempt_on: bool, layout: SlabLayout, carry: MarketState,
-                  stats: MarketWindowStats, params: dict, mp: dict,
-                  k_cost: torch.Tensor, x: torch.Tensor,
+                  preempt_on: bool, layout: SlabLayout | None,
+                  carry: MarketState, stats: MarketWindowStats, params: dict,
+                  mp: dict, k_cost: torch.Tensor, x: torch.Tensor | None,
                   tel: Telemetry | None = None, ep: dict | None = None,
                   work: WorkModel | None = None, wk: dict | None = None
                   ) -> tuple[MarketState, MarketWindowStats]:
     """One merged event (job arrival / pool spot slot / pool preemption /
-    wait deadline) for every lane; ``x`` is this event's slab row.  The
-    JAX package's ``_market_event`` on the slab stream with its telemetry
-    fold (``tel``: the stats are a ``(base, telemetry)`` pair) and its
-    environment branch (``ep``, as in :func:`_engine_event`: the pools'
+    wait deadline) for every lane; ``x`` is this event's slab row.  With
+    ``layout=None`` the event runs the split stream instead (``x`` unused):
+    each lane key splits into the next key and the job, spot, policy and
+    (with preemption) preemption subkeys, the keyed hooks decide, the
+    pools' fresh spot and hazard clocks are tag-folded draws, and the
+    preemption clocks are a ``(lanes, P)`` vector whose earliest (lowest
+    pool on ties) fires.  The JAX package's ``_market_event`` with its
+    telemetry fold (``tel``: the stats are a ``(base, telemetry)`` pair) and
+    its environment branch (``ep``, as in :func:`_engine_event`: the pools'
     effective price and hazard are the base × the segment's row, their
     spot supply × the availability, and the kernel's :class:`PoolState`
     sees the effective market, a zero ``rate`` the blackout signal
@@ -1071,6 +1084,10 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         price, hazard = mp["price"], mp["hazard"]
     if tel is not None:
         stats, tstats = stats
+    key = carry.key  # advanced once per window by the slab generator
+    if layout is None:
+        key, k_job, k_spot, k_pol, k_pre, _ = split_event_keys(carry.key,
+                                                               preempt_on)
     device = carry.ages.device
     iota = torch.arange(rmax, device=device)
     iota_p = torch.arange(market.n_pools, device=device)
@@ -1082,9 +1099,12 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
     min_spot, spot_pool = torch.min(carry.next_spot, dim=1)
     nj = carry.next_job
     if preempt_on:
-        min_pre = carry.next_preempt
-        pre_pool = thinning_pick(hazard,
-                                 layout.uniforms(x, layout.preempt)[:, 1])
+        if layout is None:
+            min_pre, pre_pool = torch.min(carry.next_preempt, dim=1)
+        else:
+            min_pre = carry.next_preempt
+            pre_pool = thinning_pick(
+                hazard, layout.uniforms(x, layout.preempt)[:, 1])
         dt = torch.minimum(torch.minimum(nj, min_spot),
                            torch.minimum(deadline, min_pre))
         is_spot = min_spot <= torch.minimum(nj, torch.minimum(deadline,
@@ -1124,8 +1144,12 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
                  & (carry.pool[:, :, None] == iota_p)).sum(1).to(torch.int32)
     pool_state = PoolState(price=price, hazard=hazard, notice=mp["notice"],
                            rate=rates, qlen_pool=qlen_pool)
-    admit_raw, budget, pool_choice = _kernel_admit_slab(
-        kernel, params, carry.qlen, pool_state, layout, x)
+    if layout is None:
+        admit_raw, budget, pool_choice = _kernel_admit(
+            kernel, params, carry.qlen, pool_state, k_pol)
+    else:
+        admit_raw, budget, pool_choice = _kernel_admit_slab(
+            kernel, params, carry.qlen, pool_state, layout, x)
     admit = is_job & admit_raw & (carry.qlen < rmax)
     od_now = is_job & (~admit)
     join_slot = torch.argmin(carry.occ.to(torch.int32), dim=1)
@@ -1153,9 +1177,13 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         age_pre = torch.where(iota == pre_slot[:, None], ages, 0.0).sum(1)
         # re-admission sees the queue without the revoked job
         qlen_wo = torch.clamp_min(carry.qlen - 1, 0)
-        resume_raw = _kernel_on_preempt_slab(
-            kernel, params, age_pre, _pick(mp["notice"], pre_pool), qlen_wo,
-            layout, x)
+        notice_p = _pick(mp["notice"], pre_pool)
+        if layout is None:
+            resume_raw = _kernel_on_preempt(kernel, params, age_pre,
+                                            notice_p, qlen_wo, k_pre)
+        else:
+            resume_raw = _kernel_on_preempt_slab(
+                kernel, params, age_pre, notice_p, qlen_wo, layout, x)
         resume = pre_hit & resume_raw
         defect_pre = pre_hit & (~resume)
         price_p = _pick(price, pre_pool)
@@ -1194,19 +1222,31 @@ def _market_event(job: ArrivalProcess, market, kernel, rmax: int,
         ws = _work_join(ws, wk_c, join_mask, dt)
 
     fire_s = is_spot[:, None] & (iota_p == spot_pool[:, None])
-    u_spot = layout.uniforms(x, layout.spot)
-    spot_draws = torch.stack([p.arrival.sample_u(u_spot)
-                              for p in market.pools], dim=-1) \
-        * mp["spot_scale"]
+    procs = tuple(p.arrival for p in market.pools)
+    if layout is None:
+        spot_draws = sample_clock_vector(procs, market.tags, k_spot,
+                                         mp["spot_scale"])
+        job_draw = job.sample(k_job)
+        # only the firing pool's hazard clock is drawn afresh
+        pre_fired = is_pre[:, None] & (iota_p == pre_pool[:, None])
+        pre_draw = (hazard_units(market.tags, k_pre) if preempt_on
+                    else None)
+    else:
+        u_spot = layout.uniforms(x, layout.spot)
+        spot_draws = torch.stack([p.sample_u(u_spot) for p in procs],
+                                 dim=-1) * mp["spot_scale"]
+        job_draw = job.sample_u(layout.uniforms(x, layout.job))
+        pre_fired = is_pre
+        pre_draw = (layout.uniforms(x, layout.preempt)[:, 0] if preempt_on
+                    else None)
     next_spot, next_preempt, seg_new = _supply_clocks(
-        mp, layout, x, preempt_on, spot_draws, fire_s, carry.next_spot,
-        carry.next_preempt, dt, is_pre, hazard,
+        mp, layout is None, pre_fired, pre_draw, preempt_on, spot_draws,
+        fire_s, carry.next_spot, carry.next_preempt, dt, hazard,
         None if ep is None else (ep, is_boundary, seg, avail_row))
-    job_draw = job.sample_u(layout.uniforms(x, layout.job))
 
     admit_i = admit.to(torch.int32)
     new_carry = MarketState(
-        key=carry.key,  # advanced once per window by the slab generator
+        key=key,
         next_job=torch.where(is_job, job_draw, nj - dt),
         next_spot=next_spot,
         next_preempt=next_preempt,
@@ -1293,16 +1333,21 @@ def _boundary(env_c: EnvState, dt: torch.Tensor, events: tuple):
             tuple(e & not_b for e in events))
 
 
-def _supply_clocks(cfg, layout, x, preempt_on, spot_draws, fire_s, next_spot,
-                   next_preempt, dt, is_pre, hazard, env=None):
-    """The market's or regions' spot clocks (``(lanes, n)``) and superposed
-    preemption clock after one event: fresh draws where a location fired,
-    aged clocks elsewhere.  ``hazard`` is the pre-event (effective) hazard.
-    With ``env`` (``(ep, is_boundary, seg, avail_row)``), fresh draws run
-    under the post-event segment (spot × 1/avail, the preemption clock at
-    the new total hazard) and a crossing rescales the survived clocks
-    exactly.  Returns ``(next_spot, next_preempt, seg_new)`` (``seg_new``
-    None without ``env``)."""
+def _supply_clocks(cfg, split, pre_fired, pre_draw, preempt_on, spot_draws,
+                   fire_s, next_spot, next_preempt, dt, hazard, env=None):
+    """The market's or regions' spot clocks (``(lanes, n)``) and preemption
+    clocks after one event: fresh draws where a location fired, aged clocks
+    elsewhere.  The preemption clocks are drawn afresh where ``pre_fired``,
+    at the post-event hazard: on the slab stream (``split`` False) the one
+    superposed clock, ``(lanes,)``, from the uniform ``pre_draw`` at the
+    total hazard; on the split stream the ``(lanes, P)`` vector, the fired
+    pool's from its unit exponential in ``pre_draw`` at its own hazard.
+    ``hazard`` is the pre-event (effective) hazard.  With ``env`` (``(ep,
+    is_boundary, seg, avail_row)``), fresh draws run under the post-event
+    segment (spot × 1/avail, the preemption clocks at the new hazards) and
+    a crossing rescales the survived clocks exactly, the superposed one by
+    the ratio of the totals, a pool's by its own.  Returns ``(next_spot,
+    next_preempt, seg_new)`` (``seg_new`` None without ``env``)."""
     seg_new = None
     hazard_new = hazard
     if env is not None:
@@ -1317,47 +1362,51 @@ def _supply_clocks(cfg, layout, x, preempt_on, spot_draws, fire_s, next_spot,
         next_spot = torch.where(is_boundary[:, None],
                                 next_spot * (inv_new / inv_old), next_spot)
     if preempt_on:
-        # the superposed clock is drawn afresh whenever any location fires
-        next_preempt = torch.where(
-            is_pre, hazard_clock(hazard_new,
-                                 layout.uniforms(x, layout.preempt)[:, 0]),
-            next_preempt - dt)
+        if split:
+            fresh, aged = (rate_clock(pre_draw, hazard_new),
+                           next_preempt - dt[:, None])
+        else:
+            fresh, aged = (hazard_clock(hazard_new, pre_draw),
+                           next_preempt - dt)
+        next_preempt = torch.where(pre_fired, fresh, aged)
         if env is not None:
-            next_preempt = torch.where(
-                is_boundary,
-                next_preempt * clock_rescale(hazard_total(hazard),
-                                             hazard_total(hazard_new)),
-                next_preempt)
+            if split:
+                crossed = is_boundary[:, None]
+                rescale = clock_rescale(hazard, hazard_new)
+            else:
+                crossed = is_boundary
+                rescale = clock_rescale(hazard_total(hazard),
+                                        hazard_total(hazard_new))
+            next_preempt = torch.where(crossed, next_preempt * rescale,
+                                       next_preempt)
     return next_spot, next_preempt, seg_new
 
 
-def _market_layout(job: ArrivalProcess, market, kernel,
-                   preempt_on: bool) -> SlabLayout:
+def _market_layout(job: ArrivalProcess, market, kernel, preempt_on: bool,
+                   rng: str = "slab") -> SlabLayout | None:
     """Slab column map for the market loop: the spot span is the largest
     ``u_dim`` across the pools (every pool transforms the same uniforms;
-    only the firing pool's draw is kept)."""
+    only the firing pool's draw is kept).  None on the split stream, whose
+    event body draws from its key ladder and calls the keyed hooks."""
+    if rng == "split":
+        if not (hasattr(kernel, "admit_market")
+                or getattr(kernel, "admit", None) is not None):
+            raise NoAdmitHookError(
+                f"{kernel!r} has no keyed hook admit_market(params, qlen, "
+                "pool_state, key) or admit(params, qlen, key), which "
+                "rng='split' calls")
+        return None
     layout = build_slab_layout(
         kernel, job_udim=process_udim(job),
         spot_udim=max(process_udim(p.arrival) for p in market.pools),
         n=market.n_pools, preempt_on=preempt_on, market=True)
     if layout.admit_mode != "u" or layout.on_preempt_mode == "key":
-        raise NotImplementedError(
+        raise NoAdmitHookError(
             f"{kernel!r} has no slab hook for its market admission or "
-            "revocation (admit_market_u/on_preempt_u with slab_cols); "
-            "kernels without one need the split stream, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 7)")
+            "revocation (admit_market_u/on_preempt_u with slab_cols), "
+            "which rng='slab' calls; a kernel with only keyed hooks runs "
+            "rng='split'")
     return layout
-
-
-def market_lane_params(kernel, params: dict, k_cost: torch.Tensor) -> dict:
-    """:func:`lane_params` of the single-queue kernel a market or region
-    kernel admits through (the base of a ``RoutingKernel`` and of a
-    ``PoolChoiceKernel``, a ``PanicKernel`` or a ``CantBeLateKernel``, or a
-    legacy kernel)."""
-    while isinstance(kernel, (RoutingKernel, PoolChoiceKernel, PanicKernel,
-                              CantBeLateKernel)):
-        kernel = kernel.base
-    return lane_params(kernel, params, k_cost)
 
 
 def summarize_market(stats: MarketWindowStats,
@@ -1491,18 +1540,20 @@ def _check_market_options(name: str, market, telemetry, env, work, kernel,
 def _run_market_lanes(job, market, kernel, rmax, preempt_on, plan, burn_in,
                       params, mp, k_cost, keys,
                       tel: Telemetry | None = None, ep: dict | None = None,
-                      work: WorkModel | None = None, wk: dict | None = None):
-    """Flat market lanes through the executor of their device; returns
+                      work: WorkModel | None = None, wk: dict | None = None,
+                      rng: str = "slab"):
+    """Flat market lanes through the executor of their device on the
+    ``rng`` stream; returns
     (lanes, windows[, P]) stats (a ``(base, telemetry)`` pair with
     ``tel``, inside an ``(..., env)`` pair with ``ep`` and an outermost
     ``(..., survival)`` pair with ``work``) without the burn-in window."""
     from repro_torch.kernels.sweep import market_events
 
     state0 = _carry(init_market_state(keys, job, market, rmax, mp,
-                                      preempt_on, ep), ep, work, rmax)
+                                      preempt_on, ep, rng), ep, work, rmax)
     _, stats = market_events(job, market, kernel, rmax, preempt_on, state0,
-                             market_lane_params(kernel, params, k_cost), mp,
-                             k_cost, plan, tel, ep, work, wk)
+                             params, mp, k_cost, plan, tel, ep, work, wk,
+                             rng)
     return _without_burn_in(stats, burn_in, tel, ep is not None,
                             work is not None)
 
@@ -1543,8 +1594,7 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sim", market, telemetry, env, work,
                           kernel)
-    device = _resolve(device, impl, rng, "run_market_sim", (job,),
-                      split=False)
+    device = _resolve(device, impl, rng, "run_market_sim", (job,))
     _check_run_shape("run_market_sim", n_events, burn_in)
     if np.ndim(k) != 0:
         raise ValueError(f"run_market_sim: k must be a scalar, got shape "
@@ -1561,7 +1611,7 @@ def run_market_sim(job: ArrivalProcess, market, kernel, params=None, *,
         stats = _run_market_lanes(job, market, kernel, rmax,
                                   market.preemptible, plan, burn_in,
                                   params_f, mp, k_f, key.to(device)[None],
-                                  telemetry, ep, work, wk)
+                                  telemetry, ep, work, wk, rng)
     out = summarize_market(_lane0(stats, telemetry, ep is not None,
                                   work is not None), telemetry, env, work)
     return {name: _scalar_or_array(v) for name, v in out.items()}
@@ -1598,8 +1648,7 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     params = {} if params is None else params
     _check_market_options("run_market_sweep", market, telemetry, env, work,
                           kernel, shard, mesh)
-    device = _resolve(device, impl, rng, "run_market_sweep", (job,),
-                      split=False)
+    device = _resolve(device, impl, rng, "run_market_sweep", (job,))
     _check_run_shape("run_market_sweep", n_events, burn_in)
     _check_loc_overrides("run_market_sweep", n, "pool", prices=prices,
                          hazards=hazards, notices=notices,
@@ -1626,7 +1675,7 @@ def run_market_sweep(job: ArrivalProcess, market, kernel, params=None, *,
     with annotate(f"repro_torch.run_market_sweep[{device.type}]"):
         stats = _run_market_lanes(job, market, kernel, rmax, preempt_on,
                                   plan, burn_in, params_l, mp_l, k_l, keys_l,
-                                  telemetry, ep, work, wk)
+                                  telemetry, ep, work, wk, rng)
     return _reshape_sweep(summarize_market(stats, telemetry, env, work),
                           grid_shape, n_seeds)
 
@@ -1955,9 +2004,10 @@ def _region_event(topo, kernel, preempt_on: bool, layout: SlabLayout,
                               for r in topo.regions], dim=-1) \
         * rp["spot_scale"]
     next_job = torch.where(fire_j, job_draws, carry.next_job - dt[:, None])
+    u_pre = layout.uniforms(x, layout.preempt)[:, 0] if preempt_on else None
     next_spot, next_preempt, seg_new = _supply_clocks(
-        rp, layout, x, preempt_on, spot_draws, fire_s, carry.next_spot,
-        carry.next_preempt, dt, is_pre, hazard,
+        rp, False, is_pre, u_pre, preempt_on, spot_draws, fire_s,
+        carry.next_spot, carry.next_preempt, dt, hazard,
         None if ep is None else (ep, is_boundary, seg, avail_row))
 
     i32 = lambda b: b.to(torch.int32)  # noqa: E731
@@ -2056,8 +2106,8 @@ def _region_layout(topo, kernel, preempt_on: bool) -> SlabLayout:
         raise NotImplementedError(
             f"{kernel!r} has no slab hook for its admission, revocation or "
             "routing (*_u with slab_cols); kernels without one need the "
-            "split stream, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 7)")
+            "split stream, which is not ported yet for the regions "
+            "(ROADMAP.md Queue 1 item 7)")
     return layout
 
 
@@ -2137,8 +2187,7 @@ def _run_region_lanes(topo, kernel, preempt_on, plan, burn_in, params, rp,
 
     state0 = _carry(init_region_state(keys, topo, rp, preempt_on, ep), ep,
                     work, topo.total_slots)
-    _, stats = region_events(topo, kernel, preempt_on, state0,
-                             market_lane_params(kernel, params, k_cost), rp,
+    _, stats = region_events(topo, kernel, preempt_on, state0, params, rp,
                              k_cost, plan, tel, ep, work, wk)
     return _without_burn_in(stats, burn_in, tel, ep is not None,
                             work is not None)

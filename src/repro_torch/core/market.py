@@ -1,8 +1,8 @@
 """SpotMarket — heterogeneous spot pools with preemption-with-notice.
 
-The port of the JAX package's ``core/market.py`` for the slab stream.  A
-market is P spot *pools* (instance type × zone), each with its own slot
-process, price ``c_p``, Poisson preemption hazard ``h_p`` and notice window:
+The port of the JAX package's ``core/market.py``.  A market is P spot
+*pools* (instance type × zone), each with its own slot process, price
+``c_p``, Poisson preemption hazard ``h_p`` and notice window:
 
   * :class:`SpotPool` and :class:`SpotMarket` — static, hashable
     descriptors; :meth:`SpotMarket.params` lowers the pools to the per-lane
@@ -12,9 +12,9 @@ process, price ``c_p``, Poisson preemption hazard ``h_p`` and notice window:
     :class:`NoticeAwareKernel` (three-phase admission, a pool-choice rule,
     and checkpoint-within-notice recovery).  Their slab hooks
     (``admit_market_u``, ``on_preempt_u``) consume float32 uniforms from
-    their own slab columns; the keyed hooks (``admit_market``,
-    ``on_preempt``) exist so the slab layout sees the JAX protocol, and
-    raise: they belong to the split stream (ROADMAP.md Queue 1 item 7).
+    their own slab columns (``rng="slab"``); their keyed hooks
+    (``admit_market``, ``on_preempt``) draw from the event's policy and
+    preemption subkeys (``rng="split"``), as the JAX package's do.
   * :class:`PanicKernel` — blackout failover around any kernel: a choice
     of a dead pool (zero rate under the environment timeline) goes to the
     cheapest alive one, and with ``drain_dead`` the engine re-tags jobs
@@ -38,6 +38,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.clocks import choice_cols, gumbel_from_u, kernel_slab_cols
 from repro_torch.core.policies import three_phase_admit_prob
@@ -177,25 +178,36 @@ class PoolState(NamedTuple):
 def _split_stream(name: str):
     raise NotImplementedError(
         f"{name} draws from a PRNG key: that is the split stream, which is "
-        "not ported yet (ROADMAP.md Queue 1 item 7); the port runs the slab "
-        "hooks (*_u)")
+        "not ported yet for the regions (ROADMAP.md Queue 1 item 7); the "
+        "port runs their slab hooks (*_u)")
+
+
+def _weighted_pick(logits: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """argmax of logits + Gumbel noise (first index on ties); a ``(lanes,)``
+    logits tensor is one logit a lane, the same every pool."""
+    if logits.dim() < g.dim():
+        logits = logits[..., None]
+    return torch.argmax(logits + g, dim=-1).to(torch.int32)
 
 
 def choose_pool(choice: str, pool_state: PoolState, params=None,
                 key=None) -> torch.Tensor:
-    """The deterministic pool-choice rules (first index on ties):
-    ``cheapest``, ``fastest``, ``least_loaded``.  ``uniform`` and
-    ``weighted`` draw from a key (the split stream) and raise; the slab
-    stream takes :func:`choose_pool_u`."""
-    del params
+    """The pool-choice rules, first index on ties: ``cheapest``,
+    ``fastest`` and ``least_loaded`` are deterministic; ``uniform`` draws
+    ``jax.random.randint``'s pool from ``key`` and ``weighted``
+    Gumbel-samples from ``params["pool_logits"]`` under ``key`` (the split
+    stream; the slab stream takes :func:`choose_pool_u`)."""
+    n = pool_state.price.shape[-1]
     if choice == "cheapest":
         return torch.argmin(pool_state.price, dim=-1).to(torch.int32)
     if choice == "fastest":
         return torch.argmax(pool_state.rate, dim=-1).to(torch.int32)
     if choice == "least_loaded":
         return torch.argmin(pool_state.qlen_pool, dim=-1).to(torch.int32)
-    if choice in ("uniform", "weighted"):
-        _split_stream(f"choose_pool({choice!r}, key)")
+    if choice == "uniform":
+        return threefry.randint(key, 0, n)
+    if choice == "weighted":
+        return _weighted_pick(params["pool_logits"], threefry.gumbel(key, n))
     raise ValueError(f"unknown pool choice rule {choice!r}")
 
 
@@ -208,11 +220,7 @@ def choose_pool_u(choice: str, pool_state: PoolState, params,
     if choice == "uniform":
         return torch.clamp_max((u[..., 0] * n).to(torch.int32), n - 1)
     if choice == "weighted":
-        g = gumbel_from_u(u[..., :n])
-        logits = params["pool_logits"]
-        if logits.dim() < g.dim():  # one logit a lane, the same every pool
-            logits = logits[..., None]
-        return torch.argmax(logits + g, dim=-1).to(torch.int32)
+        return _weighted_pick(params["pool_logits"], gumbel_from_u(u[..., :n]))
     return choose_pool(choice, pool_state, params)
 
 
@@ -226,8 +234,10 @@ def _check_choice(choice: str) -> None:
 class PoolChoiceKernel:
     """Adapt a single-queue kernel to the market with a choice rule.
 
-    Admission and wait budgets come from ``base.admit_u``; the pool from
-    :func:`choose_pool_u`.  Revoked jobs always defect to on-demand.
+    Admission and wait budgets come from ``base.admit_u`` (the slab
+    stream) or ``base.admit`` (the split stream); the pool from
+    :func:`choose_pool_u` or :func:`choose_pool`.  Revoked jobs always
+    defect to on-demand.
     """
 
     base: object
@@ -237,10 +247,14 @@ class PoolChoiceKernel:
         _check_choice(self.choice)
 
     def admit_market(self, params, qlen, pool_state, key):
-        _split_stream("PoolChoiceKernel.admit_market")
+        ks = threefry.split(key, 2)  # k_adm, k_choice
+        admit, budget = self.base.admit(params, qlen, ks[..., 0, :])
+        return admit, budget, choose_pool(self.choice, pool_state, params,
+                                          ks[..., 1, :])
 
     def on_preempt(self, params, age, notice, qlen, key):
-        _split_stream("PoolChoiceKernel.on_preempt")
+        del params, age, notice, key
+        return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
 
     def slab_cols(self, hook, n):
         if hook == "admit_market":
@@ -287,10 +301,18 @@ class NoticeAwareKernel:
         return p
 
     def admit_market(self, params, qlen, pool_state, key):
-        _split_stream("NoticeAwareKernel.admit_market")
+        ks = threefry.split(key, 2)  # k_adm, k_choice
+        p = three_phase_admit_prob(qlen, params["r"])
+        admit = threefry.uniform(ks[..., 0, :]) < p
+        pool = choose_pool(self.choice, pool_state, params, ks[..., 1, :])
+        return admit, INF, pool
 
     def on_preempt(self, params, age, notice, qlen, key):
-        _split_stream("NoticeAwareKernel.on_preempt")
+        del age
+        within = checkpoint_within_notice(self.ckpt(params, notice), notice)
+        readmit = threefry.uniform(key) < three_phase_admit_prob(
+            qlen, params["r"])
+        return within & readmit
 
     def slab_cols(self, hook, n):
         if hook == "admit_market":
@@ -367,13 +389,23 @@ class PanicKernel:
     base: object  # any single-queue, market or routing kernel
     drain_dead: bool = False  # re-queue jobs stranded on a dead pool
 
-    # keyed hooks: the split stream, not ported; they exist so that the
-    # slab layout sees the JAX protocol
+    # keyed hooks (the split stream): the slab twins' repairs around the
+    # base's keyed hooks; a legacy base admits to pool 0
     def admit_market(self, params, qlen, pool_state, key):
-        _split_stream("PanicKernel.admit_market")
+        if hasattr(self.base, "admit_market"):
+            admit, budget, pool = self.base.admit_market(
+                params, qlen, pool_state, key)
+        else:
+            admit, budget = self.base.admit(params, qlen, key)
+            pool = torch.zeros_like(qlen)
+        alive = pool_state.rate > 0.0
+        pool = _failover_alive(pool, alive, pool_state.price)
+        return admit & alive.any(dim=-1), budget, pool
 
     def on_preempt(self, params, age, notice, qlen, key):
-        _split_stream("PanicKernel.on_preempt")
+        if hasattr(self.base, "on_preempt"):
+            return self.base.on_preempt(params, age, notice, qlen, key)
+        return torch.zeros(qlen.shape, dtype=torch.bool, device=qlen.device)
 
     def route(self, params, qlens, region_state, key):
         _split_stream("PanicKernel.route")

@@ -21,7 +21,8 @@ policy subkey:
   * :class:`SingleSlotKernel` — Theorems 2/3; queue capped at one, each
     admitted job stamped with a sampled maximal wait X (budget) and defecting
     to on-demand when it expires.  Wait-time parameters may come per lane
-    through ``params["wait"]``, so a wait-time family can be swept.
+    through ``params["wait"]``, so a wait-time family can be swept; without
+    them the family samples at its own constants, on either stream.
 """
 from __future__ import annotations
 
@@ -101,7 +102,9 @@ class SingleSlotKernel:
         return (qlen == 0) & (x > 0.0), x
 
     def admit_u(self, params, qlen, u):
-        x = self.wait.sample_from_u(params["wait"], u)
+        # the wait family's own parameters where the params hold none
+        wp = params.get("wait") if isinstance(params, dict) else None
+        x = self.wait.sample_from_u(wp, u) if wp else self.wait.sample_u(u)
         return (qlen == 0) & (x > 0.0), x
 
 

@@ -14,7 +14,10 @@ default):
 * :func:`uniform` puts the top 23 bits under the exponent of 1.0 and
   subtracts 1; :func:`exponential` is ``-log1p(-uniform)``.  The uniforms
   are bitwise JAX's; the exponentials are within one ulp of them, because
-  ``log1p`` itself rounds differently in XLA and in PyTorch.
+  ``log1p`` itself rounds differently in XLA and in PyTorch;
+* :func:`randint` (``jax.random.randint`` at shape ``()``, int32) and
+  :func:`gumbel` (``jax.random.gumbel``, float32, its default mode): the
+  integers bitwise, the Gumbel draws up to the rounding of ``log``.
 
 Every word lives in an int64 tensor masked to 32 bits, because PyTorch on
 the CPU has no uint32 add or shift.  Leading key dimensions batch: a
@@ -71,10 +74,17 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``(..., 2)`` key -> ``(..., 2)`` key folded with the 32-bit integer
-    ``data`` (``jax.random.fold_in``: the hash of counter ``(0, data)``)."""
-    data = torch.as_tensor(int(data) & MASK, dtype=torch.int64,
-                           device=key.device)
-    x0, x1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
+    ``data`` (``jax.random.fold_in``: the hash of counter ``(0, data)``);
+    a sequence of ``n`` integers folds each, ``(..., n, 2)``, in one
+    hash."""
+    if isinstance(data, (tuple, list)):
+        data = torch.tensor([int(d) & MASK for d in data], dtype=torch.int64,
+                            device=key.device)
+        x0, x1 = threefry2x32(key[..., None, 0], key[..., None, 1], 0, data)
+    else:
+        data = torch.as_tensor(int(data) & MASK, dtype=torch.int64,
+                               device=key.device)
+        x0, x1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
     return torch.stack([x0, x1], dim=-1)
 
 
@@ -105,3 +115,25 @@ def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
 def exponential(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     """Unit-rate float32 exponentials (``jax.random.exponential``)."""
     return -torch.log1p(-uniform(key, shape))
+
+
+def randint(key: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """One int32 draw on ``[minval, maxval)`` per ``(..., 2)`` key
+    (``jax.random.randint(key, (), minval, maxval)``): the key splits in
+    two, each half gives a 32-bit word, and the pair reduces modulo the
+    span in uint32 arithmetic, ``((hi % n) * m + lo % n) % n`` with ``m =
+    2^32 % n`` computed as ``(2^16 % n)^2 % n``."""
+    span = max(int(maxval) - int(minval), 1)
+    ks = split(key, 2)
+    hi, lo = bits32(ks[..., 0, :]), bits32(ks[..., 1, :])
+    m = (2**16 % span) ** 2 % span
+    off = ((hi % span) * m + lo % span) % span
+    return (off + int(minval)).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``(..., n)`` standard Gumbel float32 draws per ``(..., 2)`` key
+    (``jax.random.gumbel(key, (n,))``): ``-log(-log(u))`` of the uniforms
+    on ``[tiny, 1)``, whose words follow :func:`bits32`'s counters."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, (n,), tiny, 1.0)))

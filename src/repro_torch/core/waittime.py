@@ -17,6 +17,8 @@ per-lane float32 tensors in the engine, so a family can be swept across a
 grid; :meth:`WaitTime.sample_from_u` reads them from that dict and turns
 ``u_dim`` slab uniforms into one draw of X per lane (the slab stream), and
 :meth:`WaitTime.sample_from` draws from a threefry key (the split stream).
+A family that is not swept samples at its own constants
+(:meth:`WaitTime.sample_u`, :meth:`WaitTime.sample`).
 """
 from __future__ import annotations
 
@@ -55,11 +57,17 @@ class WaitTime:
         from ``params`` (float32 tensors, one per lane)."""
         raise NotImplementedError
 
+    def _own(self, like: torch.Tensor) -> dict:
+        return {name: torch.tensor(np.float32(v), device=like.device)
+                for name, v in self.params().items()}
+
+    def sample_u(self, u: torch.Tensor) -> torch.Tensor:
+        """:meth:`sample_from_u` at this instance's own parameters."""
+        return self.sample_from_u(self._own(u), u)
+
     def sample(self, key: torch.Tensor) -> torch.Tensor:
         """:meth:`sample_from` at this instance's own parameters."""
-        params = {name: torch.tensor(np.float32(v), device=key.device)
-                  for name, v in self.params().items()}
-        return self.sample_from(params, key)
+        return self.sample_from(self._own(key), key)
 
     def mean(self) -> float:
         raise NotImplementedError
@@ -131,12 +139,17 @@ class ExponentialWait(WaitTime):
     def sample_from(self, params, key):
         return threefry.exponential(key) / params["rate"]
 
-    def sample(self, key):
-        # the JAX package divides by its constant rate here, which XLA
-        # compiles as a product with the float32 reciprocal; a swept rate
-        # (sample_from) is a true division on both sides
-        e = threefry.exponential(key)
+    # at its own rate the JAX package divides by a constant, which XLA
+    # compiles as a product with the float32 reciprocal; a swept rate
+    # (sample_from, sample_from_u) is a true division on both sides
+    def _by_own_rate(self, e: torch.Tensor) -> torch.Tensor:
         return e * torch.tensor(1 / np.float32(self.rate_), device=e.device)
+
+    def sample_u(self, u):
+        return self._by_own_rate(exp_from_u(u[..., 0]))
+
+    def sample(self, key):
+        return self._by_own_rate(threefry.exponential(key))
 
     def mean(self):
         return 1.0 / self.rate_

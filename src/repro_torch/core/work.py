@@ -148,8 +148,10 @@ class CantBeLateKernel:
     """Safety net: defect a job to on-demand before it is too late.
 
     Wraps any policy kernel, delegating every hook and attribute to
-    ``base`` (``admit_u``, ``admit_market_u``, ``on_preempt_u``,
-    ``route_u``, ``slab_cols``, ``drain_dead``, ...), and arms the engine's
+    ``base`` (the slab hooks ``admit_u``, ``admit_market_u``,
+    ``on_preempt_u``, ``route_u`` and ``slab_cols``, the split stream's
+    keyed ``admit``, ``admit_market`` and ``on_preempt``, ``drain_dead``,
+    ...), and arms the engine's
     per-job slack watchdog: a job whose slack ``deadline − life −
     (overhead + remaining work)·od_time − slack_buffer`` runs out defects to
     on-demand through the deadline machinery, counted as a *panic entry*

@@ -5,7 +5,8 @@
 //
 // Replaces repro/kernels/sweep/sweep.py::batched_event_windows, the Pallas
 // kernel behind the JAX package's impl="pallas" executor, for three of the
-// event bodies it runs on the slab stream: the single queue
+// event bodies it runs on the slab stream, and for the single queue's and
+// the market's on the split stream: the single queue
 // (repro/core/engine.py::_engine_event), the market
 // (repro/core/engine.py::_market_event) and the regions
 // (repro/core/engine.py::_region_event).  Their plain PyTorch versions are
@@ -59,9 +60,10 @@
 // fuse (Uniform's low + u * width, the bathtub tail b - e * tau2) are
 // explicit fmaf.
 //
-// The split stream (rng="split", the JAX package's default; single queue
-// only) is a run-time flag of sweep_kernel, warp-uniform, so it adds no
-// instantiation: it changes what a pass stages, never the event chain.  On
+// The split stream (rng="split", the JAX package's default; the single
+// queue here, the market below) is a run-time flag of sweep_kernel,
+// warp-uniform, so it adds no instantiation: it changes what a pass
+// stages, never the event chain.  On
 // the split stream event e's key k_e gives split(k_e, 4), four
 // threefry-2x32 hashes of counters (0, 0..3): subkey 0 is k_{e+1}, and the
 // job, spot and policy draws each take one jax.random.bits word of their
@@ -134,7 +136,7 @@ constexpr uint32_t kParity = 0x1BD11BDAu;  // threefry's key-schedule constant
 enum Arrival { kExponential = 0, kGamma = 1, kUniform = 2, kDeterministic = 3,
                kBathtub = 4 };
 enum Policy { kThreePhase = 0, kSingleSlot = 1 };
-// kFixedExponentialWait: the split stream's unswept exponential wait, a
+// kFixedExponentialWait: an unswept exponential wait (either stream), a
 // product with the float32 reciprocal of the rate (pa), as XLA compiles the
 // JAX package's division by that constant
 enum Wait { kInfiniteWait = 0, kTwoPointWait = 1, kExponentialWait = 2,
@@ -274,6 +276,10 @@ __device__ __forceinline__ void sample_waits(int code, float pa, float pb,
     case kExponentialWait:
 #pragma unroll
       for (int i = 0; i < U; ++i) out[i] = exp_from_u(u[off[i] + col]) / pa;
+      break;
+    case kFixedExponentialWait:
+#pragma unroll
+      for (int i = 0; i < U; ++i) out[i] = exp_from_u(u[off[i] + col]) * pa;
       break;
     case kDeterministicWait:
 #pragma unroll
@@ -509,19 +515,16 @@ __device__ __forceinline__ void keyed_waits(int code, float pa, float pb,
   }
 }
 
-// The split stream's pass over the lane's next n events (n <= kSplitPass),
-// from the lane key (lk0, lk1), which it leaves n events down the ladder.
-// Every thread walks the ladder; event e's key is staged in k_s by thread
-// e % G, which draws that event.  Then thread t hashes the subkeys of events
-// t, t + G, ..., U at a time, draws them and stages job clock, spot clock
-// and the policy's draw (three-phase: the admission uniform; single slot:
-// the wait budget) in x_s, three floats an event as sample_pass does.  A
-// process that draws nothing hashes no subkey.
+// The ladder over the lane's next n events, from the lane key (lk0, lk1),
+// which it leaves n events down the ladder: event e's key k_e gives
+// k_{e+1} as subkey 0 of its split (the same hash whatever the split's
+// width: subkey i hashes counter (0, i)).  Every thread of the group walks
+// it (no thread could share the serial chain); event e's key is staged in
+// k_s by thread e % G, which draws that event.
 template <int G>
-__device__ __forceinline__ void split_pass(float* x_s, uint32_t* k_s, int n,
-                                           const Args& a, float pa, float pb,
-                                           uint32_t& lk0, uint32_t& lk1,
-                                           int t) {
+__device__ __forceinline__ void walk_ladder(uint32_t* k_s, int n,
+                                            uint32_t& lk0, uint32_t& lk1,
+                                            int t) {
   for (int e = 0; e < n; ++e) {
     if ((e & (G - 1)) == t) {
       k_s[2 * e] = lk0;
@@ -533,6 +536,20 @@ __device__ __forceinline__ void split_pass(float* x_s, uint32_t* k_s, int n,
     lk1 = n1;
   }
   __syncwarp();  // an event past n reads the last event's key
+}
+
+// The split stream's pass over the lane's next n events (n <= kSplitPass):
+// the ladder, then thread t hashes the subkeys of events t, t + G, ..., U
+// at a time, draws them and stages job clock, spot clock and the policy's
+// draw (three-phase: the admission uniform; single slot: the wait budget)
+// in x_s, three floats an event as sample_pass does.  A process that draws
+// nothing hashes no subkey.
+template <int G>
+__device__ __forceinline__ void split_pass(float* x_s, uint32_t* k_s, int n,
+                                           const Args& a, float pa, float pb,
+                                           uint32_t& lk0, uint32_t& lk1,
+                                           int t) {
+  walk_ladder<G>(k_s, n, lk0, lk1, t);
   const bool job_keyed = a.job_code != kDeterministic;
   const bool spot_keyed = a.spot_code != kDeterministic;
   const bool pol_keyed =
@@ -1490,17 +1507,60 @@ cudaError_t launch_g(const Args& a, const TelArgs& tl, const EnvArgs& E,
 // Hazard sums run left to right, as XLA's CPU backend sums a pool vector;
 // the hazard clock and the slot rates divide (IEEE division), as XLA does
 // by a traced value.
+//
+// The split stream (rng="split", repro/core/engine.py::_market_event with
+// layout=None) is a run-time flag of the same kernel, tested once: the
+// window loop is a generic lambda compiled for each stream (StreamTag), so
+// neither stream's event chain carries the other's branches (one chain
+// holding both ran the slab stream 3% slower than the kernel before the
+// split stream, and the split stream 6-8% slower than two chains).  Event
+// e's key k_e gives split(k_e, 5) (4 without preemption), and its pass
+// stages, in place of the slab's draws, the keyed ones: the job clock
+// (subkey 1), every pool's spot draw (subkey 2, folded with the pool's tag
+// where P > 1), the policy's (subkey 3, split into an admission and a
+// choice key by a market kernel: the admission uniform or the wait budget,
+// and the uniform rule's randint or the weighted rule's Gumbel draws) and,
+// with preemption, the re-admission uniform and every pool's hazard clock
+// (subkey 4 folded with the pool's tag).  The preemption clocks are then
+// a vector of P in registers beside the spot clocks, the revoked pool the
+// earliest (lowest on ties), and a revocation refreshes only its pool's
+// clock.  Which pool fires depends on the previous event, so the pass
+// draws all 2P clocks (4P hashes an event, spread over the G threads)
+// rather than put the firing pool's two hashes on the event chain, whose
+// latency bounds the kernel.
 constexpr int kMaxPools = 8;
+// a stream as a type: the argument that compiles a generic lambda's body
+// once for the slab stream and once for the split stream
+template <bool Split>
+struct StreamTag {
+  static constexpr bool value = Split;
+};
 // events a market draw pass covers at most (fewer where a row is wide)
 constexpr int kMarketPass = 16;
 // floats an event's samples take: job clock, wait budget, pool choice
-// (int bits), revoked pool (int bits), preemption clock, P spot draws
+// (int bits), revoked pool (int bits), preemption clock, P spot draws; on
+// the split stream slot 3 holds the admission uniform, slot 4 the
+// re-admission uniform, and P hazard clocks follow the spot draws
 constexpr int kEv = 5 + kMaxPools;
-constexpr int kMSampleStride = kMarketPass * kEv + 1;
+constexpr int kEvSplit = 5 + 2 * kMaxPools;
 // a lane's pool table in shared memory: price, spot scale, the hazards'
-// running sums, pool logits, and with the environment 1/avail (prices and
-// hazards then the segment's effective ones)
-constexpr int kTab = (kEnv ? 5 : 4) * kMaxPools + 1;
+// running sums, pool logits, the hazards, with the environment 1/avail
+// (prices and hazards then the segment's effective ones), and the pools'
+// slot processes (four constants, the code and the stream tag a pool), so
+// that the split pass's loops over the pools index shared memory and stay
+// rolled (unrolled, their hashes made each build's market code several
+// times longer)
+constexpr int kHz = 4 * kMaxPools;
+constexpr int kProc = (kEnv ? 6 : 5) * kMaxPools;
+constexpr int kProcCode = kProc + 4 * kMaxPools;
+constexpr int kProcTag = kProcCode + kMaxPools;
+constexpr int kTab = kProcTag + kMaxPools + 1;
+constexpr float kTiny = 1.17549435e-38f;  // float32's smallest normal
+
+// floats a lane's samples take in shared memory on the stream
+__host__ __device__ __forceinline__ int market_sample_stride(int split) {
+  return kMarketPass * (split ? kEvSplit : kEv) + 1;
+}
 
 enum Admit { kThreePhaseAdmit = 0, kSingleSlotAdmit = 1 };
 enum Choice { kPoolZero = 0, kCheapest = 1, kFastest = 2, kLeastLoaded = 3,
@@ -1546,11 +1606,14 @@ struct MArgs {
   int32_t* istats;  // 7 x lanes x windows
   float* fstats;    // 5 x lanes x windows
   int32_t* pstats;  // 3 x lanes x windows x P
+  uint32_t* key_out;  // lanes x 2: the final lane keys (split stream only)
+  int split;          // the stream: 0 the slab, 1 the split ladder
   int lanes, rmax, n_windows, n_cols, n_pools;
   int job_code, job_n, admit_code, wait_code, choice_code, resume_code;
   int preempt_on, any_exp_pool;
   int job_col, spot_col, admit_col, choice_col, pre_col, onpre_col;
   int pool_code[kMaxPools], pool_n[kMaxPools];
+  uint32_t tag[kMaxPools];  // the pools' stream tags (split stream)
   float job_c[4];
   float pool_c[kMaxPools][4];
 };
@@ -1583,13 +1646,14 @@ struct LocSeg {
 };
 
 // the lane's locations under segment s: the effective prices (at tab[p]),
-// the effective hazards' running sums (at cum[p]) and 1/avail (at inv[p])
-// written by the writer thread; `price`, `hazard`, `rate` and `scale` the
-// lane's base config (n entries), `rule` the fixed-choice rule
+// the effective hazards' running sums (at cum[p]), 1/avail (at inv[p]) and,
+// where hz is given, the effective hazards (at hz[p]), written by the
+// writer thread; `price`, `hazard`, `rate` and `scale` the lane's base
+// config (n entries), `rule` the fixed-choice rule
 __device__ __forceinline__ LocSeg loc_segment(
     const EnvArgs& E, int s, int n, const float* price, const float* hazard,
     const float* rate, const float* scale, int rule, float* tab, float* cum,
-    float* inv, bool writer) {
+    float* inv, float* hz, bool writer) {
   LocSeg r{0, 0, 0u};
   const size_t row = static_cast<size_t>(s) * E.n_locs;
   float h_sum = 0.f, best = 0.f, best_alive = 0.f;
@@ -1605,6 +1669,7 @@ __device__ __forceinline__ LocSeg loc_segment(
         tab[p] = eff_price;
         cum[p] = h_sum;
         inv[p] = inv_avail(av);
+        if (hz) hz[p] = h;
       }
       const bool alive = eff_rate > 0.f;
       r.alive |= static_cast<unsigned>(alive) << p;
@@ -1708,6 +1773,106 @@ __device__ __forceinline__ void market_sample_pass(
   }
 }
 
+// The split stream's market pass over the lane's next n events (n <=
+// kMarketPass): the ladder, then thread t draws events t, t + G, ... from
+// their keys into x_s (kEvSplit floats an event).  With ENV a hazard clock
+// depends on the event's segment: the pass stores its unit exponential and
+// the chain divides.  A process that draws nothing hashes no subkey.
+template <int G, bool ENV>
+__device__ __forceinline__ void market_split_pass(
+    float* x_s, uint32_t* k_s, const float* tab, int n, const MArgs& a,
+    float pa, float pb, int fixed_choice, uint32_t& lk0, uint32_t& lk1,
+    int t) {
+  walk_ladder<G>(k_s, n, lk0, lk1, t);
+  const int P = a.n_pools;
+  for (int e = t; e < n; e += G) {
+    const uint32_t k0 = k_s[2 * e], k1 = k_s[2 * e + 1];
+    float* x = x_s + e * kEvSplit;
+    float out[1];
+    // the job clock (subkey 1)
+    uint32_t j0[1] = {0u}, j1[1] = {0u};
+    if (a.job_code != kDeterministic) subkey(k0, k1, 1u, j0[0], j1[0]);
+    keyed_arrivals<1>(a.job_code, a.job_c, j0, j1, out);
+    x[0] = out[0];
+    // the policy (subkey 3): a legacy kernel draws from it, a market kernel
+    // splits it into the admission key and the choice key
+    uint32_t q0[1], q1[1], c0 = 0u, c1 = 0u;
+    subkey(k0, k1, 3u, q0[0], q1[0]);
+    if (a.choice_code != kPoolZero) {
+      if (a.choice_code == kUniformChoice || a.choice_code == kWeighted)
+        subkey(q0[0], q1[0], 1u, c0, c1);
+      subkey(q0[0], q1[0], 0u, q0[0], q1[0]);
+    }
+    x[1] = kInf;
+    x[3] = 0.f;
+    if (a.admit_code == kSingleSlotAdmit) {
+      keyed_waits<1>(a.wait_code, pa, pb, q0, q1, out);
+      x[1] = out[0];
+    } else {
+      x[3] = key_u01(key_bits(q0[0], q1[0]));
+    }
+    int choice = fixed_choice;
+    if (a.choice_code == kUniformChoice) {
+      // jax.random.randint(k, (), 0, P): two words from the key's halves,
+      // reduced modulo P in uint32 arithmetic
+      uint32_t h0, h1, l0, l1;
+      subkey(c0, c1, 0u, h0, h1);
+      subkey(c0, c1, 1u, l0, l1);
+      const uint32_t span = static_cast<uint32_t>(P);
+      const uint32_t m = ((65536u % span) * (65536u % span)) % span;
+      choice = static_cast<int>(
+          ((key_bits(h0, h1) % span) * m + key_bits(l0, l1) % span) % span);
+    } else if (a.choice_code == kWeighted) {
+      // jax.random.gumbel(k, (P,)): word p hashes counter (0, p); the
+      // uniform on [tiny, 1) is the key uniform, tiny where it is 0
+      const uint32_t c2 = c0 ^ c1 ^ kParity;
+      float best = 0.f;
+#pragma unroll 1
+      for (int p = 0; p < P; ++p) {
+        const float u = fmaxf(
+            key_u01(threefry_bits(c0, c1, c2, static_cast<uint32_t>(p))) +
+                kTiny,
+            kTiny);
+        const float v = tab[3 * kMaxPools + p] + -logf(-logf(u));
+        if (p == 0 || v > best) {
+          best = v;
+          choice = p;
+        }
+      }
+    }
+    x[2] = __int_as_float(choice);
+    // the pools' spot draws (subkey 2, folded with the tag where P > 1)
+    const int* code = reinterpret_cast<const int*>(tab + kProcCode);
+    const uint32_t* tag = reinterpret_cast<const uint32_t*>(tab + kProcTag);
+    uint32_t sp0, sp1;
+    subkey(k0, k1, 2u, sp0, sp1);
+#pragma unroll 1
+    for (int p = 0; p < P; ++p) {
+      uint32_t w0[1] = {sp0}, w1[1] = {sp1};
+      if (P > 1 && code[p] != kDeterministic)
+        subkey(sp0, sp1, tag[p], w0[0], w1[0]);
+      keyed_arrivals<1>(code[p], tab + kProc + 4 * p, w0, w1, out);
+      x[5 + p] = out[0] * tab[kMaxPools + p];
+    }
+    // revocation (subkey 4): the re-admission uniform and every pool's
+    // hazard clock, always folded with the tag
+    if (a.preempt_on) {
+      uint32_t r0, r1;
+      subkey(k0, k1, 4u, r0, r1);
+      x[4] = a.resume_code == kNoticeAware ? key_u01(key_bits(r0, r1)) : 0.f;
+#pragma unroll 1
+      for (int p = 0; p < P; ++p) {
+        uint32_t h0, h1;
+        subkey(r0, r1, tag[p], h0, h1);
+        const float unit = exp_from_u(key_u01(key_bits(h0, h1)));
+        const float h = tab[kHz + p];
+        x[5 + kMaxPools + p] =
+            ENV ? unit : (h > 0.f ? unit / fmaxf(h, 1e-30f) : kInf);
+      }
+    }
+  }
+}
+
 template <int G, int SPT, bool TEL, bool ENV, bool WORK>
 __global__ void market_kernel(const MArgs a, const TelArgs tl,
                               const EnvArgs E, const WorkArgs Wk) {
@@ -1722,19 +1887,17 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
   const int lane = live ? lane0 : a.lanes - 1;
   const int R = a.rmax, W = a.n_windows, L = a.lanes, nc = a.n_cols;
   const int P = a.n_pools;
-  const int per_pass = min(kDraws / nc, kMarketPass);
+  const int mss = market_sample_stride(a.split);
   float* u_s = smem + lane_in_block * kLaneStride;
-  float* x_s = smem + lanes_per_block * kLaneStride +
-               lane_in_block * kMSampleStride;
-  float* tab = smem + lanes_per_block * (kLaneStride + kMSampleStride) +
+  float* x_s = smem + lanes_per_block * kLaneStride + lane_in_block * mss;
+  float* tab = smem + lanes_per_block * (kLaneStride + mss) +
                lane_in_block * kTab;
   const float kc = a.k_cost[lane], pa = a.pa[lane], pb = a.pb[lane];
   const int s0 = t * SPT;
   int* ts = nullptr;  // the lane's telemetry slice
   TelCounts tc;       // ... and its counters
   if constexpr (TEL)
-    ts = tel_slice<G>(smem,
-                      lanes_per_block * (kLaneStride + kMSampleStride + kTab),
+    ts = tel_slice<G>(smem, lanes_per_block * (kLaneStride + mss + kTab),
                       lane_in_block, tl.n_bins, kMarketPass, t);
 
   // the lane's pool table, and what depends on it alone
@@ -1743,6 +1906,16 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
     tab[p] = a.price[lp + p];
     tab[kMaxPools + p] = a.scale[lp + p];
     tab[3 * kMaxPools + p] = a.logits ? a.logits[lp + p] : 0.f;
+    tab[kHz + p] = a.hazard[lp + p];
+  }
+  if (a.split && t == 0) {
+#pragma unroll
+    for (int p = 0; p < kMaxPools; ++p) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) tab[kProc + 4 * p + c] = a.pool_c[p][c];
+      tab[kProcCode + p] = __int_as_float(a.pool_code[p]);
+      tab[kProcTag + p] = __uint_as_float(a.tag[p]);
+    }
   }
   if (t == 0) {
     float cum = a.hazard[lp];
@@ -1782,11 +1955,12 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
   EnvCounts ec;
   LocSeg sg{0, 0, 0u};
   float* const cum = tab + 2 * kMaxPools;
-  float* const inv = tab + 4 * kMaxPools;
+  float* const hz = tab + kHz;
+  float* const inv = tab + 5 * kMaxPools;
   if constexpr (ENV) {
     cur = env_cursor(E, lane);
     sg = loc_segment(E, cur.seg, P, a.price + lp, a.hazard + lp, a.rate + lp,
-                     a.scale + lp, a.choice_code, tab, cum, inv, t == 0);
+                     a.scale + lp, a.choice_code, tab, cum, inv, hz, t == 0);
     __syncwarp();
   }
 
@@ -1798,7 +1972,7 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
   if constexpr (WORK) {
     wsl = work_slice<G, SPT>(
         Wk, smem,
-        lanes_per_block * (kLaneStride + kMSampleStride + kTab) +
+        lanes_per_block * (kLaneStride + mss + kTab) +
             (TEL ? size_t(lanes_per_block) *
                        tel_stride(tl.n_bins, kMarketPass)
                  : 0),
@@ -1809,10 +1983,23 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
                            : 0.f;
   }
 
-  float nj = a.next_job0[lane], npre = a.next_pre0[lane];
-  float ns[kMaxPools];
+  float nj = a.next_job0[lane];
+  // the preemption clocks: one superposed clock (npre[0]) on the slab
+  // stream, one a pool on the split stream
+  float ns[kMaxPools], npre[kMaxPools];
 #pragma unroll
-  for (int p = 0; p < kMaxPools; ++p) ns[p] = p < P ? a.next_spot0[lp + p] : kInf;
+  for (int p = 0; p < kMaxPools; ++p) {
+    ns[p] = p < P ? a.next_spot0[lp + p] : kInf;
+    npre[p] = kInf;
+    if (a.split ? p < P : p == 0)
+      npre[p] = a.next_pre0[a.split ? lp + p : lane];
+  }
+  // the lane key of the split stream, one step down the ladder an event
+  uint32_t lk0 = 0u, lk1 = 0u;
+  if (a.split) {
+    lk0 = a.win_keys[2 * static_cast<size_t>(lane)];
+    lk1 = a.win_keys[2 * static_cast<size_t>(lane) + 1];
+  }
   int next_seq = a.next_seq0[lane], qlen = a.qlen0[lane];
   float ages[SPT], budgets[SPT];
   int order[SPT], pool[SPT];
@@ -1844,415 +2031,482 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
     qp[p] = c;
   }
 
-  for (int w = 0; w < W; ++w) {
-    const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
-    const uint32_t k0 = a.win_keys[kw], k1 = a.win_keys[kw + 1];
-    const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-    const int n_ev = a.plan[w];
-    int jobs_arrived = 0, jobs_completed = 0, spot_served = 0, ondemand = 0;
-    int spot_arrivals = 0, spot_found_empty = 0, resumed = 0;
-    float cost_sum = 0.f, delay_sum = 0.f, time_elapsed = 0.f;
-    float empty_time = 0.f, spot_cost = 0.f;
-    // pools q = t and t + G of this thread: served, slots, revocations
-    int p_served[2] = {0, 0}, p_slots[2] = {0, 0}, p_pre[2] = {0, 0};
+  // the windows: the loop is compiled once a stream, the stream tested
+  // once here
+  const auto run_windows = [&](auto stream) {
+    constexpr bool kSplit = decltype(stream)::value;
+    const int per_pass = kSplit ? kMarketPass : min(kDraws / nc, kMarketPass);
+    constexpr int ev = kSplit ? kEvSplit : kEv;  // floats an event's samples
+    for (int w = 0; w < W; ++w) {
+      uint32_t k0 = 0u, k1 = 0u;  // the window's slab key
+      if (!kSplit) {
+        const size_t kw = (static_cast<size_t>(lane) * W + w) * 2;
+        k0 = a.win_keys[kw];
+        k1 = a.win_keys[kw + 1];
+      }
+      const uint32_t k2 = k0 ^ k1 ^ kParity;
+      const int n_ev = a.plan[w];
+      int jobs_arrived = 0, jobs_completed = 0, spot_served = 0, ondemand = 0;
+      int spot_arrivals = 0, spot_found_empty = 0, resumed = 0;
+      float cost_sum = 0.f, delay_sum = 0.f, time_elapsed = 0.f;
+      float empty_time = 0.f, spot_cost = 0.f;
+      // pools q = t and t + G of this thread: served, slots, revocations
+      int p_served[2] = {0, 0}, p_slots[2] = {0, 0}, p_pre[2] = {0, 0};
 
-    for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
-      const int n_pass = min(per_pass, n_ev - e0);
-      __syncwarp();
-      draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0, k1,
-                   k2, t);
-      __syncwarp();
-      market_sample_pass<G, ENV>(x_s, u_s, tab, n_pass, nc, a, pa, pb,
-                                 fixed_choice, t);
-      __syncwarp();
-
-      for (int e = 0; e < n_pass; ++e) {
-        const float* u = u_s + e * nc;
-        const float* x = x_s + e * kEv;
-
-        // the firing spot pool: the earliest clock, the lowest on ties
-        float min_spot = ns[0];
-        int spot_pool = 0;
-#pragma unroll
-        for (int p = 1; p < kMaxPools; ++p)
-          if (p < P && ns[p] < min_spot) { min_spot = ns[p]; spot_pool = p; }
-        int pre_pool = 0;
-        if (a.preempt_on)
-          pre_pool = ENV ? thinning_pick(cum, P, u[a.pre_col + 1])
-                         : __float_as_int(x[3]);
-        if constexpr (ENV) {
-          // PanicKernel's drain: jobs queued on a dead pool re-tag to the
-          // cheapest alive one (where one is alive)
-          if (E.drain) {
-            bool moved = false;
-#pragma unroll
-            for (int j = 0; j < SPT; ++j) {
-              if (sg.alive != 0u && ((occ >> j) & 1u) &&
-                  !((sg.alive >> pool[j]) & 1u)) {
-                pool[j] = sg.cheapest_alive;
-                moved = true;
-              }
-            }
-            if (a.choice_code == kLeastLoaded && __any_sync(kFull, moved)) {
-#pragma unroll
-              for (int p = 0; p < kMaxPools; ++p) {
-                int c = 0;
-#pragma unroll
-                for (int j = 0; j < SPT; ++j)
-                  c += ((occ >> j) & 1u) && pool[j] == p;
-#pragma unroll
-                for (int o = G / 2; o > 0; o >>= 1)
-                  c += __shfl_xor_sync(kFull, c, o, G);
-                qp[p] = c;
-              }
-            }
-          }
-        }
-
-        // pre-event slot reductions: deadline, the oldest job of the spot
-        // pool, the oldest of the revoked pool, the first free slot
-        int bkey[SPT], skey[SPT], pkey[SPT];
-        bool any_s = false, any_p = false;
-        unsigned armed = 0;  // bit j: slot s0 + j's panic clock won
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          const bool o = (occ >> j) & 1u;
-          const bool es = o && pool[j] == spot_pool;
-          const bool ep = o && pool[j] == pre_pool;
-          float b = o ? budgets[j] : kInf;
-          if constexpr (WORK) {
-            if (Wk.safety && o) {
-              const int k = j * G + t;
-              const float pk = panic_clock(Wk, life[j], wsl[k], wsl[wn + k]);
-              armed |= static_cast<unsigned>(pk < b) << j;
-              b = fminf(b, pk);
-            }
-          }
-          bkey[j] = __float_as_int(b);
-          skey[j] = es ? order[j] : kOrderMax;
-          pkey[j] = ep ? order[j] : kOrderMax;
-          any_s |= es;
-          any_p |= ep;
-        }
-        int bmin = bkey[0], smin = skey[0], pmin = pkey[0];
-#pragma unroll
-        for (int j = 1; j < SPT; ++j) {
-          bmin = min(bmin, bkey[j]);
-          smin = min(smin, skey[j]);
-          pmin = min(pmin, pkey[j]);
-        }
-        bmin = grp.reduce_min(bmin);
-        smin = grp.reduce_min(smin);
-        const int di = first_equal<G, SPT>(grp, bkey, bmin);
-        const int si = first_equal<G, SPT>(grp, skey, smin);
-        const bool has_elig = grp.first(any_s) < G;
-        int pi = 0;
-        bool has_pre = false;
-        if (a.preempt_on) {
-          pmin = grp.reduce_min(pmin);
-          pi = first_equal<G, SPT>(grp, pkey, pmin);
-          has_pre = grp.first(any_p) < G;
-        }
-        const unsigned free_bits = ~occ & ((1u << SPT) - 1u);
-        const int owner = grp.first(free_bits != 0);
-        const int fj = free_bits ? __ffs(free_bits) - 1 : 0;
-        const int fi = owner * SPT + grp.from(fj, owner & (G - 1));
-        const float deadline = __int_as_float(bmin);
-
-        // ties resolve spot > preempt > deadline > job
-        float dt;
-        bool is_spot, is_pre = false, is_deadline;
-        if (a.preempt_on) {
-          dt = fminf(fminf(nj, min_spot), fminf(deadline, npre));
-          is_spot = min_spot <= fminf(nj, fminf(deadline, npre));
-          is_pre = !is_spot && npre <= fminf(nj, deadline);
-          is_deadline = !is_spot && !is_pre && deadline <= nj;
+      for (int e0 = 0; e0 < n_ev; e0 += per_pass) {
+        const int n_pass = min(per_pass, n_ev - e0);
+        __syncwarp();
+        if constexpr (kSplit) {
+          market_split_pass<G, ENV>(x_s, reinterpret_cast<uint32_t*>(u_s), tab,
+                                    n_pass, a, pa, pb, fixed_choice, lk0, lk1,
+                                    t);
         } else {
-          dt = fminf(fminf(nj, min_spot), deadline);
-          is_spot = min_spot <= fminf(nj, deadline);
-          is_deadline = !is_spot && deadline <= nj;
+          draw_pass<G>(u_s, n_pass * nc, static_cast<uint32_t>(e0) * nc, k0,
+                       k1, k2, t);
+          __syncwarp();
+          market_sample_pass<G, ENV>(x_s, u_s, tab, n_pass, nc, a, pa, pb,
+                                     fixed_choice, t);
         }
-        bool is_b = false;  // a boundary crossing: no queue activity
-        if constexpr (ENV) {
-          is_b = cur.nb <= dt;
-          dt = fminf(dt, cur.nb);
-          is_spot = is_spot && !is_b;
-          is_pre = is_pre && !is_b;
-          is_deadline = is_deadline && !is_b;
-        }
-        const bool is_job = !is_b && !is_spot && !is_pre && !is_deadline;
+        __syncwarp();
 
-        // admission and the pool it joins
-        const float budget = x[1];
-        bool admit_raw = a.admit_code == kThreePhaseAdmit
-                             ? u[a.admit_col] < three_phase_p(pa, qlen)
-                             : qlen == 0 && budget > 0.f;
-        int choice = __float_as_int(x[2]);
-        if (ENV && (a.choice_code == kCheapest || a.choice_code == kFastest))
-          choice = sg.fixed;  // the segment's, not the pass's
-        if (a.choice_code == kLeastLoaded) {
-          int best = qp[0];
-          choice = 0;
+        for (int e = 0; e < n_pass; ++e) {
+          const float* u = u_s + e * nc;  // the slab stream's row
+          const float* x = x_s + e * ev;
+
+          // the firing spot pool: the earliest clock, the lowest on ties
+          float min_spot = ns[0];
+          int spot_pool = 0;
 #pragma unroll
           for (int p = 1; p < kMaxPools; ++p)
-            if (p < P && qp[p] < best) { best = qp[p]; choice = p; }
-        }
-        if constexpr (ENV) {
-          // PanicKernel: a dead pool fails over, and with every pool dark
-          // the job goes to on-demand
-          if (E.panic_choice && !((sg.alive >> choice) & 1u))
-            choice = sg.cheapest_alive;
-          if (E.panic_admit) admit_raw = admit_raw && sg.alive != 0u;
-        }
-        const bool admit = is_job && admit_raw && qlen < R;
-        const bool od_now = is_job && !admit;
-        const bool served = is_spot && has_elig;
-        const float price_s = tab[spot_pool];
-
-        // revocation: checkpoint and re-queue, or defect
-        const bool pre_hit = is_pre && has_pre;
-        bool resume = false;
-        if (a.resume_code == kNoticeAware) {
-          const int qlen_wo = max(qlen - 1, 0);
-          resume = pre_hit && ((within >> pre_pool) & 1u) &&
-                   u[a.onpre_col] < three_phase_p(pa, qlen_wo);
-        }
-        const bool defect_pre = pre_hit && !resume;
-        const bool defected = is_deadline;
-        // a serve completes its job only where the remaining work clears
-        WorkServe sv{};
-        sv.complete = served;
-        if constexpr (WORK) {
-          const int ks = work_index<G, SPT>(si);
-          sv = work_serve(Wk, served, wsl[ks], wsl[wn + ks],
-                          wsl[2 * wn + ks]);
-        }
-        const bool leave = sv.complete || defected || defect_pre;
-        const int leave_slot = served ? si : (defected ? di : pi);
-
-#pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          ages[j] = ages[j] + dt;
-          budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
-          if constexpr (WORK) life[j] = life[j] + dt;
-        }
-        const float wait_served = slot_value<G, SPT>(grp, ages, si);
-        const float age_defect = slot_value<G, SPT>(grp, ages, di);
-        float age_pre = 0.f, price_p = 0.f;
-        if (a.preempt_on) {
-          age_pre = slot_value<G, SPT>(grp, ages, pi);
-          price_p = tab[pre_pool];
-        }
-        if (a.choice_code == kLeastLoaded) {
-          const int dpool = slot_value<G, SPT>(grp, pool, di);
-          const int leave_pool = served ? spot_pool
-                                        : (defected ? dpool : pre_pool);
-#pragma unroll
-          for (int p = 0; p < kMaxPools; ++p)
-            qp[p] += (admit && p == choice) - (leave && p == leave_pool);
-        }
-        int tel_loc = 0;  // the event's pool: a deadline's is the job's
-        if constexpr (TEL) {
-          const int dpool = slot_value<G, SPT>(grp, pool, di);  // all threads
-          tel_loc = is_spot ? spot_pool
-                            : (is_pre ? pre_pool
-                                      : (is_deadline ? dpool : choice));
-        }
-        // the work: the ledger's slot values (lives after dt, pre-event
-        // remainders), the serve's write, a resume's rollback to its
-        // checkpoint (saved first, in notice mode, where it fits the pool's
-        // notice), a join's zero state
-        float life_def = 0.f, life_pre = 0.f, life_srv = 0.f;
-        float rem_def = 0.f, rem_pre = 0.f, lost = 0.f, oh_inc = 0.f;
-        bool taken = sv.taken, panic = false;
-        if constexpr (WORK) {
-          life_def = slot_value<G, SPT>(grp, life, di);
-          life_srv = slot_value<G, SPT>(grp, life, si);
-          panic = Wk.safety && slot_bit<G, SPT>(grp, armed, di) && defected;
-          const int kd = work_index<G, SPT>(di);
-          rem_def = wsl[wn + kd] + (Wk.total - wsl[kd]);
+            if (p < P && ns[p] < min_spot) { min_spot = ns[p]; spot_pool = p; }
+          // the revoked pool: the earliest clock on the split stream, a
+          // thinned pick of the superposed clock's on the slab stream
+          int pre_pool = 0;
+          float min_pre = npre[0];
           if (a.preempt_on) {
-            life_pre = slot_value<G, SPT>(grp, life, pi);
-            const int kp = work_index<G, SPT>(pi);
-            const float prog_p = wsl[kp], ckpt_p = wsl[2 * wn + kp];
-            rem_pre = wsl[wn + kp] + (Wk.total - prog_p);
-            const bool saved = resume && Wk.mode == kCkptNotice &&
-                               ((wwithin >> pre_pool) & 1u);
-            const float ckpt_val = saved ? fmaxf(ckpt_p, prog_p) : ckpt_p;
-            if (resume) {
-              work_put(wsl, wn, kp, ckpt_val, Wk.overhead, ckpt_val);
-              lost = fmaxf(prog_p - ckpt_val, 0.f);
-              oh_inc = Wk.overhead;
+            if (kSplit) {
+#pragma unroll
+              for (int p = 1; p < kMaxPools; ++p) {
+                if (p < P && npre[p] < min_pre) {
+                  min_pre = npre[p];
+                  pre_pool = p;
+                }
+              }
+            } else {
+              pre_pool = ENV ? thinning_pick(cum, P, u[a.pre_col + 1])
+                             : __float_as_int(x[3]);
             }
-            taken = taken || saved;
           }
-          if (served)
-            work_put(wsl, wn, work_index<G, SPT>(si), sv.prog, sv.oh,
-                     sv.ckpt);
-          if (admit) work_put(wsl, wn, work_index<G, SPT>(fi), 0.f, 0.f, 0.f);
-        }
-        const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
-        const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
+          if constexpr (ENV) {
+            // PanicKernel's drain: jobs queued on a dead pool re-tag to the
+            // cheapest alive one (where one is alive)
+            if (E.drain) {
+              bool moved = false;
 #pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-          if (j == join_j) {
-            ages[j] = 0.f;
-            budgets[j] = budget;
-            order[j] = next_seq;
-            pool[j] = choice;
-            if constexpr (WORK) life[j] = 0.f;
-          } else if (j == resume_j) {
-            ages[j] = 0.f;
-            budgets[j] = kInf;
-            order[j] = next_seq;
+              for (int j = 0; j < SPT; ++j) {
+                if (sg.alive != 0u && ((occ >> j) & 1u) &&
+                    !((sg.alive >> pool[j]) & 1u)) {
+                  pool[j] = sg.cheapest_alive;
+                  moved = true;
+                }
+              }
+              if (a.choice_code == kLeastLoaded && __any_sync(kFull, moved)) {
+#pragma unroll
+                for (int p = 0; p < kMaxPools; ++p) {
+                  int c = 0;
+#pragma unroll
+                  for (int j = 0; j < SPT; ++j)
+                    c += ((occ >> j) & 1u) && pool[j] == p;
+#pragma unroll
+                  for (int o = G / 2; o > 0; o >>= 1)
+                    c += __shfl_xor_sync(kFull, c, o, G);
+                  qp[p] = c;
+                }
+              }
+            }
           }
-        }
-        if (join_j >= 0) occ |= 1u << join_j;
-        if (leave && leave_slot / SPT == t)
-          occ &= ~(1u << (leave_slot & (SPT - 1)));
 
-        const bool od_any = od_now || defected || defect_pre;
-        jobs_arrived += is_job;
-        jobs_completed += od_any || served || resume;
-        spot_served += served;
-        ondemand += od_any;
-        cost_sum = cost_sum + (served ? price_s : 0.f);
-        cost_sum = cost_sum + (od_any ? kc : 0.f);
-        delay_sum = delay_sum + (served ? wait_served : 0.f);
-        delay_sum = delay_sum + (defected ? age_defect : 0.f);
-        spot_cost = spot_cost + (served ? price_s : 0.f);
-        if (a.preempt_on) {  // without it these add +0.0
-          cost_sum = cost_sum + (pre_hit ? price_p : 0.f);
-          delay_sum = delay_sum + (pre_hit ? age_pre : 0.f);
-          spot_cost = spot_cost + (pre_hit ? price_p : 0.f);
-        }
-        time_elapsed = time_elapsed + dt;
-        empty_time = empty_time + (qlen == 0 ? dt : 0.f);
-        spot_arrivals += is_spot;
-        spot_found_empty += is_spot && !has_elig;
-        resumed += resume;
+          // pre-event slot reductions: deadline, the oldest job of the spot
+          // pool, the oldest of the revoked pool, the first free slot
+          int bkey[SPT], skey[SPT], pkey[SPT];
+          bool any_s = false, any_p = false;
+          unsigned armed = 0;  // bit j: slot s0 + j's panic clock won
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int q = t + i * G;
-          p_slots[i] += is_spot && spot_pool == q;
-          p_served[i] += served && spot_pool == q;
-          p_pre[i] += pre_hit && pre_pool == q;
-        }
+          for (int j = 0; j < SPT; ++j) {
+            const bool o = (occ >> j) & 1u;
+            const bool es = o && pool[j] == spot_pool;
+            const bool ep = o && pool[j] == pre_pool;
+            float b = o ? budgets[j] : kInf;
+            if constexpr (WORK) {
+              if (Wk.safety && o) {
+                const int k = j * G + t;
+                const float pk = panic_clock(Wk, life[j], wsl[k], wsl[wn + k]);
+                armed |= static_cast<unsigned>(pk < b) << j;
+                b = fminf(b, pk);
+              }
+            }
+            bkey[j] = __float_as_int(b);
+            skey[j] = es ? order[j] : kOrderMax;
+            pkey[j] = ep ? order[j] : kOrderMax;
+            any_s |= es;
+            any_p |= ep;
+          }
+          int bmin = bkey[0], smin = skey[0], pmin = pkey[0];
+#pragma unroll
+          for (int j = 1; j < SPT; ++j) {
+            bmin = min(bmin, bkey[j]);
+            smin = min(smin, skey[j]);
+            pmin = min(pmin, pkey[j]);
+          }
+          bmin = grp.reduce_min(bmin);
+          smin = grp.reduce_min(smin);
+          const int di = first_equal<G, SPT>(grp, bkey, bmin);
+          const int si = first_equal<G, SPT>(grp, skey, smin);
+          const bool has_elig = grp.first(any_s) < G;
+          int pi = 0;
+          bool has_pre = false;
+          if (a.preempt_on) {
+            pmin = grp.reduce_min(pmin);
+            pi = first_equal<G, SPT>(grp, pkey, pmin);
+            has_pre = grp.first(any_p) < G;
+          }
+          const unsigned free_bits = ~occ & ((1u << SPT) - 1u);
+          const int owner = grp.first(free_bits != 0);
+          const int fj = free_bits ? __ffs(free_bits) - 1 : 0;
+          const int fi = owner * SPT + grp.from(fj, owner & (G - 1));
+          const float deadline = __int_as_float(bmin);
 
-        nj = is_job ? x[0] : nj - dt;
-        if constexpr (ENV) {
-          if (is_b) {
-            // the crossing: survived clocks rescaled exactly, then the new
-            // segment's table (the group syncs alone: a branch)
-            const size_t row = static_cast<size_t>(cur.seg + 1) * E.n_locs;
+          // ties resolve spot > preempt > deadline > job
+          float dt;
+          bool is_spot, is_pre = false, is_deadline;
+          if (a.preempt_on) {
+            dt = fminf(fminf(nj, min_spot), fminf(deadline, min_pre));
+            is_spot = min_spot <= fminf(nj, fminf(deadline, min_pre));
+            is_pre = !is_spot && min_pre <= fminf(nj, deadline);
+            is_deadline = !is_spot && !is_pre && deadline <= nj;
+          } else {
+            dt = fminf(fminf(nj, min_spot), deadline);
+            is_spot = min_spot <= fminf(nj, deadline);
+            is_deadline = !is_spot && deadline <= nj;
+          }
+          bool is_b = false;  // a boundary crossing: no queue activity
+          if constexpr (ENV) {
+            is_b = cur.nb <= dt;
+            dt = fminf(dt, cur.nb);
+            is_spot = is_spot && !is_b;
+            is_pre = is_pre && !is_b;
+            is_deadline = is_deadline && !is_b;
+          }
+          const bool is_job = !is_b && !is_spot && !is_pre && !is_deadline;
+
+          // admission and the pool it joins
+          const float budget = x[1];
+          bool admit_raw =
+              a.admit_code == kThreePhaseAdmit
+                  ? (kSplit ? x[3] : u[a.admit_col]) < three_phase_p(pa, qlen)
+                  : qlen == 0 && budget > 0.f;
+          int choice = __float_as_int(x[2]);
+          if (ENV && (a.choice_code == kCheapest || a.choice_code == kFastest))
+            choice = sg.fixed;  // the segment's, not the pass's
+          if (a.choice_code == kLeastLoaded) {
+            int best = qp[0];
+            choice = 0;
+#pragma unroll
+            for (int p = 1; p < kMaxPools; ++p)
+              if (p < P && qp[p] < best) { best = qp[p]; choice = p; }
+          }
+          if constexpr (ENV) {
+            // PanicKernel: a dead pool fails over, and with every pool dark
+            // the job goes to on-demand
+            if (E.panic_choice && !((sg.alive >> choice) & 1u))
+              choice = sg.cheapest_alive;
+            if (E.panic_admit) admit_raw = admit_raw && sg.alive != 0u;
+          }
+          const bool admit = is_job && admit_raw && qlen < R;
+          const bool od_now = is_job && !admit;
+          const bool served = is_spot && has_elig;
+          const float price_s = tab[spot_pool];
+
+          // revocation: checkpoint and re-queue, or defect
+          const bool pre_hit = is_pre && has_pre;
+          bool resume = false;
+          if (a.resume_code == kNoticeAware) {
+            const int qlen_wo = max(qlen - 1, 0);
+            resume = pre_hit && ((within >> pre_pool) & 1u) &&
+                     (kSplit ? x[4] : u[a.onpre_col]) <
+                         three_phase_p(pa, qlen_wo);
+          }
+          const bool defect_pre = pre_hit && !resume;
+          const bool defected = is_deadline;
+          // a serve completes its job only where the remaining work clears
+          WorkServe sv{};
+          sv.complete = served;
+          if constexpr (WORK) {
+            const int ks = work_index<G, SPT>(si);
+            sv = work_serve(Wk, served, wsl[ks], wsl[wn + ks],
+                            wsl[2 * wn + ks]);
+          }
+          const bool leave = sv.complete || defected || defect_pre;
+          const int leave_slot = served ? si : (defected ? di : pi);
+
+#pragma unroll
+          for (int j = 0; j < SPT; ++j) {
+            ages[j] = ages[j] + dt;
+            budgets[j] = (occ >> j) & 1u ? budgets[j] - dt : kInf;
+            if constexpr (WORK) life[j] = life[j] + dt;
+          }
+          const float wait_served = slot_value<G, SPT>(grp, ages, si);
+          const float age_defect = slot_value<G, SPT>(grp, ages, di);
+          float age_pre = 0.f, price_p = 0.f;
+          if (a.preempt_on) {
+            age_pre = slot_value<G, SPT>(grp, ages, pi);
+            price_p = tab[pre_pool];
+          }
+          if (a.choice_code == kLeastLoaded) {
+            const int dpool = slot_value<G, SPT>(grp, pool, di);
+            const int leave_pool = served ? spot_pool
+                                          : (defected ? dpool : pre_pool);
 #pragma unroll
             for (int p = 0; p < kMaxPools; ++p)
-              if (p < P)
-                ns[p] = (ns[p] - dt) * (inv_avail(E.avail[row + p]) / inv[p]);
-            if (a.preempt_on)
-              npre = (npre - dt) *
-                     clock_rescale(cum[P - 1], total_hazard(E, cur.seg + 1, P,
-                                                            a.hazard + lp));
-            const unsigned gm = group_mask<G>(grp.shift);
-            __syncwarp(gm);
-            sg = loc_segment(E, cur.seg + 1, P, a.price + lp, a.hazard + lp,
-                             a.rate + lp, a.scale + lp, a.choice_code, tab,
-                             cum, inv, t == 0);
-            __syncwarp(gm);
+              qp[p] += (admit && p == choice) - (leave && p == leave_pool);
+          }
+          int tel_loc = 0;  // the event's pool: a deadline's is the job's
+          if constexpr (TEL) {
+            const int dpool = slot_value<G, SPT>(grp, pool, di);  // all threads
+            tel_loc = is_spot ? spot_pool
+                              : (is_pre ? pre_pool
+                                        : (is_deadline ? dpool : choice));
+          }
+          // the work: the ledger's slot values (lives after dt, pre-event
+          // remainders), the serve's write, a resume's rollback to its
+          // checkpoint (saved first, in notice mode, where it fits the pool's
+          // notice), a join's zero state
+          float life_def = 0.f, life_pre = 0.f, life_srv = 0.f;
+          float rem_def = 0.f, rem_pre = 0.f, lost = 0.f, oh_inc = 0.f;
+          bool taken = sv.taken, panic = false;
+          if constexpr (WORK) {
+            life_def = slot_value<G, SPT>(grp, life, di);
+            life_srv = slot_value<G, SPT>(grp, life, si);
+            panic = Wk.safety && slot_bit<G, SPT>(grp, armed, di) && defected;
+            const int kd = work_index<G, SPT>(di);
+            rem_def = wsl[wn + kd] + (Wk.total - wsl[kd]);
+            if (a.preempt_on) {
+              life_pre = slot_value<G, SPT>(grp, life, pi);
+              const int kp = work_index<G, SPT>(pi);
+              const float prog_p = wsl[kp], ckpt_p = wsl[2 * wn + kp];
+              rem_pre = wsl[wn + kp] + (Wk.total - prog_p);
+              const bool saved = resume && Wk.mode == kCkptNotice &&
+                                 ((wwithin >> pre_pool) & 1u);
+              const float ckpt_val = saved ? fmaxf(ckpt_p, prog_p) : ckpt_p;
+              if (resume) {
+                work_put(wsl, wn, kp, ckpt_val, Wk.overhead, ckpt_val);
+                lost = fmaxf(prog_p - ckpt_val, 0.f);
+                oh_inc = Wk.overhead;
+              }
+              taken = taken || saved;
+            }
+            if (served)
+              work_put(wsl, wn, work_index<G, SPT>(si), sv.prog, sv.oh,
+                       sv.ckpt);
+            if (admit) work_put(wsl, wn, work_index<G, SPT>(fi), 0.f, 0.f, 0.f);
+          }
+          const int join_j = admit && fi / SPT == t ? fi & (SPT - 1) : -1;
+          const int resume_j = resume && pi / SPT == t ? pi & (SPT - 1) : -1;
+#pragma unroll
+          for (int j = 0; j < SPT; ++j) {
+            if (j == join_j) {
+              ages[j] = 0.f;
+              budgets[j] = budget;
+              order[j] = next_seq;
+              pool[j] = choice;
+              if constexpr (WORK) life[j] = 0.f;
+            } else if (j == resume_j) {
+              ages[j] = 0.f;
+              budgets[j] = kInf;
+              order[j] = next_seq;
+            }
+          }
+          if (join_j >= 0) occ |= 1u << join_j;
+          if (leave && leave_slot / SPT == t)
+            occ &= ~(1u << (leave_slot & (SPT - 1)));
+
+          const bool od_any = od_now || defected || defect_pre;
+          jobs_arrived += is_job;
+          jobs_completed += od_any || served || resume;
+          spot_served += served;
+          ondemand += od_any;
+          cost_sum = cost_sum + (served ? price_s : 0.f);
+          cost_sum = cost_sum + (od_any ? kc : 0.f);
+          delay_sum = delay_sum + (served ? wait_served : 0.f);
+          delay_sum = delay_sum + (defected ? age_defect : 0.f);
+          spot_cost = spot_cost + (served ? price_s : 0.f);
+          if (a.preempt_on) {  // without it these add +0.0
+            cost_sum = cost_sum + (pre_hit ? price_p : 0.f);
+            delay_sum = delay_sum + (pre_hit ? age_pre : 0.f);
+            spot_cost = spot_cost + (pre_hit ? price_p : 0.f);
+          }
+          time_elapsed = time_elapsed + dt;
+          empty_time = empty_time + (qlen == 0 ? dt : 0.f);
+          spot_arrivals += is_spot;
+          spot_found_empty += is_spot && !has_elig;
+          resumed += resume;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int q = t + i * G;
+            p_slots[i] += is_spot && spot_pool == q;
+            p_served[i] += served && spot_pool == q;
+            p_pre[i] += pre_hit && pre_pool == q;
+          }
+
+          nj = is_job ? x[0] : nj - dt;
+          if constexpr (ENV) {
+            if (is_b) {
+              // the crossing: survived clocks rescaled exactly, then the new
+              // segment's table (the group syncs alone: a branch)
+              const size_t row = static_cast<size_t>(cur.seg + 1) * E.n_locs;
+#pragma unroll
+              for (int p = 0; p < kMaxPools; ++p)
+                if (p < P)
+                  ns[p] = (ns[p] - dt) * (inv_avail(E.avail[row + p]) / inv[p]);
+              if (a.preempt_on && kSplit) {
+                // each pool's clock by its own hazards' ratio
+#pragma unroll
+                for (int p = 0; p < kMaxPools; ++p)
+                  if (p < P)
+                    npre[p] = (npre[p] - dt) *
+                              clock_rescale(hz[p], a.hazard[lp + p] *
+                                                       E.hazard[row + p]);
+              } else if (a.preempt_on) {
+                npre[0] = (npre[0] - dt) *
+                          clock_rescale(cum[P - 1],
+                                        total_hazard(E, cur.seg + 1, P,
+                                                     a.hazard + lp));
+              }
+              const unsigned gm = group_mask<G>(grp.shift);
+              __syncwarp(gm);
+              sg = loc_segment(E, cur.seg + 1, P, a.price + lp, a.hazard + lp,
+                               a.rate + lp, a.scale + lp, a.choice_code, tab,
+                               cum, inv, hz, t == 0);
+              __syncwarp(gm);
+            } else {
+#pragma unroll
+              for (int p = 0; p < kMaxPools; ++p)
+                if (p < P)
+                  ns[p] = is_spot && p == spot_pool ? x[5 + p] * inv[p]
+                                                    : ns[p] - dt;
+              if (a.preempt_on && kSplit) {
+#pragma unroll
+                for (int p = 0; p < kMaxPools; ++p) {
+                  if (p < P) {
+                    const float h = hz[p];
+                    npre[p] = is_pre && p == pre_pool
+                                  ? (h > 0.f ? x[5 + kMaxPools + p] /
+                                                   fmaxf(h, 1e-30f)
+                                             : kInf)
+                                  : npre[p] - dt;
+                  }
+                }
+              } else if (a.preempt_on) {
+                const float total = cum[P - 1];
+                npre[0] = is_pre ? (total > 0.f ? x[4] / fmaxf(total, 1e-30f)
+                                                : kInf)
+                                 : npre[0] - dt;
+              }
+            }
+            env_fold(E, cur, ec, is_b, dt, is_job, od_now, served, resume);
           } else {
 #pragma unroll
             for (int p = 0; p < kMaxPools; ++p)
               if (p < P)
-                ns[p] = is_spot && p == spot_pool ? x[5 + p] * inv[p]
-                                                  : ns[p] - dt;
-            if (a.preempt_on) {
-              const float total = cum[P - 1];
-              npre = is_pre ? (total > 0.f ? x[4] / fmaxf(total, 1e-30f)
-                                           : kInf)
-                            : npre - dt;
+                ns[p] = is_spot && p == spot_pool ? x[5 + p] : ns[p] - dt;
+            if (a.preempt_on && kSplit) {
+#pragma unroll
+              for (int p = 0; p < kMaxPools; ++p)
+                if (p < P)
+                  npre[p] = is_pre && p == pre_pool ? x[5 + kMaxPools + p]
+                                                    : npre[p] - dt;
+            } else if (a.preempt_on) {
+              npre[0] = is_pre ? x[4] : npre[0] - dt;
             }
           }
-          env_fold(E, cur, ec, is_b, dt, is_job, od_now, served, resume);
-        } else {
-#pragma unroll
-          for (int p = 0; p < kMaxPools; ++p)
-            if (p < P)
-              ns[p] = is_spot && p == spot_pool ? x[5 + p] : ns[p] - dt;
-          if (a.preempt_on) npre = is_pre ? x[4] : npre - dt;
-        }
-        next_seq += admit || resume;
-        qlen += static_cast<int>(admit) - static_cast<int>(leave);
-        if constexpr (WORK)
-          work_fold(Wk, wc, is_job, od_now, sv.complete, defected,
-                    defect_pre, life_def, rem_def, life_pre, rem_pre,
-                    life_srv, panic, taken, sv.done, lost, oh_inc);
+          next_seq += admit || resume;
+          qlen += static_cast<int>(admit) - static_cast<int>(leave);
+          if constexpr (WORK)
+            work_fold(Wk, wc, is_job, od_now, sv.complete, defected,
+                      defect_pre, life_def, rem_def, life_pre, rem_pre,
+                      life_srv, panic, taken, sv.done, lost, oh_inc);
 
-        if constexpr (TEL) {
-          TelEvent ev;
-          ev.type = is_spot       ? kEvSpot
-                    : is_pre      ? kEvPreempt
-                    : is_deadline ? kEvDeadline
-                                  : kEvJob;
-          ev.loc = tel_loc;
-          ev.qlen = qlen;
-          ev.served = served;
-          ev.preempt = is_pre;
-          ev.resume = resume;
-          ev.defected = defected;
-          ev.rejected = od_now;
-          ev.wait_valid = served || defected || pre_hit;
-          ev.wait = served ? wait_served : (defected ? age_defect : age_pre);
-          ev.cost_valid = served || od_now || defected || pre_hit;
-          ev.cost = (served ? price_s : 0.f) + (od_any ? kc : 0.f);
-          ev.cost = ev.cost + (pre_hit ? price_p : 0.f);
-          ev.t = time_elapsed;
-          tel_fold(tl, ts, e, tc, ev, t == 0);
+          if constexpr (TEL) {
+            TelEvent ev;
+            ev.type = is_spot       ? kEvSpot
+                      : is_pre      ? kEvPreempt
+                      : is_deadline ? kEvDeadline
+                                    : kEvJob;
+            ev.loc = tel_loc;
+            ev.qlen = qlen;
+            ev.served = served;
+            ev.preempt = is_pre;
+            ev.resume = resume;
+            ev.defected = defected;
+            ev.rejected = od_now;
+            ev.wait_valid = served || defected || pre_hit;
+            ev.wait = served ? wait_served : (defected ? age_defect : age_pre);
+            ev.cost_valid = served || od_now || defected || pre_hit;
+            ev.cost = (served ? price_s : 0.f) + (od_any ? kc : 0.f);
+            ev.cost = ev.cost + (pre_hit ? price_p : 0.f);
+            ev.t = time_elapsed;
+            tel_fold(tl, ts, e, tc, ev, t == 0);
+          }
+        }
+        if constexpr (TEL)
+          tel_pass<G>(tl, ts, n_pass, e0,
+                      (static_cast<size_t>(lane) * W + w) * tl.cap, t, live);
+      }
+
+      if (live) {
+        const size_t o = static_cast<size_t>(lane) * W + w, n = size_t(L) * W;
+        if (t == 0) {
+          a.istats[0 * n + o] = jobs_arrived;
+          a.istats[1 * n + o] = jobs_completed;
+          a.istats[2 * n + o] = spot_served;
+          a.istats[3 * n + o] = ondemand;
+          a.istats[4 * n + o] = spot_arrivals;
+          a.istats[5 * n + o] = spot_found_empty;
+          a.istats[6 * n + o] = resumed;
+          a.fstats[0 * n + o] = cost_sum;
+          a.fstats[1 * n + o] = delay_sum;
+          a.fstats[2 * n + o] = time_elapsed;
+          a.fstats[3 * n + o] = empty_time;
+          a.fstats[4 * n + o] = spot_cost;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q = t + i * G;
+          if (q < P) {
+            const size_t po = o * P + q, pn = n * P;
+            a.pstats[0 * pn + po] = p_served[i];
+            a.pstats[1 * pn + po] = p_slots[i];
+            a.pstats[2 * pn + po] = p_pre[i];
+          }
         }
       }
       if constexpr (TEL)
-        tel_pass<G>(tl, ts, n_pass, e0,
-                    (static_cast<size_t>(lane) * W + w) * tl.cap, t, live);
-    }
+        tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
+                     static_cast<size_t>(L) * W, t, live);
+      if constexpr (ENV)
+        env_flush(E, ec, static_cast<size_t>(lane) * W + w,
+                  static_cast<size_t>(L) * W, t == 0 && live);
+      if constexpr (WORK)
+        work_flush(Wk, wc, static_cast<size_t>(lane) * W + w,
+                   static_cast<size_t>(L) * W, t == 0 && live);
 
-    if (live) {
-      const size_t o = static_cast<size_t>(lane) * W + w, n = size_t(L) * W;
-      if (t == 0) {
-        a.istats[0 * n + o] = jobs_arrived;
-        a.istats[1 * n + o] = jobs_completed;
-        a.istats[2 * n + o] = spot_served;
-        a.istats[3 * n + o] = ondemand;
-        a.istats[4 * n + o] = spot_arrivals;
-        a.istats[5 * n + o] = spot_found_empty;
-        a.istats[6 * n + o] = resumed;
-        a.fstats[0 * n + o] = cost_sum;
-        a.fstats[1 * n + o] = delay_sum;
-        a.fstats[2 * n + o] = time_elapsed;
-        a.fstats[3 * n + o] = empty_time;
-        a.fstats[4 * n + o] = spot_cost;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int q = t + i * G;
-        if (q < P) {
-          const size_t po = o * P + q, pn = n * P;
-          a.pstats[0 * pn + po] = p_served[i];
-          a.pstats[1 * pn + po] = p_slots[i];
-          a.pstats[2 * pn + po] = p_pre[i];
-        }
-      }
+      rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
     }
-    if constexpr (TEL)
-      tel_flush<G>(tl, ts, tc, static_cast<size_t>(lane) * W + w,
-                   static_cast<size_t>(L) * W, t, live);
-    if constexpr (ENV)
-      env_flush(E, ec, static_cast<size_t>(lane) * W + w,
-                static_cast<size_t>(L) * W, t == 0 && live);
-    if constexpr (WORK)
-      work_flush(Wk, wc, static_cast<size_t>(lane) * W + w,
-                 static_cast<size_t>(L) * W, t == 0 && live);
-
-    rebase_order<G, SPT>(grp, occ, order, next_seq, s0, R);
-  }
+  };
+  if (a.split)
+    run_windows(StreamTag<true>{});
+  else
+    run_windows(StreamTag<false>{});
 
   if (!live) return;
 #pragma unroll
@@ -2269,10 +2523,16 @@ __global__ void market_kernel(const MArgs a, const TelArgs tl,
   if constexpr (WORK) work_store<G, SPT>(Wk, wsl, life, lane, R, s0, t);
   if (t == 0) {
     a.next_job[lane] = nj;
-    a.next_pre[lane] = npre;
 #pragma unroll
-    for (int p = 0; p < kMaxPools; ++p)
+    for (int p = 0; p < kMaxPools; ++p) {
       if (p < P) a.next_spot[lp + p] = ns[p];
+      if (a.split ? p < P : p == 0)
+        a.next_pre[a.split ? lp + p : lane] = npre[p];
+    }
+    if (a.split) {
+      a.key_out[2 * static_cast<size_t>(lane)] = lk0;
+      a.key_out[2 * static_cast<size_t>(lane) + 1] = lk1;
+    }
     a.next_seq[lane] = next_seq;
     a.qlen[lane] = qlen;
     if constexpr (ENV) {
@@ -2289,10 +2549,11 @@ cudaError_t market_launch_gs(const MArgs& a, const TelArgs& tl,
   const int lanes_per_block = warps_per_block * 32 / G;
   const dim3 grid((a.lanes + lanes_per_block - 1) / lanes_per_block);
   const dim3 block(warps_per_block * 32);
-  const size_t smem = sizeof(float) * lanes_per_block *
-                          (kLaneStride + kMSampleStride + kTab) +
-                      tel_smem(tl, lanes_per_block, kMarketPass) +
-                      work_smem(lanes_per_block, G * SPT);
+  const size_t smem =
+      sizeof(float) * lanes_per_block *
+          (kLaneStride + market_sample_stride(a.split) + kTab) +
+      tel_smem(tl, lanes_per_block, kMarketPass) +
+      work_smem(lanes_per_block, G * SPT);
   cudaError_t err = cudaFuncSetAttribute(
       market_kernel<G, SPT, kTel, kEnv, kWork>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -2590,7 +2851,8 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
   if constexpr (ENV) {
     cur = env_cursor(E, lane);
     sg = loc_segment(E, cur.seg, R, a.price + lr, a.hazard + lr, a.rate + lr,
-                     a.spot_scale + lr, a.route_code, tab, cum, inv, t == 0);
+                     a.spot_scale + lr, a.route_code, tab, cum, inv, nullptr,
+                     t == 0);
     __syncwarp();
   }
 
@@ -2941,7 +3203,7 @@ __global__ void region_kernel(const RArgs a, const TelArgs tl,
             __syncwarp(gm);
             sg = loc_segment(E, cur.seg + 1, R, a.price + lr, a.hazard + lr,
                              a.rate + lr, a.spot_scale + lr, a.route_code,
-                             tab, cum, inv, t == 0);
+                             tab, cum, inv, nullptr, t == 0);
             __syncwarp(gm);
           } else {
 #pragma unroll
@@ -3292,11 +3554,12 @@ extern "C" const char* sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// ptrs: the 35 pointers of MArgs in order (logits may be 0); icfg: lanes,
-// rmax, n_windows, n_cols, n_pools, job_code, job_n, admit_code,
-// wait_code, choice_code, resume_code, preempt_on, any_exp_pool, job_col,
-// spot_col, admit_col, choice_col, pre_col, onpre_col, G, SPT, warps a
-// block, then pool_code[8] and pool_n[8]; fcfg: job_c[4], pool_c[8][4];
+// ptrs: the 36 pointers of MArgs in order (logits may be 0; key_out, last,
+// only on the split stream); icfg: lanes, rmax, n_windows, n_cols,
+// n_pools, job_code, job_n, admit_code, wait_code, choice_code,
+// resume_code, preempt_on, any_exp_pool, job_col, spot_col, admit_col,
+// choice_col, pre_col, onpre_col, G, SPT, warps a block, then
+// pool_code[8], pool_n[8], split and tag[8]; fcfg: job_c[4], pool_c[8][4];
 // tel_*, env_*, work_*: as sweep_launch's.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a (G, SPT) that is not
 // built, or telemetry or environment arguments that do not fit this
@@ -3353,6 +3616,7 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
   a.istats = reinterpret_cast<int32_t*>(ptrs[i++]);
   a.fstats = reinterpret_cast<float*>(ptrs[i++]);
   a.pstats = reinterpret_cast<int32_t*>(ptrs[i++]);
+  a.key_out = reinterpret_cast<uint32_t*>(ptrs[i++]);
   i = 0;
   a.lanes = icfg[i++];
   a.rmax = icfg[i++];
@@ -3377,12 +3641,15 @@ extern "C" int market_launch(const int64_t* ptrs, const int32_t* icfg,
   for (int p = 0; p < kMaxPools; ++p) {
     a.pool_code[p] = icfg[i + p];
     a.pool_n[p] = icfg[i + kMaxPools + p];
+    a.tag[p] = static_cast<uint32_t>(icfg[i + 2 * kMaxPools + 1 + p]);
     for (int c = 0; c < 4; ++c) a.pool_c[p][c] = fcfg[4 + 4 * p + c];
   }
+  a.split = icfg[i + 2 * kMaxPools];
   for (int c = 0; c < 4; ++c) a.job_c[c] = fcfg[c];
-  if (a.n_cols < 1 || a.n_cols > kDraws || a.n_pools < 1 ||
+  if (a.n_cols < (a.split ? 0 : 1) || a.n_cols > kDraws || a.n_pools < 1 ||
       a.n_pools > kMaxPools || warps_per_block < 1 || warps_per_block > 32 ||
-      group * spt < a.rmax)
+      group * spt < a.rmax || (a.split != 0 && a.split != 1) ||
+      (a.split && a.key_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(market_launch_g(a, tl, E, Wk, group, spt,
                                           warps_per_block,

@@ -32,12 +32,13 @@ def batched_events(job, spot, kernel, rmax, state, params, k_cost, plan,
 
 
 def market_events(job, market, kernel, rmax, preempt_on, state, params, mp,
-                  k_cost, plan, tel=None, ep=None, work=None, wk=None):
+                  k_cost, plan, tel=None, ep=None, work=None, wk=None,
+                  rng="slab"):
     """Run stacked market event windows; see ``market_event_windows``."""
     run = market_event_windows_ref if _on_cpu(state) \
         else market_event_windows
     return run(job, market, kernel, rmax, preempt_on, state, params, mp,
-               k_cost, plan, tel, ep, work, wk)
+               k_cost, plan, tel, ep, work, wk, rng)
 
 
 def region_events(topo, kernel, preempt_on, state, params, rp, k_cost, plan,

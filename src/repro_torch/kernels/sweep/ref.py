@@ -9,8 +9,8 @@ window
 builds the lanes' slab with :func:`~repro_torch.core.clocks.window_slab`,
 runs its events with the engine's event body on ``(lanes, slots)``
 tensors, and ends with the order rebase.  On the split stream
-(``rng="split"``, the single queue) a window builds no slab: each event
-walks the lanes' key ladder itself.  With a
+(``rng="split"``, the single queue and the market) a window builds no
+slab: each event walks the lanes' key ladder itself.  With a
 :class:`~repro_torch.obs.Telemetry` (``tel``) each event is also folded
 into a telemetry block a window and the stats come back as a ``(base,
 telemetry)`` pair.  With an environment timeline (``ep``,
@@ -134,15 +134,16 @@ def market_event_windows_ref(job, market, kernel, rmax: int,
                              preempt_on: bool, state: MarketState,
                              params: dict, mp: dict, k_cost: torch.Tensor,
                              plan: tuple[int, ...], tel=None, ep=None,
-                             work=None, wk=None
+                             work=None, wk=None, rng: str = "slab"
                              ) -> tuple[MarketState, MarketWindowStats]:
     """Reference of the market traversal: ``(final_state, stats)`` with
     stats leaves ``(lanes, W)`` and ``(lanes, W, P)`` for the pool fields
     (with ``tel`` a ``(base, telemetry)`` pair, the pools as the
     telemetry's locations; with ``ep`` the state and the stats in env
     pairs, with ``work`` in work pairs outermost).  ``mp`` is the per-lane
-    pools config (``(lanes, P)`` leaves)."""
-    layout = _market_layout(job, market, kernel, preempt_on)
+    pools config (``(lanes, P)`` leaves); on the ``rng="split"`` stream
+    the state's preemption clocks are ``(lanes, P)``."""
+    layout = _market_layout(job, market, kernel, preempt_on, rng)
     env, on = ep is not None, work is not None
     base = _base(state)
     lanes, device = base.key.shape[0], base.ages.device

@@ -36,9 +36,9 @@ pairs, outermost; a :class:`~repro_torch.core.work.CantBeLateKernel` is
 unwrapped to its base, its safety net and slack buffer passed to the
 kernel as run constants.
 
-On the split stream (``rng="split"``, the single queue) the wrapper passes
-each lane's key instead of the window keys: the kernel walks the per-event
-key ladder itself and returns the final lane keys.
+On the split stream (``rng="split"``, the single queue and the market) the
+wrapper passes each lane's key instead of the window keys: the kernel walks
+the per-event key ladder itself and returns the final lane keys.
 """
 from __future__ import annotations
 
@@ -327,8 +327,8 @@ def _arrivals(procs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 _WAIT_CODES = {InfiniteWait: (0, ()), TwoPointWait: (1, ("p", "value")),
                ExponentialWait: (2, ("rate",)),
                DeterministicWait: (3, ("value",))}
-#: the split stream's exponential wait at the family's own rate: a product
-#: with the float32 reciprocal (``ExponentialWait.sample``)
+#: an exponential wait at the family's own rate: a product with the float32
+#: reciprocal (``ExponentialWait.sample``, ``ExponentialWait.sample_u``)
 _FIXED_EXPONENTIAL_WAIT = 4
 
 
@@ -337,20 +337,19 @@ class NoKernelPolicyError(NotImplementedError):
     runs on the CPU plain version only)."""
 
 
-def _policy(kernel, params: dict, lanes: int, device, split: bool = False):
+def _policy(kernel, params: dict, lanes: int, device):
     """(policy code, wait code, pa, pb): the kernel's per-lane params as
     the two float32 arrays the CUDA kernel reads (a ``PanicKernel`` admits
-    as its base).  On the split stream a single-slot kernel whose params
-    hold no ``"wait"`` (an unswept wait) samples at its family's
-    constants; on the slab stream the params must hold it, as the plain
-    version reads it."""
+    as its base).  A single-slot kernel whose params hold no ``"wait"`` (an
+    unswept wait) samples at its family's constants, on either stream, as
+    the plain version does."""
     kernel = peel_panic(kernel)
     zero = torch.zeros(lanes, dtype=torch.float32, device=device)
     if isinstance(kernel, ThreePhaseKernel):
         return 0, 0, params["r"], zero
     if isinstance(kernel, SingleSlotKernel) and type(kernel.wait) in _WAIT_CODES:
         code, names = _WAIT_CODES[type(kernel.wait)]
-        if not split or "wait" in params:
+        if "wait" in params:
             cols = [params["wait"][n] for n in names] + [zero, zero]
             return 1, code, cols[0], cols[1]
         own = kernel.wait.params()
@@ -455,7 +454,7 @@ def batched_event_windows(job, spot, kernel, rmax: int, state: EngineState,
     if max(plan) * n_cols >= 2**32:
         raise ValueError("sweep kernel: a window's slab index must fit in "
                          "32 bits")
-    policy, wait, pa, pb = _policy(kernel, params, lanes, device, split)
+    policy, wait, pa, pb = _policy(kernel, params, lanes, device)
     if split:
         _refuse_gamma("sweep kernel", (job, spot))
     job_code, job_c, job_n = _arrival(job)
@@ -600,7 +599,10 @@ def _env_for_panic(ep, es, panic, rates: torch.Tensor, n_locs: int,
 
 
 def _choice_col(kernel, layout, n_pools: int) -> int:
-    """First slab column of the pool-choice rule's draws."""
+    """First slab column of the pool-choice rule's draws (0 on the split
+    stream, which has no slab)."""
+    if layout is None:
+        return 0
     if isinstance(kernel, NoticeAwareKernel):
         return layout.admit[0] + 1
     if isinstance(kernel, PoolChoiceKernel):
@@ -613,7 +615,7 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
                          state: MarketState, params: dict, mp: dict,
                          k_cost: torch.Tensor, plan: tuple[int, ...],
                          tel: Telemetry | None = None, ep: dict | None = None,
-                         work=None, wk=None
+                         work=None, wk=None, rng: str = "slab"
                          ) -> tuple[MarketState, MarketWindowStats]:
     """Run every market lane through the windows of ``plan`` in one launch.
 
@@ -626,12 +628,16 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     ``(final_state, stats)`` with stats leaves ``(lanes, W)`` and ``(lanes,
     W, P)`` for the pool fields (with ``tel`` a ``(base, telemetry)``
     pair, the pools its locations; the env and work pairs as in
-    :func:`batched_event_windows`).  Raises if the kernel cannot be built
-    or launched, or for more than ``MAX_POOLS`` pools; it never falls
-    back.
+    :func:`batched_event_windows`).  ``rng="split"`` runs the split
+    stream: the kernel walks each lane's key ladder, one step an event, the
+    state's preemption clocks are ``(lanes, P)`` and the final state holds
+    the lane keys it reached.  Raises if the kernel cannot be built or
+    launched, for more than ``MAX_POOLS`` pools, or for a policy it holds
+    no code for (:class:`NoKernelPolicyError`); it never falls back.
     """
     kernel, *safety = peel_safety_net(kernel)
-    layout = _market_layout(job, market, kernel, preempt_on)
+    split = rng == "split"
+    layout = _market_layout(job, market, kernel, preempt_on, rng)
     n_pools = market.n_pools
     state, es, ws = _unpack(state, ep, work)
     lanes, device = state.key.shape[0], state.key.device
@@ -645,15 +651,19 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     if lanes == 0 or not 1 <= rmax <= MAX_RMAX:
         raise ValueError(f"market kernel: need lanes >= 1 and 1 <= rmax <= "
                          f"{MAX_RMAX}, got {lanes} lanes, rmax {rmax}")
-    if layout.n_cols > MAX_COLS:
-        raise ValueError(f"market kernel: a slab row of {layout.n_cols} "
+    n_cols = 0 if split else layout.n_cols
+    if n_cols > MAX_COLS:
+        raise ValueError(f"market kernel: a slab row of {n_cols} "
                          f"columns exceeds {MAX_COLS}")
-    if max(plan) * layout.n_cols >= 2**32:
+    if max(plan) * n_cols >= 2**32:
         raise ValueError("market kernel: a window's slab index must fit in "
                          "32 bits")
     group = group_size(rmax)
     admit, wait, choice, resume, pa, pb, ckpt = _market_policy(
         kernel, params, lanes, device)
+    if split:
+        _refuse_gamma("market kernel", (job,) + tuple(
+            p.arrival for p in market.pools))
     logits = None
     if choice == _CHOICE_CODES["weighted"]:
         logits = params["pool_logits"]
@@ -662,15 +672,21 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     job_code, job_c, job_n = _arrival(job)
     codes, ns, consts = _arrivals(p.arrival for p in market.pools)
 
-    slab_keys, final_key = window_slab_keys(state.key, len(plan))
-    win_keys = _as_int32_words(slab_keys).contiguous()
-    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
     w = len(plan)
+    key_out = final_key = None
+    if split:
+        win_keys = _as_int32_words(state.key)[:, None].contiguous()
+        key_out = torch.empty(lanes, 2, dtype=torch.int32, device=device)
+    else:
+        slab_keys, final_key = window_slab_keys(state.key, w)
+        win_keys = _as_int32_words(slab_keys).contiguous()
+    plan_t = torch.tensor(plan, dtype=torch.int32, device=device)
     f32, i32 = torch.float32, torch.int32
     lp = (lanes, n_pools)
+    pre = lp if split else (lanes,)  # the preemption clocks
     inputs = [("next_job", state.next_job, f32, (lanes,)),
               ("next_spot", state.next_spot, f32, lp),
-              ("next_preempt", state.next_preempt, f32, (lanes,)),
+              ("next_preempt", state.next_preempt, f32, pre),
               ("ages", state.ages, f32, (lanes, rmax)),
               ("budgets", state.budgets, f32, (lanes, rmax)),
               ("occ", state.occ, torch.bool, (lanes, rmax)),
@@ -678,7 +694,7 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
               ("order", state.order, i32, (lanes, rmax)),
               ("next_seq", state.next_seq, i32, (lanes,)),
               ("qlen", state.qlen, i32, (lanes,)),
-              ("window keys", win_keys, i32, (lanes, w, 2)),
+              ("window keys", win_keys, i32, (lanes, 1 if split else w, 2)),
               ("plan", plan_t, i32, (w,)),
               ("k_cost", k_cost, f32, (lanes,)),
               ("policy param a", pa, f32, (lanes,)),
@@ -696,7 +712,7 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
         key=final_key,
         next_job=torch.empty(lanes, dtype=f32, device=device),
         next_spot=torch.empty(lp, dtype=f32, device=device),
-        next_preempt=torch.empty(lanes, dtype=f32, device=device),
+        next_preempt=torch.empty(pre, dtype=f32, device=device),
         ages=torch.empty(lanes, rmax, dtype=f32, device=device),
         budgets=torch.empty(lanes, rmax, dtype=f32, device=device),
         occ=torch.empty(lanes, rmax, dtype=torch.bool, device=device),
@@ -713,20 +729,27 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     ptrs = np.array(in_ptrs + [0 if logits is None else logits.data_ptr()]
                     + [x.data_ptr() for x in out[1:]]
                     + [istats.data_ptr(), fstats.data_ptr(),
-                       pstats.data_ptr()], np.int64)
+                       pstats.data_ptr(),
+                       0 if key_out is None else key_out.data_ptr()],
+                    np.int64)
     fcfg = np.zeros(4 + 4 * MAX_POOLS, np.float32)
     fcfg[:len(job_c)] = job_c
     fcfg[4:] = consts.reshape(-1)
-    on_preempt = layout.on_preempt[0] if layout.on_preempt else 0
-    icfg = np.array([lanes, rmax, w, layout.n_cols, n_pools, job_code, job_n,
+    cols = [0] * 6
+    if not split:
+        cols = [layout.job[0], layout.spot[0], layout.admit[0],
+                _choice_col(kernel, layout, n_pools),
+                layout.preempt[0] if preempt_on else 0,
+                layout.on_preempt[0] if layout.on_preempt else 0]
+    tags = np.zeros(MAX_POOLS, np.uint32)
+    tags[:n_pools] = [t & MASK for t in market.tags]
+    icfg = np.array([lanes, rmax, w, n_cols, n_pools, job_code, job_n,
                      admit, wait, choice, resume, int(preempt_on),
-                     int(0 in codes[:n_pools]),
-                     layout.job[0], layout.spot[0], layout.admit[0],
-                     _choice_col(kernel, layout, n_pools),
-                     layout.preempt[0] if preempt_on else 0, on_preempt,
+                     int(0 in codes[:n_pools]), *cols,
                      group, slots_per_thread(rmax, group),
                      warps_per_block(lanes, group, sms)]
-                    + codes.tolist() + ns.tolist(), np.int32)
+                    + codes.tolist() + ns.tolist() + [int(split)]
+                    + tags.view(np.int32).tolist(), np.int32)
     tstats, *tel_args = _telemetry_outputs(tel, n_pools, lanes, w, device)
     env_out, *env_args = _env_outputs(ep, es, n_pools, lanes, w, device,
                                       panic)
@@ -736,6 +759,8 @@ def market_event_windows(job, market, kernel, rmax: int, preempt_on: bool,
     _launch("market_launch", "market kernel", tel, ptrs, icfg, fcfg,
             tel_args, env_args, work_args, device)
     market_event_windows.launches += 1
+    if split:
+        out = out._replace(key=key_out.to(torch.int64) & MASK)
     stats = MarketWindowStats(
         jobs_arrived=istats[0], jobs_completed=istats[1],
         spot_served=istats[2], ondemand=istats[3], cost_sum=fstats[0],

@@ -83,7 +83,9 @@ def cuda_device():
 # tests/test_torch_regions.py): XLA's and PyTorch's CPU log1p each round
 # within one ulp, so whole runs are held bitwise, floats included, by
 # handing the port XLA's own -log1p(-u) for every uniform the slab and the
-# key samplers can produce (2^24 and 2^23 values, tabulated once a module)
+# key samplers can produce (2^24 and 2^23 values, tabulated once a module),
+# and XLA's own -log(-log(u)) for every uniform jax.random.gumbel can draw
+# (2^23 values, on many of which XLA's log rounds apart from PyTorch's)
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def xla_log1p_tables():
@@ -94,15 +96,19 @@ def xla_log1p_tables():
     slab = np.arange(2**24, dtype=np.float32) * np.float32(2.0**-24)
     key = ((np.arange(2**23, dtype=np.uint32) | 0x3F800000).view(np.float32)
            - np.float32(1.0))
+    tiny = np.finfo(np.float32).tiny
+    gumbel = jax.jit(lambda u: -jnp.log(-jnp.log(
+        jnp.maximum(tiny, u + tiny))))
     return (torch.from_numpy(np.array(neg_log1p(slab))),
-            torch.from_numpy(np.array(neg_log1p(key))))
+            torch.from_numpy(np.array(neg_log1p(key))),
+            torch.from_numpy(np.array(gumbel(key))))
 
 
 @pytest.fixture
 def xla_log1p(monkeypatch, xla_log1p_tables):
     from repro_torch.core import arrivals, clocks, threefry, waittime
 
-    slab, key = xla_log1p_tables
+    slab, key, gumbel_table = xla_log1p_tables
 
     def exp_from_u(u):  # u is a slab uniform: a multiple of 2^-24
         idx = (u.double() * 2**24).long()
@@ -112,6 +118,10 @@ def xla_log1p(monkeypatch, xla_log1p_tables):
     def exponential(k, shape=()):  # the key sampler's 23-bit uniforms
         return key[threefry.bits32(k, shape) >> 9]
 
+    def gumbel(k, n):  # jax.random.gumbel's uniforms on [tiny, 1)
+        return gumbel_table[threefry.bits32(k, (n,)) >> 9]
+
     for mod in (clocks, arrivals, waittime):
         monkeypatch.setattr(mod, "exp_from_u", exp_from_u)
     monkeypatch.setattr(threefry, "exponential", exponential)
+    monkeypatch.setattr(threefry, "gumbel", gumbel)

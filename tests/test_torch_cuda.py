@@ -34,10 +34,11 @@ TEL+ENV builds, under the kernels and under PanicKernel): the final state,
 the stats and the shock counters bitwise.  The sweep kernel with the work
 state (the four WORK builds, each checkpoint mode, with and without the
 safety net): the final state, the final work state, the stats and the
-survival ledger bitwise.  The sweep kernel's split traversal (the
-per-event key ladder, on each (G, slots a thread) pair, each wait family
-and each combination of the three states): the final state, the lane keys
-it reached and every statistic bitwise.
+survival ledger bitwise.  The sweep kernel's split traversals (the
+per-event key ladder of the single queue and of the market, on each (G,
+slots a thread) pair, each wait family or choice rule and each
+combination of the three states): the final state, the lane keys it
+reached and every statistic bitwise.
 """
 import numpy as np
 import pytest
@@ -102,7 +103,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, job, spot,
     k = torch.full((lanes,), 10.0, device=cuda_device)
     p = {n: torch.as_tensor(np.resize(np.float32(v), lanes),
                             device=cuda_device) for n, v in params.items()}
-    p = engine.lane_params(kernel, p, k)
     fin_r, ref = batched_event_windows_ref(job, spot, kernel, rmax, s0, p, k,
                                            plan)
     fin_k, ker = batched_event_windows(job, spot, kernel, rmax, s0, p, k,
@@ -112,6 +112,36 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, job, spot,
                  engine.INT_STATS, name)
     assert_close({f: v.cpu().numpy() for f, v in fin_r._asdict().items()},
                  fin_k, (), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["single", "market"])
+def test_cuda_unswept_exponential_wait_is_bitwise(cuda_device, loop):
+    """An unswept ExponentialWait at rate 1/3, whose float32 reciprocal is
+    inexact, on the slab stream: the kernel multiplies by the reciprocal as
+    the plain version does (a kernel that divided would round some budgets
+    an ulp apart), so the final state and every statistic are bitwise."""
+    lanes, kernel = 13, T.SingleSlotKernel(wait=T.ExponentialWait(1 / 3))
+    plan = engine._window_plan(1_000, 512, 128)
+    keys = threefry.split(threefry.key(5, cuda_device), lanes)
+    k = torch.full((lanes,), 10.0, device=cuda_device)
+    if loop == "single":
+        job, spot = T.Exponential(LAM), T.Exponential(MU)
+        s0 = engine.init_engine_state(keys, job, spot, 1)
+        args = (job, spot, kernel, 1, s0, {}, k, plan)
+        ref = batched_event_windows_ref(*args)
+        ker = batched_event_windows(*args)
+    else:
+        mp = {f: torch.as_tensor(np.tile(v, (lanes, 1)), device=cuda_device)
+              for f, v in _HETERO.params().items()}
+        s0 = engine.init_market_state(keys, T.Exponential(LAM), _HETERO, 1,
+                                      mp, True)
+        args = (T.Exponential(LAM), _HETERO, T.PoolChoiceKernel(kernel), 1,
+                True, s0, {}, mp, k, plan)
+        ref = market_event_windows_ref(*args)
+        ker = market_event_windows(*args)
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, f"{loop} unswept exponential wait 1/3")
 
 
 @pytest.mark.cuda
@@ -176,9 +206,9 @@ def _layout_run(device, case):
     s0 = engine.init_engine_state(
         threefry.split(threefry.key(11, device), lanes), init_job, spot, rmax)
     k = torch.full((lanes,), 10.0, device=device)
-    p = engine.lane_params(kernel, {
+    p = {
         n: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
-        for n, v in params.items()}, k)
+        for n, v in params.items()}
     args = (job, spot, kernel, rmax, s0, p, k, plan)
     return args, batched_event_windows(*args)
 
@@ -273,9 +303,9 @@ def _market_run(device, market, kernel, rmax, params, lanes=45,
     k = torch.full((lanes,), 10.0, device=device)
     mp = {name: torch.as_tensor(np.tile(v, (lanes, 1)), device=device)
           for name, v in market.params().items()}
-    p = engine.market_lane_params(kernel, {
+    p = {
         name: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
-        for name, v in params.items()}, k)
+        for name, v in params.items()}
     if "pool_logits" in p:  # one logit a lane, the same for every pool
         p["pool_logits"] = p["pool_logits"][:, None].expand(lanes, n)
     pre = market.preemptible
@@ -388,9 +418,9 @@ def _region_run(device, topo, kernel, params, lanes=45,
     rp = engine._config_tensors({
         name: np.tile(v, (lanes, 1)) for name, v in topo.params().items()},
         device)
-    p = engine.market_lane_params(kernel, {
+    p = {
         name: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
-        for name, v in params.items()}, k)
+        for name, v in params.items()}
     pre = topo.preemptible
     s0 = engine.init_region_state(
         threefry.split(threefry.key(11, device), lanes), topo, rp, pre)
@@ -481,10 +511,10 @@ def test_cuda_telemetry_single_queue_matches_plain_version(cuda_device,
     s0 = engine.init_engine_state(
         threefry.split(threefry.key(7, cuda_device), lanes), job, spot, rmax)
     k = torch.full((lanes,), 10.0, device=cuda_device)
-    p = engine.lane_params(kernel, {
+    p = {
         n: torch.as_tensor(np.resize(np.float32(v), lanes),
                            device=cuda_device)
-        for n, v in params.items()}, k)
+        for n, v in params.items()}
     args = (job, spot, kernel, rmax, s0, p, k, plan)
     _assert_tel_equal(batched_event_windows_ref(*args, tel)[1],
                       batched_event_windows(*args, tel)[1],
@@ -570,10 +600,10 @@ def test_cuda_env_single_queue_matches_plain_version(cuda_device, case, tel):
     lanes, plan = 13, engine._window_plan(1_500, 512, 128)
     keys = threefry.split(threefry.key(7, cuda_device), lanes)
     k = torch.full((lanes,), 10.0, device=cuda_device)
-    p = engine.lane_params(kernel, {
+    p = {
         n: torch.as_tensor(np.resize(np.float32(v), lanes),
                            device=cuda_device)
-        for n, v in params.items()}, k)
+        for n, v in params.items()}
     s0 = engine.init_engine_state(keys, job, spot, rmax)
     _, off = batched_event_windows(job, spot, kernel, rmax, s0, p, k, plan)
     ep = _env_timeline(1, _t_run(off)).params(1, cuda_device)
@@ -708,10 +738,10 @@ def test_cuda_work_single_queue_matches_plain_version(cuda_device, case,
     lanes = 13
     keys = threefry.split(threefry.key(7, cuda_device), lanes)
     k = torch.full((lanes,), 10.0, device=cuda_device)
-    p = engine.lane_params(kernel, {
+    p = {
         n: torch.as_tensor(np.resize(np.float32(v), lanes),
                            device=cuda_device)
-        for n, v in params.items()}, k)
+        for n, v in params.items()}
     s0 = engine.init_engine_state(keys, job, spot, rmax)
     off = batched_event_windows(job, spot, kernel, rmax, s0, p, k,
                                 _WORK_PLAN)[1]
@@ -873,7 +903,7 @@ def _split_run(device, case, lanes=13, seed=7):
                 torch.as_tensor(np.resize(np.float32(v), lanes),
                                 device=device) for n, v in p.items()}
 
-    p = engine.lane_params(kernel, lanewise(params), k, rng="split")
+    p = lanewise(params)
     return (job, spot, kernel, rmax,
             engine.init_engine_state(keys, job, spot, rmax), p, k)
 
@@ -981,6 +1011,150 @@ def test_cuda_split_launch_count_and_refusals(cuda_device):
         batched_event_windows(T.Gamma(12.0, 1.0), spot, kernel, rmax, s0, p,
                               k, (100,), rng="split")
     assert batched_event_windows.launches == before + 1
+
+
+#: the market's split stream: (name, market, kernel, rmax, params), one at
+#: each rmax pick, every choice rule (uniform at P 1, 3, 5 and 8), both
+#: market kernels, legacy kernels, an unswept exponential wait
+SPLIT_MARKET_CASES = [
+    ("p1_uniform_notice", _market((0.4,), (0.05,), (0.3,)),
+     T.NoticeAwareKernel(0.05, "uniform"), 1,
+     {"r": np.linspace(0.5, 3.0, 13)}),
+    ("p1_degenerate_legacy", _market((1.0,), (0.0,), (0.0,)),
+     T.ThreePhaseKernel(), 8, {"r": np.linspace(0.5, 7.0, 13)}),
+    ("p3_uniform", _market((0.4, 0.3, 0.2), (0.01, 0.12, 0.0),
+                           (0.5, 0.01, 2.0)),
+     T.NoticeAwareKernel(0.05, "uniform"), 16,
+     {"r": np.linspace(1.0, 14.0, 13)}),
+    ("p5_uniform", _market((0.9, 0.7, 0.5, 0.3, 0.2),
+                           (0.01, 0.0, 0.05, 0.02, 0.1),
+                           (1.0, 0.01, 0.5, 0.0, 2.0)),
+     T.NoticeAwareKernel(0.05, "uniform"), 32,
+     {"r": np.linspace(1.0, 30.0, 13)}),
+    ("p8_uniform", _market(tuple(np.linspace(0.9, 0.2, 8)),
+                           (0.03, 0.0, 0.05, 0.01, 0.0, 0.08, 0.02, 0.04),
+                           (0.5,) * 8),
+     T.NoticeAwareKernel(0.05, "uniform"), 64,
+     {"r": np.linspace(1.0, 60.0, 13)}),
+    ("p4_weighted", _HETERO,
+     T.PoolChoiceKernel(T.ThreePhaseKernel(), "weighted"), 100,
+     {"r": np.linspace(1.0, 90.0, 13), "pool_logits": 0.25}),
+    ("p2_least_loaded", _market((1.0, 0.4), (0.02, 0.08), (0.0, 0.3)),
+     T.PoolChoiceKernel(T.ThreePhaseKernel(), "least_loaded"), 256,
+     {"r": np.linspace(1.0, 250.0, 13)}),
+    ("p2_exp_wait_fastest", _market((1.0, 0.4), (0.0, 0.0), (0.0, 0.3)),
+     T.PoolChoiceKernel(T.SingleSlotKernel(wait=T.ExponentialWait(1 / 3)),
+                        "fastest"), 1, {}),
+    ("p4_notice_cheapest", _HETERO, _NOTICE, 16,
+     {"r": np.linspace(0.5, 6.0, 13)}),
+]
+_SPLIT_MARKET_PLAN = engine._window_plan(120, 48, 24)
+
+
+def test_split_market_cases_reach_every_build():
+    """The market's split cases drive every (G, slots a thread) pair the
+    library holds (runs anywhere)."""
+    pairs = {(sweep_mod.group_size(r),
+              sweep_mod.slots_per_thread(r, sweep_mod.group_size(r)))
+             for r in range(1, sweep_mod.MAX_RMAX + 1)}
+    assert {(sweep_mod.group_size(c[3]),
+             sweep_mod.slots_per_thread(c[3], sweep_mod.group_size(c[3])))
+            for c in SPLIT_MARKET_CASES} == pairs
+
+
+def _prefilled(state, n_pools: int, seed: int):
+    """``state`` with every lane's first slots holding jobs already
+    (between half of rmax and all but two slots; ages up to 48 h, pools
+    drawn, joined in slot order), so that a short run reaches the upper
+    slots of a large rmax."""
+    rng = np.random.default_rng(seed)
+    lanes, rmax = state.occ.shape
+    held = rng.integers(rmax // 2, rmax - 1, lanes)
+    occ = np.arange(rmax)[None, :] < held[:, None]
+    dev = state.occ.device
+
+    def put(x, dtype):
+        return torch.as_tensor(np.where(occ, x, 0).astype(dtype), device=dev)
+
+    return state._replace(
+        ages=put(rng.uniform(0.0, 48.0, (lanes, rmax)), np.float32),
+        occ=torch.as_tensor(occ, device=dev),
+        pool=put(rng.integers(0, n_pools, (lanes, rmax)), np.int32),
+        order=put(np.broadcast_to(np.arange(rmax), (lanes, rmax)), np.int32),
+        next_seq=torch.as_tensor(held.astype(np.int32), device=dev),
+        qlen=torch.as_tensor(held.astype(np.int32), device=dev))
+
+
+def _split_market_run(device, case, lanes=13):
+    """The market kernel's arguments for a split case, without the plan;
+    a case of rmax 100 or more starts with its queues mostly full."""
+    name, market, kernel, rmax, params = case
+    n = market.n_pools
+    k = torch.full((lanes,), 10.0, device=device)
+    mp = {f: torch.as_tensor(np.tile(v, (lanes, 1)), device=device)
+          for f, v in market.params().items()}
+    p = {f: torch.as_tensor(np.resize(np.float32(v), lanes), device=device)
+         for f, v in params.items()}
+    if "pool_logits" in p:
+        p["pool_logits"] = p["pool_logits"][:, None].expand(lanes, n)
+    pre = market.preemptible
+    s0 = engine.init_market_state(
+        threefry.split(threefry.key(9, device), lanes), T.Exponential(LAM),
+        market, rmax, mp, pre, rng="split")
+    if rmax >= 100:
+        s0 = _prefilled(s0, n, rmax)
+    return (T.Exponential(LAM), market, kernel, rmax, pre, s0, p, mp, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_MARKET_CASES, ids=lambda c: c[0])
+def test_cuda_split_market_matches_plain_version(cuda_device, case):
+    """The market kernel's split traversal on each (G, slots a thread)
+    pair and rule: the final state (the preemption clocks among it), the
+    lane keys it reached and every statistic bitwise the plain version's;
+    one launch a call."""
+    args = (*_split_market_run(cuda_device, case), _SPLIT_MARKET_PLAN)
+    ref = market_event_windows_ref(*args, rng="split")
+    before = market_event_windows.launches
+    ker = market_event_windows(*args, rng="split")
+    torch.cuda.synchronize()
+    assert market_event_windows.launches == before + 1
+    _assert_tree_equal(ref, ker, case[0])
+    assert not torch.equal(ker[0].key, args[5].key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", list(_SPLIT_AXES))
+def test_cuda_split_market_axes_match_plain_version(cuda_device, axes):
+    """The market's split traversal with each combination of telemetry,
+    the env state (under PanicKernel(drain_dead=True)) and the work state
+    (under the safety net): every field bitwise the plain version's."""
+    tel, env, work = _SPLIT_AXES[axes]
+    i = list(_SPLIT_AXES).index(axes)
+    job, market, kernel, rmax, pre, s0, p, mp, k = _split_market_run(
+        cuda_device, SPLIT_MARKET_CASES[(2, 3, 8)[i % 3]])
+    st, ep, model, wk = s0, None, None, None
+    if env:
+        kernel = T.PanicKernel(kernel, drain_dead=True)
+        off = market_event_windows(job, market, kernel, rmax, pre, s0, p, mp,
+                                   k, _SPLIT_MARKET_PLAN, rng="split")
+        n = market.n_pools
+        ep = _env_timeline(n, _t_run(off[1])).params(n, cuda_device)
+        st = (engine.init_market_state(
+            threefry.split(threefry.key(9, cuda_device), s0.key.shape[0]),
+            job, market, rmax, mp, pre, ep, rng="split"),
+            init_env_state(ep, s0.key.shape[0]))
+    if work:
+        kernel = T.CantBeLateKernel(kernel, 0.2)
+        model = _WORK[("never", "notice", "periodic")[i % 3]]
+        wk = model.params(cuda_device)
+        st = (st, T.init_work_state(rmax, s0.key.shape[0], cuda_device))
+    args = (job, market, kernel, rmax, pre, st, p, mp, k, _SPLIT_MARKET_PLAN,
+            tel, ep, model, wk)
+    ref = market_event_windows_ref(*args, rng="split")
+    ker = market_event_windows(*args, rng="split")
+    torch.cuda.synchronize()
+    _assert_tree_equal(ref, ker, f"split market {axes}")
 
 
 def _normals(device, dtype, seed, *shapes):

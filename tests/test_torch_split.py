@@ -281,7 +281,7 @@ def test_final_lane_key_and_state_match_jax(name, jcase, case, params, rmax,
     state0, jfinal, jstats = jax.tree.map(np.asarray, run(flat, k, keys))
     s0 = convert.engine_state(state0)
     kt = torch.from_numpy(k)
-    p = engine.lane_params(case[2], convert.params(flat), kt)
+    p = convert.params(flat)
     final, stats = batched_event_windows_ref(*case, rmax, s0, p, kt, plan,
                                              rng="split")
     for field in engine.WindowStats._fields:
@@ -347,21 +347,16 @@ def test_named_refusals():
                         key=threefry.key(0), device="cpu")
     with pytest.raises(NotImplementedError, match="rejection sampler"):
         T.Gamma(2.5, 1.0).sample(threefry.key(0))
-    # the market and the regions: their 5/6-way ladders are not ported
-    market = T.SpotMarket.single(spot, price=0.4, hazard=0.05)
+    # the regions: their 6-way ladder is not ported (the market's 5-way
+    # one is: tests/test_torch_split_market.py)
     topo = T.RegionTopology.single(job, spot, rmax=4)
     for call in (
-            lambda: T.run_market_sim(job, market, T.ThreePhaseKernel(),
-                                     {"r": 1.0}, **kw),
-            lambda: T.run_market_sweep(job, market, T.ThreePhaseKernel(),
-                                       {"r": 1.0}, **kw),
             lambda: T.run_region_sim(topo, T.ThreePhaseKernel(), {"r": 1.0},
                                      **kw),
             lambda: T.run_region_sweep(topo, T.ThreePhaseKernel(),
                                        {"r": 1.0}, **kw)):
         with pytest.raises(NotImplementedError,
-                           match=r"market/regions \(ROADMAP.md Queue 1 "
-                                 r"item 7\)"):
+                           match=r"regions \(ROADMAP.md Queue 1 item 7\)"):
             call()
     # a kernel without the keyed hook cannot run the split stream
     with pytest.raises(T.NoAdmitHookError, match="keyed hook"):
@@ -401,21 +396,27 @@ def test_keyed_only_kernel_runs_on_the_cpu_and_the_card_refuses_it():
                                     rng="split")
 
 
-def test_unswept_wait_is_the_split_streams_only():
+def test_unswept_wait_samples_at_its_constants():
     """A single-slot kernel's params without ``"wait"`` (an unswept wait)
-    sample at the family's constants on the split stream only: on the slab
-    stream the plain version reads ``params["wait"]``, and the wrapper's
-    policy code asks for it the same way."""
+    sample at the family's constants, now on either stream (the slab
+    stream's repair: tests/test_torch_split_market.py holds it against the
+    JAX package): the plain version multiplies a unit exponential by the
+    float32 reciprocal of the rate, and the wrapper's policy code asks the
+    kernel for the same product."""
     job, spot = T.Exponential(LAM), T.Exponential(MU)
     kernel = T.SingleSlotKernel(wait=T.ExponentialWait(0.37))
     s0 = engine.init_engine_state(threefry.split(threefry.key(1), 4), job,
                                   spot, 1)
-    with pytest.raises(KeyError, match="wait"):
-        batched_event_windows_ref(job, spot, kernel, 1, s0, {},
-                                  torch.full((4,), K), (16,))
-    with pytest.raises(KeyError, match="wait"):
-        sweep._policy(kernel, {}, 4, "cpu")
-    policy, code, pa, _ = sweep._policy(kernel, {}, 4, "cpu", split=True)
+    for rng in ("slab", "split"):
+        _, stats = batched_event_windows_ref(job, spot, kernel, 1, s0, {},
+                                             torch.full((4,), K), (16,),
+                                             rng=rng)
+        assert stats.jobs_arrived.sum() > 0
+    u = torch.tensor([[0.25], [0.5]])
+    np.testing.assert_array_equal(
+        kernel.wait.sample_u(u).numpy(),
+        (clocks.exp_from_u(u[:, 0]) * (1 / np.float32(0.37))).numpy())
+    policy, code, pa, _ = sweep._policy(kernel, {}, 4, "cpu")
     assert (policy, code) == (1, sweep._FIXED_EXPONENTIAL_WAIT)
     np.testing.assert_array_equal(pa.numpy(),
                                   np.full(4, 1 / np.float32(0.37), np.float32))

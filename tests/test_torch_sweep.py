@@ -97,7 +97,7 @@ def test_plain_version_matches_jax_reference(name, jcase, case, params):
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     s0 = convert.engine_state(np_tree(state0))
     kt = torch.from_numpy(k)
-    p = engine.lane_params(case[2], convert.params(flat), kt)
+    p = convert.params(flat)
     final, stats = batched_event_windows_ref(*case, rmax, s0, p, kt, plan)
     assert stats.jobs_arrived.shape == (len(keys), len(plan))
     assert_close(np_tree(jstats), stats, engine.INT_STATS, name)

@@ -452,6 +452,10 @@ def test_entry_points_refuse_what_is_not_ported(name):
         # admission hook, which it calls
         with pytest.raises(T.NoAdmitHookError, match="keyed hook"):
             fn(*args, {"r": 1.0}, rng="split", **kw)
+    elif name.startswith("run_market"):
+        # the market runs it through the kernel's keyed market hooks
+        assert np.all(np.asarray(fn(*args, {"r": 1.0}, rng="split",
+                                    **kw)["jobs_arrived"]) > 0)
     else:
         with pytest.raises(NotImplementedError, match="rng='split'"):
             fn(*args, {"r": 1.0}, rng="split", **kw)

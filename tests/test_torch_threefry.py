@@ -1,9 +1,11 @@
 """The port's threefry and slab stream against ``jax.random``.
 
-Tolerance: the hash, keys, split, raw bits, uniforms and slabs are bitwise
-JAX's; exponentials are within two ulps, because XLA and PyTorch each round
-``-log1p(-u)`` of the same uniform within one ulp of the true value, on
-different sides (see tests/_torch_parity.py).
+Tolerance: the hash, keys, split, raw bits, uniforms, ``randint`` and
+slabs are bitwise JAX's; exponentials are within two ulps, because XLA and
+PyTorch each round ``-log1p(-u)`` of the same uniform within one ulp of the
+true value, on different sides (see tests/_torch_parity.py); Gumbel draws
+are bitwise under XLA's own ``log`` (``xla_log1p``) and within a few ulps
+(of a value near 0: an absolute 1e-6) with PyTorch's.
 """
 import jax
 import jax.numpy as jnp
@@ -12,7 +14,7 @@ import pytest
 import torch
 from jax.extend.random import threefry_2x32
 
-from _torch_parity import ulps
+from _torch_parity import ulps, xla_log1p, xla_log1p_tables  # noqa: F401
 from repro.core import clocks as jclocks
 from repro_torch.core import clocks, threefry
 
@@ -106,3 +108,37 @@ def test_lane_window_slabs_match_jax(plan, n_cols):
     for n_ev in plan:
         key, _ = clocks.window_slab(key, n_ev, n_cols)
     np.testing.assert_array_equal(last.numpy(), key.numpy())
+
+
+#: many keys, so that every residue of every span shows
+MANY = jax.random.key_data(jax.random.split(jax.random.key(4), 4_096))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 8])
+def test_randint_matches_jax(n):
+    """jax.random.randint(key, (), 0, n): the split key's two words reduced
+    modulo n in uint32 arithmetic, bitwise, every value drawn."""
+    ref = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.randint(
+        jax.random.wrap_key_data(k), (), 0, n, jnp.int32)))(MANY))
+    got = threefry.randint(torch.from_numpy(words(MANY)), 0, n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert set(np.unique(ref)) == set(range(n))
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_gumbel_matches_jax(n, xla_log1p):
+    """jax.random.gumbel(key, (n,)): its uniforms on [tiny, 1) bitwise (the
+    key sampler's, on bits32's counters); the draws bitwise under XLA's
+    log, and close under PyTorch's own."""
+    ref = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.gumbel(
+        jax.random.wrap_key_data(k), (n,), jnp.float32)))(MANY))
+    keys = torch.from_numpy(words(MANY))
+    np.testing.assert_array_equal(threefry.gumbel(keys, n).numpy(), ref)
+    tiny = float(np.finfo(np.float32).tiny)
+    u = np.asarray(jax.jit(jax.vmap(lambda k: jax.random.uniform(
+        jax.random.wrap_key_data(k), (n,), jnp.float32, tiny, 1.0)))(MANY))
+    np.testing.assert_array_equal(
+        threefry.uniform(keys, (n,), tiny, 1.0).numpy(), u)
+    own = (-torch.log(-torch.log(torch.from_numpy(np.array(u))))).numpy()
+    np.testing.assert_allclose(own, ref, rtol=1e-6, atol=1e-6)

@@ -166,7 +166,7 @@ def test_cant_be_late_delegates_as_jax_does():
 def test_entry_points_check_work_as_jax_does():
     """tests/test_work.py's host errors, on the port: a safety-net kernel
     without ``work=`` on every entry point, and a work model of another
-    type; ``rng="split"`` on the market, Gamma and ``shard=`` stay refused
+    type; ``rng="split"`` on the regions, Gamma and ``shard=`` stay refused
     by name."""
     job, spot = T.Exponential(1.2), T.Exponential(0.9)
     net = T.CantBeLateKernel(T.NoticeAwareKernel(checkpoint_time=0.05))
@@ -191,7 +191,7 @@ def test_entry_points_check_work_as_jax_does():
                     work=jwork.WorkModel(), **kw)
     w = work.WorkModel()
     with pytest.raises(NotImplementedError, match="split"):
-        T.run_market_sim(job, market, T.NoticeAwareKernel(0.05), {"r": 2.0},
+        T.run_region_sim(topo, T.NoticeAwareKernel(0.05), {"r": 2.0},
                          rng="split", work=w, **kw)
     with pytest.raises(NotImplementedError, match="Gamma"):
         T.run_sim(T.Gamma(2.0, 1.0), spot, T.ThreePhaseKernel(), {"r": 2.0},
